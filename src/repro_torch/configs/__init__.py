@@ -1,0 +1,21 @@
+"""Architecture registry of the port: the families ported so far, plus the
+reduced smoke configs. Later slices register the other families."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.llama32_1b import CONFIG as llama32_1b
+
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [llama32_1b]}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def smoke_config(name: str) -> ModelConfig:
+    return reduced(get_config(name))
+
+
+__all__ = ["ModelConfig", "ARCHS", "get_config", "smoke_config", "reduced"]

@@ -1,0 +1,88 @@
+"""Where the serving path's time goes on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile
+
+Runs ``serve_demo`` at full llama3.2-1b width three times with the same
+arguments as ``chip_smoke.py``: once to warm up (cuBLAS handles, lazily
+loaded kernels, the kernel build), once warm to read the engine metrics
+undisturbed, and once under ``torch.profiler``. Prints the warm metrics,
+the device's busy share in the profiled run (summed kernel time over wall
+time), the kernel launches per model call, and the top kernels by device
+time and top operators by host time.
+"""
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import llama32_1b
+from repro_torch.launch.serve import serve_demo
+
+SERVE = dict(num_requests=16, num_sites=2, max_batch=8, max_seq=1024,
+             seed=0, prompt_len=(16, 701), new_tokens=(8, 33),
+             device="cuda", verbose=False)
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _report(label: str, out: dict) -> None:
+    for i, s in enumerate(out["per_site"]):
+        print(f"[{label}] site {i}: {s['num_completed']} requests, "
+              f"{s['served_tokens']} tokens, prefill calls "
+              f"{s['prefill_calls'] - s['extend_chunks']}, extend chunks "
+              f"{s['extend_chunks']}, decode steps {s['decode_steps']}, "
+              f"TTFT mean {s['mean_ttft'] * 1e3:.1f} / p99 "
+              f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+              f"{s['mean_tbt'] * 1e3:.2f} / p99 {s['p99_tbt'] * 1e3:.2f} ms")
+    tokens = sum(s["served_tokens"] for s in out["per_site"])
+    print(f"[{label}] wall {out['wall_seconds']:.3f} s, {tokens} tokens, "
+          f"{tokens / out['wall_seconds']:.1f} tok/s")
+
+
+def main() -> int:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"[card] {smi}")
+    t0 = time.perf_counter()
+    serve_demo(llama32_1b, **SERVE)
+    print(f"[warm-up] {time.perf_counter() - t0:.3f} s")
+    _report("warm", serve_demo(llama32_1b, **SERVE))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = serve_demo(llama32_1b, **SERVE)
+        torch.cuda.synchronize()
+    _report("profiled", out)
+    wall = out["wall_seconds"]
+    events = prof.key_averages()
+    # kernel rows only: operator rows repeat their kernels' device time
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in kernels) / 1e6
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cuLaunchKernel"))
+    calls = sum(s["prefill_calls"] + s["decode_steps"]
+                for s in out["per_site"])
+    print(f"[profiled] device busy {busy:.3f} s = {busy / wall:.1%} of "
+          f"wall; {launches} kernel launches over {calls} model calls "
+          f"({launches / calls:.0f} per call)")
+    print("[device] top 15 by self device time: total ms, calls, name")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
+        print(f"  {_device_us(e) / 1e3:10.2f} {e.count:7d}  {e.key[:90]}")
+    print("[host] top 15 by self CPU time: total ms, calls, name")
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:15]:
+        print(f"  {e.self_cpu_time_total / 1e3:10.2f} {e.count:7d}  "
+              f"{e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

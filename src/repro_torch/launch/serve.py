@@ -1,0 +1,114 @@
+"""Serving entry point: one serving engine per site, requests spread by site weight.
+
+Port of ``repro/launch/serve.py``. The engines share one copy of the
+weights on the device. Heron's site weights come, in the reference, from
+``HeronRouter`` planning over the lookup table and the wind fleet; that
+control plane is not ported yet, so ``site_weights`` comes from the caller
+and defaults to uniform.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --sites 2
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.api import build
+from repro_torch.serving.engine import Request, ServingEngine
+
+
+def demo_requests(cfg: ModelConfig, *, num_requests: int, num_sites: int,
+                  site_weights: Optional[Sequence[float]] = None,
+                  seed: int = 0, prompt_len: tuple = (4, 24),
+                  new_tokens: tuple = (2, 10)) -> list:
+    """[(site, Request)]: prompt lengths and ``max_new_tokens`` drawn
+    uniformly from the half-open ranges, sites by ``site_weights``."""
+    w = np.ones(num_sites) if site_weights is None else np.asarray(
+        site_weights, float)
+    w = w / w.sum()
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(num_requests):
+        site = int(rng.choice(num_sites, p=w))
+        prompt = rng.integers(0, cfg.vocab_size,
+                              size=int(rng.integers(*prompt_len))
+                              ).astype(np.int32)
+        out.append((site, Request(rid=i, prompt=prompt,
+                                  max_new_tokens=int(rng.integers(
+                                      *new_tokens)))))
+    return out
+
+
+def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
+               num_sites: int = 2, max_batch: int = 4, max_seq: int = 128,
+               seed: int = 0, device=None,
+               site_weights: Optional[Sequence[float]] = None,
+               prompt_len: tuple = (4, 24), new_tokens: tuple = (2, 10),
+               verbose: bool = True) -> dict:
+    """Serve ``num_requests`` over ``num_sites`` engines and return the
+    summary: completed/submitted counts, wall time, each site's
+    ``EngineMetrics.summary()`` and the site weights. ``cfg=None`` serves
+    the llama3.2-1b smoke config; weights are random, drawn from ``seed``.
+    """
+    cfg = cfg or smoke_config("llama3.2-1b")
+    dev = resolve_device(device)
+    model = build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    engines = [ServingEngine(model, params, max_batch=max_batch,
+                             max_seq=max_seq, seed=seed + i)
+               for i in range(num_sites)]
+    w = np.ones(num_sites) if site_weights is None else np.asarray(
+        site_weights, float)
+    w = w / w.sum()
+    reqs = demo_requests(cfg, num_requests=num_requests, num_sites=num_sites,
+                         site_weights=w, seed=seed, prompt_len=prompt_len,
+                         new_tokens=new_tokens)
+
+    t0 = time.perf_counter()
+    for site, req in reqs:
+        req.arrival_s = time.perf_counter()
+        engines[site].submit(req)
+    metrics = [e.run() for e in engines]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+
+    per_site = [m.summary() for m in metrics]
+    done = sum(s["num_completed"] for s in per_site)
+    out = {"completed": done, "submitted": num_requests,
+           "wall_seconds": dt, "per_site": per_site,
+           "site_weights": w.tolist()}
+    if verbose:
+        print(f"[serve] {done}/{num_requests} requests served across "
+              f"{num_sites} sites in {dt:.2f}s on {dev}")
+        for i, s in enumerate(per_site):
+            print(f"  site {i}: {s['num_completed']} done, "
+                  f"TTFT mean {s['mean_ttft']*1e3:.1f} / "
+                  f"p99 {s['p99_ttft']*1e3:.1f} ms, "
+                  f"mean E2E {s['mean_e2e']*1e3:.1f} ms, "
+                  f"{s['prefill_calls']} admission calls")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--sites", type=int, default=2)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    out = serve_demo(num_requests=args.requests, num_sites=args.sites,
+                     max_batch=args.max_batch, device=args.device)
+    return 0 if out["completed"] == out["submitted"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

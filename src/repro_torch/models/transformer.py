@@ -1,0 +1,147 @@
+"""Dense decoder-only transformer: parameters, prefill, extend and decode.
+
+Port of the ``"dense"`` family of ``repro/models/transformer.py``. The
+layer stack is a Python loop over a list of per-layer parameter dicts (the
+reference scans a stacked ``[L, ...]`` tree). Parameters live on the device
+of the ``torch.Generator`` that draws them.
+
+Cache layout: ``{"kv": {"k": [L,B,S,KVH,hd], "v": ...}, "pos": [B] int32}``
+as in the reference. ``extend_fn`` and ``decode_fn`` update it in place and
+return it.
+"""
+from __future__ import annotations
+
+import math
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as Lyr
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[str(name)]
+
+
+def _dense(gen, out_f: int, in_f: int, dtype):
+    """normal / sqrt(fan_in = in_f), drawn in fp32 and cast (the
+    reference's ``dense_init``), in the ``[out, in]`` layout."""
+    w = torch.randn((out_f, in_f), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w / math.sqrt(in_f)).to(dtype)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random weights from ``gen``, on ``gen.device``: norms are ones,
+    projections normal / sqrt(fan_in)."""
+    dt = torch_dtype(cfg.dtype)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    ones = lambda: torch.ones((d,), dtype=dt, device=gen.device)
+    p = {"embed": {"embed": _dense(gen, cfg.vocab_size, d, dt)}}
+    if not cfg.tie_embeddings:
+        p["embed"]["lm_head"] = _dense(gen, cfg.vocab_size, d, dt)
+    p["layers"] = [{
+        "ln1": ones(), "ln2": ones(),
+        "attn": {"wq": _dense(gen, H * hd, d, dt),
+                 "wk": _dense(gen, KVH * hd, d, dt),
+                 "wv": _dense(gen, KVH * hd, d, dt),
+                 "wo": _dense(gen, d, H * hd, dt)},
+        "mlp": {"w_gate": _dense(gen, f, d, dt),
+                "w_up": _dense(gen, f, d, dt),
+                "w_down": _dense(gen, d, f, dt)},
+    } for _ in range(cfg.num_layers)]
+    p["final_norm"] = ones()
+    return p
+
+
+def _device(params) -> torch.device:
+    return params["final_norm"].device
+
+
+def _layer(cfg, p, x, positions, *, mode="prefill", cache=None, pos=None,
+           rows=None, reference=False):
+    h = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    o, kv = Lyr.attention_block(cfg, p["attn"], h, positions=positions,
+                                mode=mode, cache=cache, pos=pos, rows=rows,
+                                reference=reference)
+    x = x + o
+    h = Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + Lyr.mlp(p["mlp"], h), kv
+
+
+def _head(cfg, params, x):
+    """Last-token logits [B, V]."""
+    x = Lyr.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return Lyr.logits(params["embed"], x, cfg)[:, 0]
+
+
+def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
+               reference: bool = False):
+    """Run the whole prompt [B, S]; return (last-token logits, a cache of
+    exactly S positions with ``pos == S``)."""
+    dev = _device(params)
+    tokens = torch.as_tensor(inputs["tokens"], device=dev)
+    B, S = tokens.shape
+    x = Lyr.embed(params["embed"], tokens)
+    positions = torch.arange(S, device=dev)
+    L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    k_all = torch.empty((L, B, S, KVH, hd), dtype=x.dtype, device=dev)
+    v_all = torch.empty_like(k_all)
+    for i, p in enumerate(params["layers"]):
+        x, (k, v) = _layer(cfg, p, x, positions, reference=reference)
+        k_all[i], v_all[i] = k, v
+    cache = {"kv": {"k": k_all, "v": v_all},
+             "pos": torch.full((B,), S, dtype=torch.int32, device=dev)}
+    return _head(cfg, params, x), cache
+
+
+def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
+              rows=None, reference: bool = False):
+    """Continue a prefill from a decode cache with a [B, C] chunk at each
+    row's offset ``cache["pos"]``. ``rows`` [B] bool (default all) picks
+    the rows whose cache and ``pos`` move; the others are left as they
+    were. Returns (last-token logits [B, V], the cache, updated in place).
+    """
+    dev = _device(params)
+    tokens = torch.as_tensor(inputs["tokens"], device=dev)
+    B, C = tokens.shape
+    pos = cache["pos"]
+    x = Lyr.embed(params["embed"], tokens)
+    positions = pos[:, None] + torch.arange(C, device=dev)[None, :]
+    kv = cache["kv"]
+    for i, p in enumerate(params["layers"]):
+        x, _ = _layer(cfg, p, x, positions, mode="extend",
+                      cache={"k": kv["k"][i], "v": kv["v"][i]}, pos=pos,
+                      rows=rows, reference=reference)
+    step = C if rows is None else rows.to(torch.int32) * C
+    cache["pos"] = pos + step
+    return _head(cfg, params, x), cache
+
+
+def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
+              reference: bool = False):
+    """One decode step: token [B] against the cache. Returns (logits [B, V],
+    the cache, updated in place with ``pos += 1``)."""
+    dev = _device(params)
+    token = torch.as_tensor(inputs["token"], device=dev)
+    pos = cache["pos"]
+    x = Lyr.embed(params["embed"], token[:, None])
+    positions = pos[:, None]
+    kv = cache["kv"]
+    for i, p in enumerate(params["layers"]):
+        x, _ = _layer(cfg, p, x, positions, mode="decode",
+                      cache={"k": kv["k"][i], "v": kv["v"][i]}, pos=pos,
+                      reference=reference)
+    cache["pos"] = pos + 1
+    return _head(cfg, params, x), cache
+
+
+def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
+                      dtype=None) -> dict:
+    """Zeroed decode cache for ``batch`` rows of ``max_seq`` tokens."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
+                   "v": torch.zeros(shape, dtype=dt, device=device)},
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

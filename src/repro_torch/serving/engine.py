@@ -1,0 +1,389 @@
+"""Site-local serving engine: KV-cache slots + continuous batching.
+
+Port of the dense, batched and serial paths of ``repro/serving/engine.py``:
+
+  * a fixed pool of ``max_batch`` cache slots over one dense cache
+    ``[L, max_batch, max_seq, KVH, hd]``; every step runs ONE batched
+    decode over all slots, and a finished sequence frees its slot at once;
+  * batched admission (``admit_mode="batched"``, the default): waiting
+    requests are grouped by the largest power of two of their prompt
+    (bucket) and prefilled together, one ``prefill_fn`` call per (bucket,
+    power-of-2 padded batch); each prompt's tail runs through descending
+    power-of-2 ``extend_fn`` chunks shared by every row with that bit set;
+  * ``admit_mode="serial"`` keeps the one-request-at-a-time reference: a
+    bucket prefill and a B=1 decode per tail token. Batched and serial give
+    the same token streams;
+  * per-request TTFT / TBT / E2E metrics.
+
+The schedule of buckets and chunks is the reference's, so ``prefill_calls``
+and the greedy streams match it. Every token draw is keyed by (engine seed,
+request id, token index) — see ``serving.sampling``.
+
+Paged caches, async admission, the int8 cache, preempt/drain/resume,
+brownout, deadlines and the queue watermark are not ported yet: asking for
+one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.api import Model
+from repro_torch.serving.sampling import draw_key, sample_batch
+from repro_torch.stats import percentile
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # [S] int32 token ids
+    max_new_tokens: int
+    arrival_s: float = 0.0
+    temperature: float = 0.0
+    # filled by the engine
+    tokens: list = field(default_factory=list)
+    prefill_done_s: Optional[float] = None
+    finish_s: Optional[float] = None
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.prefill_done_s is None:
+            return None
+        return self.prefill_done_s - self.arrival_s
+
+    @property
+    def e2e(self) -> Optional[float]:
+        if self.finish_s is None:
+            return None
+        return self.finish_s - self.arrival_s
+
+    @property
+    def tbt(self) -> Optional[float]:
+        if self.finish_s is None or len(self.tokens) < 2:
+            return None
+        return (self.finish_s - self.prefill_done_s) / max(len(self.tokens) - 1, 1)
+
+
+def insert_cache_rows(engine_cache: dict, group_cache: dict,
+                      slots: np.ndarray) -> None:
+    """Copy row ``r`` of a prefill cache into engine slot ``slots[r]``, in
+    place; ids >= max_batch (power-of-2 padding rows) are dropped."""
+    B = engine_cache["pos"].shape[0]
+    rows = [r for r, s in enumerate(slots) if 0 <= s < B]
+    if not rows:
+        return
+    dev = engine_cache["pos"].device
+    dst = torch.as_tensor([int(slots[r]) for r in rows], device=dev)
+    src = torch.as_tensor(rows, device=dev)
+    for name in ("k", "v"):
+        g = group_cache["kv"][name]
+        engine_cache["kv"][name][:, dst, :g.shape[2]] = g[:, src]
+    engine_cache["pos"][dst] = group_cache["pos"][src]
+
+
+@dataclass
+class EngineMetrics:
+    completed: list
+    rejected: list = field(default_factory=list)
+    steps: int = 0
+    prefills: int = 0          # requests admitted (one prefill each, logically)
+    prefill_calls: int = 0     # model calls spent on admission
+    submitted: int = 0
+    decode_steps: int = 0      # decode calls (steps with >= 1 live row)
+    extend_chunks: int = 0     # extend calls of the batched prompt tails
+    admit_stall_steps: int = 0 # steps that admitted with no live decode row
+
+    def summary(self) -> dict:
+        ttfts = [r.ttft for r in self.completed if r.ttft is not None]
+        e2es = [r.e2e for r in self.completed if r.e2e is not None]
+        tbts = [r.tbt for r in self.completed if r.tbt is not None]
+        f = lambda xs: float(np.mean(xs)) if xs else 0.0
+        out = {"num_completed": len(self.completed), "steps": self.steps,
+               "prefills": self.prefills, "prefill_calls": self.prefill_calls,
+               "rejected": len(self.rejected),
+               "submitted": self.submitted,
+               "served_tokens": sum(len(r.tokens) for r in self.completed),
+               "decode_steps": self.decode_steps,
+               "extend_chunks": self.extend_chunks,
+               "admit_stall_steps": self.admit_stall_steps,
+               "mean_ttft": f(ttfts), "mean_tbt": f(tbts), "mean_e2e": f(e2es)}
+        for name, xs in (("ttft", ttfts), ("tbt", tbts), ("e2e", e2es)):
+            out[f"p50_{name}"] = percentile(xs, 50)
+            out[f"p99_{name}"] = percentile(xs, 99)
+        return out
+
+
+class ServingEngine:
+    """Continuous-batching engine over one model replica.
+
+    ``params`` decide the device: the cache and every call live where the
+    weights do. ``admit_mode``: "batched" (default) or "serial" (the
+    reference). ``admit_token_budget``: max prompt tokens admitted per step
+    (None = unlimited), at least one request per step.
+    """
+
+    def __init__(self, model: Model, params, *, max_batch: int = 8,
+                 max_seq: int = 512, eos_token: int = -1, seed: int = 0,
+                 clock=None, admit_mode: str = "batched",
+                 admit_token_budget: Optional[int] = None,
+                 queue_watermark: Optional[int] = None,
+                 paged: bool = False):
+        if admit_mode == "async":
+            raise NotImplementedError("admit_mode='async' is not ported yet")
+        if admit_mode not in ("batched", "serial"):
+            raise ValueError(f"admit_mode {admit_mode!r}")
+        if paged:
+            raise NotImplementedError("paged KV cache is not ported yet")
+        if queue_watermark is not None:
+            raise NotImplementedError("queue_watermark is not ported yet")
+        self.model = model
+        self.cfg: ModelConfig = model.cfg
+        self.params = params
+        self.device = params["final_norm"].device
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.eos = eos_token
+        self.admit_mode = admit_mode
+        self.admit_token_budget = admit_token_budget
+        self.seed = seed
+        self._clock = clock or time.perf_counter
+        self.cache = T.make_decode_cache(self.cfg, max_batch, max_seq,
+                                         self.device)
+        self.active: list[Optional[Request]] = [None] * max_batch
+        self.last_token = torch.zeros((max_batch,), dtype=torch.int32,
+                                      device=self.device)
+        self.new_counts = [0] * max_batch
+        self.waiting: deque[Request] = deque()
+        self.metrics = EngineMetrics(completed=[])
+        # B=1 cache of the serial-mode prompt tails, built at first use
+        self._b1_cache = None
+
+    # --------------------------------------------------------------- admit
+    def submit(self, req: Request) -> bool:
+        """Queue a request."""
+        self.metrics.submitted += 1
+        self.waiting.append(req)
+        return True
+
+    def _finalize_admits(self, items: list, logits) -> None:
+        """Sample first tokens for every request finished by one model call
+        (one batched draw, one host sync) and make their slots live.
+
+        items: [(slot, req, row)] with ``row`` indexing ``logits``.
+        """
+        if not items:
+            return
+        rows = torch.as_tensor([row for _, _, row in items],
+                               device=logits.device)
+        keys = [draw_key(self.seed, req.rid, len(req.tokens))
+                for _, req, _ in items]
+        temps = [req.temperature for _, req, _ in items]
+        toks = sample_batch(logits[rows], keys, temps).cpu().numpy()
+        now = self._clock()
+        live_slots, live_toks = [], []
+        for j, (slot, req, _) in enumerate(items):
+            tok = int(toks[j])
+            req.tokens.append(tok)
+            req.prefill_done_s = now
+            self.metrics.prefills += 1
+            if len(req.tokens) >= req.max_new_tokens or tok == self.eos:
+                # the prompt's last logits gave the only requested token:
+                # the slot never goes live
+                req.finish_s = now
+                self.metrics.completed.append(req)
+                self.release_slot(slot)
+                continue
+            self.active[slot] = req
+            self.new_counts[slot] = len(req.tokens)
+            live_slots.append(slot)
+            live_toks.append(tok)
+        if live_slots:
+            self.last_token[torch.as_tensor(live_slots, device=self.device)] = (
+                torch.as_tensor(live_toks, dtype=torch.int32,
+                                device=self.device))
+
+    def _admit(self) -> None:
+        if not self.waiting:
+            return
+        free = [i for i, r in enumerate(self.active) if r is None]
+        admits: list[tuple[int, Request]] = []
+        spent = 0
+        budget = self.admit_token_budget
+        while self.waiting and free:
+            req = self.waiting[0]
+            S = len(req.prompt)
+            if req.max_new_tokens <= 0:
+                # nothing to generate: complete as-is, no slot, no prefill
+                self.waiting.popleft()
+                req.finish_s = self._clock()
+                self.metrics.completed.append(req)
+                continue
+            if S == 0 or S + req.max_new_tokens - 1 > self.max_seq:
+                # can never fit this engine's cache: reject without a slot
+                self.waiting.popleft()
+                req.finish_s = self._clock()
+                self.metrics.rejected.append(req)
+                continue
+            if admits and budget is not None and spent + S > budget:
+                break
+            self.waiting.popleft()
+            admits.append((free.pop(0), req))
+            spent += S
+        if not admits:
+            return
+        if self.admit_mode == "serial":
+            for slot, req in admits:
+                self._admit_serial(slot, req)
+        else:
+            self._admit_batched(admits)
+
+    def _admit_serial(self, slot: int, req: Request) -> None:
+        """Reference path: pow2-prefix prefill + serial B=1 decode tail."""
+        full = np.asarray(req.prompt, np.int32)
+        S = len(full)
+        bucket = 1 << (S.bit_length() - 1)
+        logits, req_cache = self.model.prefill_fn(
+            self.params, {"tokens": torch.as_tensor(full[None, :bucket])})
+        self.metrics.prefill_calls += 1
+        if bucket < S:
+            # decode(prefill of a prefix) is the exact sequential
+            # continuation, so the final logits match a full-length prefill
+            if self._b1_cache is None:
+                self._b1_cache = T.make_decode_cache(self.cfg, 1,
+                                                     self.max_seq,
+                                                     self.device)
+            b1 = self._b1_cache
+            for t in (b1["kv"]["k"], b1["kv"]["v"], b1["pos"]):
+                t.zero_()
+            insert_cache_rows(b1, req_cache, np.zeros(1, np.int32))
+            for tok in full[bucket:]:
+                logits, b1 = self.model.decode_fn(
+                    self.params, {"token": torch.as_tensor([tok])}, b1)
+                self.metrics.prefill_calls += 1
+            req_cache = b1
+        insert_cache_rows(self.cache, req_cache, np.asarray([slot]))
+        self._finalize_admits([(slot, req, 0)], logits)
+
+    def _admit_batched(self, admits: list) -> None:
+        """Grouped bucket prefills + shared descending-pow2 extend tails."""
+        groups: dict[int, list] = {}
+        for slot, req in admits:
+            full = np.asarray(req.prompt, np.int32)
+            bucket = 1 << (len(full).bit_length() - 1)
+            groups.setdefault(bucket, []).append((slot, req, full))
+        pend: dict[int, list] = {}          # slot -> [req, full, consumed]
+        for bucket in sorted(groups, reverse=True):
+            group = groups[bucket]
+            kp = 1 << (len(group) - 1).bit_length()   # pow2-padded batch
+            toks = np.zeros((kp, bucket), np.int32)
+            # padding rows go to slot id max_batch and are dropped
+            slots = np.full((kp,), self.max_batch, np.int32)
+            for r, (slot, req, full) in enumerate(group):
+                toks[r] = full[:bucket]
+                slots[r] = slot
+            logits, gcache = self.model.prefill_fn(
+                self.params, {"tokens": torch.as_tensor(toks)})
+            self.metrics.prefill_calls += 1
+            insert_cache_rows(self.cache, gcache, slots)
+            fins = []
+            for r, (slot, req, full) in enumerate(group):
+                if bucket == len(full):
+                    fins.append((slot, req, r))
+                else:
+                    pend[slot] = [req, full, bucket]
+            self._finalize_admits(fins, logits)
+        while pend:
+            # chunk = the largest remaining binary digit across pending
+            # rows; every row with that bit set advances this round
+            C = max(1 << ((len(full) - cons).bit_length() - 1)
+                    for req, full, cons in pend.values())
+            toks = np.zeros((self.max_batch, C), np.int32)
+            mask = np.zeros((self.max_batch,), bool)
+            takers = []
+            for slot, (req, full, cons) in pend.items():
+                if (len(full) - cons) & C:
+                    toks[slot] = full[cons:cons + C]
+                    mask[slot] = True
+                    takers.append(slot)
+            # the extend runs over the whole engine batch; rows outside the
+            # mask keep their cache and pos (written in place, where the
+            # reference selects old against new)
+            logits, self.cache = self.model.extend_fn(
+                self.params, {"tokens": torch.as_tensor(toks)}, self.cache,
+                rows=torch.as_tensor(mask, device=self.device))
+            self.metrics.prefill_calls += 1
+            self.metrics.extend_chunks += 1
+            fins = []
+            for slot in takers:
+                req, full, cons = pend[slot]
+                cons += C
+                if cons == len(full):
+                    del pend[slot]
+                    fins.append((slot, req, slot))
+                else:
+                    pend[slot][2] = cons
+            self._finalize_admits(fins, logits)
+
+    # --------------------------------------------------------------- slots
+    def release_slot(self, slot: int) -> None:
+        """Retire a slot: clear its bookkeeping and zero its cache position
+        so its stale cache rows are masked. Idempotent; an out-of-range
+        slot id raises."""
+        if not 0 <= slot < self.max_batch:
+            raise ValueError(
+                f"slot {slot} out of range [0, {self.max_batch})")
+        self.active[slot] = None
+        self.new_counts[slot] = 0
+        self.cache["pos"][slot] = 0
+
+    # --------------------------------------------------------------- step
+    def step(self) -> int:
+        """Admit waiting requests, run one batched decode. Returns #active."""
+        pc_before = self.metrics.prefill_calls
+        self._admit()
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            if self.metrics.prefill_calls > pc_before:
+                self.metrics.admit_stall_steps += 1
+            return 0
+        # every row decodes, free ones too (their results are dropped and
+        # their cache writes past max_seq are dropped in the layer)
+        logits, self.cache = self.model.decode_fn(
+            self.params, {"token": self.last_token}, self.cache)
+        self.metrics.decode_steps += 1
+        keys = [0] * self.max_batch
+        temps = [0.0] * self.max_batch
+        for i in live:
+            req = self.active[i]
+            keys[i] = draw_key(self.seed, req.rid, len(req.tokens))
+            temps[i] = req.temperature
+        toks = sample_batch(logits, keys, temps)
+        toks_np = toks.cpu().numpy()
+        self.last_token = toks
+        self.metrics.steps += 1
+        now = self._clock()
+        for i in live:
+            req = self.active[i]
+            req.tokens.append(int(toks_np[i]))
+            self.new_counts[i] += 1
+            if (self.new_counts[i] >= req.max_new_tokens
+                    or int(toks_np[i]) == self.eos):
+                req.finish_s = now
+                self.metrics.completed.append(req)
+                self.release_slot(i)
+        return len([r for r in self.active if r is not None])
+
+    def run(self, max_steps: int = 10_000) -> EngineMetrics:
+        """Drain all waiting + active requests."""
+        for _ in range(max_steps):
+            n = self.step()
+            if n == 0 and not self.waiting:
+                break
+        return self.metrics

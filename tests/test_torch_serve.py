@@ -1,0 +1,46 @@
+"""Port serving entry point on the CPU, and the port's import boundary."""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.launch.serve import serve_demo
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_serve_demo_completes_every_request():
+    out = serve_demo(device="cpu", num_requests=6, num_sites=2, max_batch=2,
+                     max_seq=64, seed=1, verbose=False)
+    assert out["completed"] == out["submitted"] == 6
+    assert sum(s["num_completed"] for s in out["per_site"]) == 6
+    assert all(s["rejected"] == 0 for s in out["per_site"])
+    assert out["site_weights"] == [0.5, 0.5]
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """No silent drop to the CPU: the default device is CUDA, and asking
+    for it without a card raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.serve, repro_torch.models.convert\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)
