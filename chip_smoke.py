@@ -5,20 +5,29 @@
 
 Phases (any failure exits non-zero before the result line):
   1. device: the card, its power limit, TF32 off;
-  2. build: both CUDA kernels with nvcc, from src/repro_torch/kernels/csrc,
+  2. build: every CUDA kernel with nvcc, from src/repro_torch/kernels/csrc,
      one nvcc per source, started together;
   3. kernels: each kernel against its plain PyTorch version at the serving
-     path's shapes, with its time, the plain version's, one library call's
-     (a yardstick the port never calls) and the least time the card could
-     take;
+     path's shapes (the paged ones with all-sentinel rows and lengths past
+     the table), with its time, the plain version's, one library call's
+     where one exists (a yardstick the port never calls) and the least
+     time the card could take;
   4. serve: llama3.2-1b at its published width (random weights from a
      seed) behind two site engines, 16 requests; every request completes,
-     both kernels' launch counts match the model calls, and one prompt's
-     logits match the plain path's.
+     the kernels' launch counts match the model calls, and one prompt's
+     logits match the plain path's;
+  4b. paged serve: the same 16 requests through paged engines, at the
+     default pool and at a pool small enough that admission waits; every
+     page comes back, kernels 4 and 5 launch once per layer and call, and
+     a 2-layer fp32 model at full width gives the dense streams;
+  4c. int8: a prefilled batch quantized into a dense and a paged int8
+     cache, one extend chunk and decode steps through kernels 3 and
+     4-int8, logits against the plain path.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -73,6 +82,11 @@ def bound(nbytes: float, flops: float, peak: float):
     return max(mem, ops) * 1e3, ("bytes" if mem >= ops else "operations")
 
 
+def reset(*kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -82,9 +96,22 @@ def main() -> int:
     from repro_torch.configs import llama32_1b
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int8 import (
+        decode_attention_int8)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_int8)
+    from repro_torch.kernels.paged_extend_attention import (
+        paged_extend_attention)
     from repro_torch.launch.serve import demo_requests, serve_demo
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import transformer as T
     from repro_torch.models.api import build as build_model
+    from repro_torch.serving.engine import insert_cache_pages
+    kernel_fns = {k.__name__: k for k in (
+        flash_attention, decode_attention, decode_attention_int8,
+        paged_decode_attention, paged_decode_attention_int8,
+        paged_extend_attention)}
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,7 +125,9 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "decode_attention"])
+    logs = build.build(["flash_attention", "decode_attention",
+                        "decode_attention_int8", "paged_decode_attention",
+                        "paged_extend_attention"])
     print(f"[build] {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -158,6 +187,92 @@ def main() -> int:
                     f"{dtype} B=8 S={S_dec} hd={hd} lengths="
                     f"{lens_main.tolist()}")
 
+    # the paged serving shape: 8 rows, a 64-page table (1024 tokens) over
+    # a pool of 512 pages + the trash page; row 5's table is all sentinel
+    # (a free slot) and rows 3/4 run past the table's width
+    P_pool, page, W = 512, 16, 64
+
+    def paged_inputs(dtype, hd, B=8, sentinel=(5,)):
+        if dtype == torch.int8:
+            kp, ks = Lyr.quantize_kv(rnd(P_pool + 1, page, KVH, hd,
+                                         dtype=torch.float32))
+            vp, vs = Lyr.quantize_kv(rnd(P_pool + 1, page, KVH, hd,
+                                         dtype=torch.float32))
+        else:
+            kp = rnd(P_pool + 1, page, KVH, hd, dtype=dtype)
+            vp = rnd(P_pool + 1, page, KVH, hd, dtype=dtype)
+            ks = vs = None
+        perm = torch.randperm(P_pool, generator=gen, device=dev)
+        table = perm[:B * W].reshape(B, W).to(torch.int32)
+        for b in sentinel:
+            table[b] = P_pool
+        return kp, vp, ks, vs, table
+
+    print("[kernels] decode_attention_int8 vs decode_attention_int8_ref")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for hd in (64, 128):
+            q = rnd(8, H, hd, dtype=dt)
+            kc, ks = Lyr.quantize_kv(rnd(8, S_dec, KVH, hd,
+                                         dtype=torch.float32))
+            vc, vs = Lyr.quantize_kv(rnd(8, S_dec, KVH, hd,
+                                         dtype=torch.float32))
+            kn, vn = rnd(8, KVH, hd, dtype=dt), rnd(8, KVH, hd, dtype=dt)
+            lens = torch.cat([lens_main[:-1],
+                              torch.zeros(1, dtype=torch.int32, device=dev)])
+            compare("decode_attention_int8",
+                    decode_attention_int8(q, kc, vc, ks, vs, lens, k_new=kn,
+                                          v_new=vn),
+                    ref.decode_attention_int8_ref(q, kc, vc, ks, vs, lens,
+                                                  kn, vn), dtype,
+                    f"{dtype} B=8 S={S_dec} hd={hd} +fresh lengths="
+                    f"{lens.tolist()}")
+
+    print("[kernels] paged_decode_attention(_int8) vs "
+          "paged_decode_attention_ref")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for hd in (64, 128):
+            q = rnd(8, H, hd, dtype=dt)
+            kp, vp, _, _, table = paged_inputs(dt, hd)
+            for w in (W, 16):
+                t = table[:, :w]
+                compare("paged_decode_attention",
+                        paged_decode_attention(q, kp, vp, t, lens_main),
+                        ref.paged_decode_attention_ref(q, kp, vp, t,
+                                                       lens_main),
+                        dtype, f"{dtype} B=8 W={w} page={page} hd={hd} "
+                        f"lengths={lens_main.tolist()} row 5 sentinel")
+            kp, vp, ks, vs, table = paged_inputs(torch.int8, hd)
+            kn, vn = rnd(8, KVH, hd, dtype=dt), rnd(8, KVH, hd, dtype=dt)
+            for fresh in (True, False):
+                a, c = (kn, vn) if fresh else (None, None)
+                compare("paged_decode_attention_int8",
+                        paged_decode_attention_int8(q, kp, vp, ks, vs, table,
+                                                    lens_main, k_new=a,
+                                                    v_new=c),
+                        ref.paged_decode_attention_ref(
+                            q, kp, vp, table, lens_main, k_scale=ks,
+                            v_scale=vs, k_new=a, v_new=c),
+                        dtype, f"{dtype} B=8 W={W} hd={hd} int8 fresh="
+                        f"{fresh} row 5 sentinel")
+
+    print("[kernels] paged_extend_attention vs paged_extend_attention_ref")
+    pos_ext = torch.tensor([256, 0, 512, 0, 128, 900, 64, 2000],
+                           dtype=torch.int32, device=dev)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for C, hd in ((1, 64), (16, 64), (64, 64), (256, 64), (64, 128)):
+            q = rnd(8, C, H, hd, dtype=dt)
+            kn, vn = (rnd(8, C, KVH, hd, dtype=dt) for _ in range(2))
+            kp, vp, _, _, table = paged_inputs(dt, hd, sentinel=(1, 3))
+            compare("paged_extend_attention",
+                    paged_extend_attention(q, kp, vp, kn, vn, table, pos_ext),
+                    ref.paged_extend_attention_ref(q, kp, vp, kn, vn, table,
+                                                   pos_ext),
+                    dtype, f"{dtype} B=8 C={C} W={W} hd={hd} pos="
+                    f"{pos_ext.tolist()} rows 1,3 sentinel")
+
     print("[kernels] times (bf16, CUDA events, median of 30, L2 flushed)")
     bf = torch.bfloat16
     for S in (5, 16, 300, 512):
@@ -204,7 +319,88 @@ def main() -> int:
         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
         shape=f"bf16 B=8 S={S_dec} H={H} KVH={KVH} hd={hd} "
         f"lengths={lens_main.tolist()}")
-    del l2, q, kc, vc, kr, vr, mask
+
+    # kernels 3 and 4: the decode shape above (4000 live keys), int8 with
+    # the fresh token; bytes: each key's K and V rows and scales once
+    keys_kv = keys * KVH
+    kn, vn = rnd(8, KVH, hd, dtype=bf), rnd(8, KVH, hd, dtype=bf)
+    kc8, ks8 = Lyr.quantize_kv(kc)
+    vc8, vs8 = Lyr.quantize_kv(vc)
+    fresh_bytes = 2 * 2 * kn.numel()
+    ms = time_ms(lambda: decode_attention_int8(
+        q, kc8, vc8, ks8, vs8, lens_main, k_new=kn, v_new=vn), flush)
+    plain = time_ms(lambda: ref.decode_attention_int8_ref(
+        q, kc8, vc8, ks8, vs8, lens_main, kn, vn), flush)
+    nbytes = 2 * 2 * q.numel() + 2 * keys_kv * (hd + 4) + fresh_bytes + 32
+    b_ms, b_by = bound(nbytes, 4.0 * H * hd * (keys + 8), BF16_FLOP_PER_S)
+    print(f"  decode_attention_int8 B=8 S={S_dec} hd={hd} ragged +fresh: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f}, bound {b_ms:.5f} ({b_by})"
+          f" -> {b_ms / ms:.1%} of bound")
+    rows["decode_attention_int8"].update(
+        ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"bf16 q, int8 cache B=8 S={S_dec} H={H} KVH={KVH} hd={hd} "
+        f"lengths={lens_main.tolist()} + fresh token")
+
+    kp, vp, _, _, table = paged_inputs(bf, hd, sentinel=())
+    lens_pg = lens_main.clamp(max=W * page)
+    ms = time_ms(lambda: paged_decode_attention(q, kp, vp, table, lens_main),
+                 flush)
+    plain = time_ms(lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, table, lens_main), flush)
+    keys_pg = int(lens_pg.sum())
+    nbytes = (2 * 2 * q.numel() + 2 * 2 * keys_pg * KVH * hd + 4 * 8
+              + 4 * table.numel())
+    b_ms, b_by = bound(nbytes, 4.0 * H * hd * keys_pg, BF16_FLOP_PER_S)
+    print(f"  paged_decode_attention B=8 W={W} page={page} hd={hd}: kernel "
+          f"{ms:.4f} ms, plain {plain:.4f}, bound {b_ms:.5f} ({b_by}) -> "
+          f"{b_ms / ms:.1%} of bound")
+    rows["paged_decode_attention"].update(
+        ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"bf16 B=8 W={W} page={page} pool={P_pool}+1 H={H} KVH={KVH} "
+        f"hd={hd} lengths={lens_main.tolist()}")
+    kp8, vp8, ks8, vs8, table = paged_inputs(torch.int8, hd, sentinel=())
+    ms = time_ms(lambda: paged_decode_attention_int8(
+        q, kp8, vp8, ks8, vs8, table, lens_main, k_new=kn, v_new=vn), flush)
+    plain = time_ms(lambda: ref.paged_decode_attention_ref(
+        q, kp8, vp8, table, lens_main, k_scale=ks8, v_scale=vs8, k_new=kn,
+        v_new=vn), flush)
+    nbytes = (2 * 2 * q.numel() + 2 * keys_pg * KVH * (hd + 4) + fresh_bytes
+              + 4 * 8 + 4 * table.numel())
+    b_ms, b_by = bound(nbytes, 4.0 * H * hd * (keys_pg + 8), BF16_FLOP_PER_S)
+    print(f"  paged_decode_attention_int8 B=8 W={W} hd={hd} +fresh: kernel "
+          f"{ms:.4f} ms, plain {plain:.4f}, bound {b_ms:.5f} ({b_by}) -> "
+          f"{b_ms / ms:.1%} of bound")
+    rows["paged_decode_attention_int8"].update(
+        ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"bf16 q, int8 pools B=8 W={W} page={page} H={H} KVH={KVH} "
+        f"hd={hd} lengths={lens_main.tolist()} + fresh token")
+
+    # kernel 5 at the tail chunks the serving path runs: 8 rows, half of
+    # them masked (pos 0), the others mid-prompt
+    pos_tail = torch.tensor([256, 0, 512, 0, 128, 0, 64, 0],
+                            dtype=torch.int32, device=dev)
+    cached = int(pos_tail.sum())
+    kp, vp, _, _, table = paged_inputs(bf, hd, sentinel=())
+    for C in (1, 16, 64, 256):
+        qe = rnd(8, C, H, hd, dtype=bf)
+        kn, vn = (rnd(8, C, KVH, hd, dtype=bf) for _ in range(2))
+        ms = time_ms(lambda: paged_extend_attention(
+            qe, kp, vp, kn, vn, table, pos_tail), flush)
+        plain = time_ms(lambda: ref.paged_extend_attention_ref(
+            qe, kp, vp, kn, vn, table, pos_tail), flush)
+        nbytes = (2 * 2 * qe.numel() + 2 * 2 * kn.numel()
+                  + 2 * 2 * cached * KVH * hd + 4 * 8 + 4 * table.numel())
+        flops = 4.0 * H * hd * (C * cached + 8 * C * (C + 1) / 2)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        print(f"  paged_extend_attention B=8 C={C} pos={pos_tail.tolist()} "
+              f"hd={hd}: kernel {ms:.4f} ms, plain {plain:.4f}, bound "
+              f"{b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound")
+        if C == 64:
+            rows["paged_extend_attention"].update(
+                ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, shape=f"bf16 B=8 C={C} W={W} page={page} "
+                f"H={H} KVH={KVH} hd={hd} pos={pos_tail.tolist()}")
+    del l2, q, kc, vc, kr, vr, mask, kp, vp, kp8, vp8, kc8, vc8
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 4. serve
@@ -213,12 +409,14 @@ def main() -> int:
     serve_kw = dict(num_requests=16, num_sites=2, seed=SEED,
                     prompt_len=(16, 701), new_tokens=(8, 33))
     torch.cuda.reset_peak_memory_stats(dev)
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    reset(*kernel_fns.values())
     out = serve_demo(cfg, max_batch=8, max_seq=1024, device="cuda",
                      **serve_kw)
     launches = {"flash_attention": flash_attention.launches,
                 "decode_attention": decode_attention.launches}
+    others = {k: f.launches for k, f in kernel_fns.items()
+              if k not in launches and f.launches}
+    check(not others, f"the dense path launched other kernels: {others}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     sites = out["per_site"]
     check(out["completed"] == out["submitted"] == 16,
@@ -269,17 +467,196 @@ def main() -> int:
           f"(bound {LOGIT_BOUND}), argmax {int(got.argmax())} vs "
           f"{int(want.argmax())}")
 
+    # ----------------------------------------------------- 4b. paged serve
+    # the default pool (dense capacity, 512 pages of 16 tokens per site)
+    # and 224 pages (7/16 of it): site 0's first eight requests need 241
+    # pages, so its admission waits for pages to come back
+    paged_runs = {}
+    for num_pages in (None, 224):
+        reset(*kernel_fns.values())
+        pout = serve_demo(cfg, max_batch=8, max_seq=1024, device="cuda",
+                          paged=True, num_pages=num_pages, **serve_kw)
+        plaunch = {k: f.launches for k, f in kernel_fns.items()}
+        psites = pout["per_site"]
+        tag = f"num_pages={num_pages or 'default'}"
+        check(pout["completed"] == pout["submitted"] == 16,
+              f"paged {tag}: served {pout['completed']}/{pout['submitted']}")
+        check(pout["free_pages"] == pout["num_pages"],
+              f"paged {tag}: pages not returned: free {pout['free_pages']} "
+              f"of {pout['num_pages']}")
+        p_decode = sum(s["decode_steps"] for s in psites)
+        p_extend = sum(s["extend_chunks"] for s in psites)
+        p_prefill = sum(s["prefill_calls"] - s["extend_chunks"]
+                        for s in psites)
+        check(plaunch["paged_decode_attention"] == L * p_decode > 0,
+              f"paged {tag}: kernel 4 launches "
+              f"{plaunch['paged_decode_attention']} != {L} x {p_decode}")
+        check(plaunch["paged_extend_attention"] == L * p_extend > 0,
+              f"paged {tag}: kernel 5 launches "
+              f"{plaunch['paged_extend_attention']} != {L} x {p_extend}")
+        check(plaunch["flash_attention"] == L * p_prefill,
+              f"paged {tag}: flash launches {plaunch['flash_attention']} != "
+              f"{L} x {p_prefill}")
+        check(plaunch["decode_attention"] == 0,
+              f"paged {tag}: the dense decode kernel ran")
+        waits = [s["page_waits"] for s in psites]
+        if num_pages is not None:
+            check(any(waits), f"paged {tag}: admission never waited")
+        served_p = sum(s["served_tokens"] for s in psites)
+        check(served_p == served, f"paged {tag}: served {served_p} tokens")
+        paged_runs[tag] = plaunch
+        print(f"[paged] {tag}: 16/16 requests, {served_p} tokens in "
+              f"{pout['wall_seconds']:.3f} s "
+              f"({served_p / pout['wall_seconds']:.1f} tok/s), pages free "
+              f"after {pout['free_pages']} of {pout['num_pages']}, "
+              f"admission waits for pages {waits}")
+        for i, s in enumerate(psites):
+            print(f"  site {i}: prefill calls "
+                  f"{s['prefill_calls'] - s['extend_chunks']}, extend chunks "
+                  f"{s['extend_chunks']}, decode steps {s['decode_steps']}, "
+                  f"TTFT mean {s['mean_ttft'] * 1e3:.1f} / p99 "
+                  f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+                  f"{s['mean_tbt'] * 1e3:.2f} / p99 "
+                  f"{s['p99_tbt'] * 1e3:.2f} ms")
+        print(f"  launches: {plaunch}")
+
+    def paged_first_logits(model, prompt):
+        """Request 0's admission on a paged cache: bucket prefill, then
+        descending power-of-2 extend chunks, as the engine runs it."""
+        S = prompt.shape[1]
+        bucket = 1 << (S.bit_length() - 1)
+        logits, pre = model.prefill_fn(params, {"tokens": prompt[:, :bucket]})
+        cache = T.make_paged_decode_cache(cfg, 1, 1024, dev, num_pages=64)
+        cache["table"] = torch.randperm(64, generator=gen, device=dev)[
+            None].to(torch.int32)
+        insert_cache_pages(cache["kv"], pre["kv"],
+                           cache["table"][:, :-(-bucket // 16)].long())
+        cache["pos"] = pre["pos"].clone()
+        done = bucket
+        while done < S:
+            C = 1 << ((S - done).bit_length() - 1)
+            logits, cache = model.extend_fn(
+                params, {"tokens": prompt[:, done:done + C]}, cache)
+            done += C
+        return logits
+
+    with torch.no_grad():
+        got = paged_first_logits(build_model(cfg), prompt)
+        want = paged_first_logits(build_model(cfg, reference=True), prompt)
+    torch.cuda.synchronize()
+    check(got.shape == (1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+          f"paged logits shape {tuple(got.shape)} or non-finite")
+    lerr_p = (got.float() - want.float()).abs().max().item()
+    check(lerr_p <= LOGIT_BOUND,
+          f"paged logits differ by {lerr_p:.3g} > {LOGIT_BOUND}")
+    print(f"[paged] request 0 first-token logits through paged extends, "
+          f"kernel path vs plain path: max |diff| {lerr_p:.4g} (bound "
+          f"{LOGIT_BOUND}), argmax {int(got.argmax())} vs "
+          f"{int(want.argmax())}")
+
+    # reduced depth, full width, fp32: paged and dense streams are equal
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    streams = {}
+    for paged in (False, True):
+        o = serve_demo(cfg32, max_batch=8, max_seq=1024, device="cuda",
+                       paged=paged, verbose=False, **serve_kw)
+        check(o["completed"] == 16, f"fp32 paged={paged}: {o['completed']}")
+        streams[paged] = o["tokens"]
+    check(streams[True] == streams[False],
+          "fp32 2-layer paged and dense greedy streams differ")
+    print(f"[paged] {cfg32.num_layers}-layer fp32 at full width: paged and "
+          f"dense greedy streams equal over 16 requests "
+          f"({sum(len(t) for t in streams[True].values())} tokens)")
+
+    # ----------------------------------------------------------- 4c. int8
+    # a prefilled batch of 4 x 256 tokens in a dense cache and in a paged
+    # one, quantized; one 32-token extend chunk and 4 decode steps, the
+    # kernel path and the plain path each on its own copy
+    B8, S8, C8, steps = 4, 256, 32, 4
+    toks = torch.randint(0, cfg.vocab_size, (B8, S8 + C8 + steps),
+                         generator=gen, device=dev).to(torch.int32)
+    model = build_model(cfg)
+    with torch.no_grad():
+        _, pre = model.prefill_fn(params, {"tokens": toks[:, :S8]})
+    dense = T.make_decode_cache(cfg, B8, 1024, dev)
+    for n in ("k", "v"):
+        dense["kv"][n][:, :, :S8] = pre["kv"][n]
+    dense["pos"] = pre["pos"].clone()
+    pg = T.make_paged_decode_cache(cfg, B8, 1024, dev, num_pages=B8 * 64)
+    pg["table"] = torch.randperm(B8 * 64, generator=gen, device=dev).reshape(
+        B8, 64).to(torch.int32)
+    insert_cache_pages(pg["kv"], pre["kv"], pg["table"][:, :S8 // 16].long())
+    pg["pos"] = pre["pos"].clone()
+    int8_caches = {"dense": T.quantize_decode_cache(dense),
+                   "paged": T.quantize_decode_cache(pg)}
+    del dense, pg, pre
+
+    def int8_run(m, cache):
+        cache = {**cache, "kv": {n: t.clone() for n, t in
+                                 cache["kv"].items()},
+                 "pos": cache["pos"].clone()}
+        out = []
+        logits, cache = m.extend_fn(
+            params, {"tokens": toks[:, S8:S8 + C8]}, cache)
+        out.append(logits)
+        for i in range(steps):           # the same tokens on both paths
+            logits, cache = m.decode_fn(
+                params, {"token": toks[:, S8 + C8 + i]}, cache)
+            out.append(logits)
+        return out
+
+    int8_launches = {}
+    for kind, c in int8_caches.items():
+        with torch.no_grad():
+            reset(*kernel_fns.values())
+            got = int8_run(model, c)
+            torch.cuda.synchronize()
+            k8 = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+            want = int8_run(build_model(cfg, reference=True), c)
+        kname = ("decode_attention_int8" if kind == "dense"
+                 else "paged_decode_attention_int8")
+        check(k8 == {kname: L * steps},
+              f"int8 {kind}: launches {k8} != {{{kname}: {L} x {steps}}}")
+        int8_launches[kname] = k8[kname]
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"int8 {kind}: non-finite logits")
+        check(max(errs) <= LOGIT_BOUND,
+              f"int8 {kind}: logits differ by {max(errs):.3g} > "
+              f"{LOGIT_BOUND}")
+        print(f"[int8] {kind}: extend C={C8} then {steps} decode steps at "
+              f"B={B8}, pos {S8}..{S8 + C8 + steps}: launches {k8}; kernel "
+              f"path vs plain path max |logit diff| per call "
+              f"{[round(e, 4) for e in errs]} (bound {LOGIT_BOUND})")
+    launches.update(int8_launches)
+    launches.update(
+        paged_decode_attention=paged_runs["num_pages=default"][
+            "paged_decode_attention"],
+        paged_extend_attention=paged_runs["num_pages=default"][
+            "paged_extend_attention"])
+
     # ---------------------------------------------------------- 5. report
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),
-           "decode_attention": ("decode_attention.py:92", "decode_attention")}
+           "decode_attention": ("decode_attention.py:92", "decode_attention"),
+           "decode_attention_int8": ("decode_attention.py:139",
+                                     "decode_attention_int8"),
+           "paged_decode_attention": ("decode_attention.py:263",
+                                      "paged_decode_attention"),
+           "paged_decode_attention_int8": ("decode_attention.py:263",
+                                           "paged_decode_attention"),
+           "paged_extend_attention": ("flash_attention.py:209",
+                                      "paged_extend_attention")}
+    csrc = {"paged_decode_attention_int8": "paged_decode_attention"}
     table = []
     for name, r in rows.items():
         tpu_line, fn = src[name]
         table.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{csrc.get(name, name)}.cu",
             "replaces": f"src/repro/kernels/{tpu_line}",
-            "tpu_source": f"src/repro/kernels/{name}.py:{fn}",
+            "tpu_source": f"src/repro/kernels/{tpu_line.split(':')[0]}:{fn}",
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],

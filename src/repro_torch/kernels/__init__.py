@@ -5,4 +5,9 @@ device dispatch (``ops``).
   flash_attention  — prefill attention (repro/kernels/flash_attention.py)
   decode_attention — one-token attention over a ragged dense cache
                      (repro/kernels/decode_attention.py)
+  decode_attention_int8  — the same over an int8 cache with scales
+  paged_decode_attention — one-token attention through a block table,
+                     fp or int8 pools (repro/kernels/decode_attention.py)
+  paged_extend_attention — chunk attention continued from page pools
+                     (repro/kernels/flash_attention.py)
 """

@@ -1,7 +1,8 @@
 // Helpers shared by the attention kernels: fp32 conversion of bf16/fp32
-// elements, 16-byte vector loads and warp reductions.
+// elements, 16-byte vector loads (int8 rows too) and warp reductions.
 #pragma once
 
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -14,6 +15,7 @@ constexpr float kNegInf = -1e30f;
 // dtype codes of the C interface
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -56,6 +58,19 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
       out[8 * i + 2 * j] = f.x;
       out[8 * i + 2 * j + 1] = f.y;
     }
+  }
+}
+
+// int8 rows load as 16-byte int4 words, each widened to 16 floats.
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
+  static_assert(N % 16 == 0, "int8 rows load as 16-element int4");
+#pragma unroll
+  for (int i = 0; i < N / 16; ++i) {
+    int4 t = reinterpret_cast<const int4*>(p)[i];
+    const int8_t* c = reinterpret_cast<const int8_t*>(&t);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) out[16 * i + j] = static_cast<float>(c[j]);
   }
 }
 

@@ -12,8 +12,15 @@ from __future__ import annotations
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
     decode_attention as _decode_kernel)
+from repro_torch.kernels.decode_attention_int8 import (
+    decode_attention_int8 as _decode_int8_kernel)
 from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_kernel)
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention as _paged_decode_kernel,
+    paged_decode_attention_int8 as _paged_decode_int8_kernel)
+from repro_torch.kernels.paged_extend_attention import (
+    paged_extend_attention as _paged_extend_kernel)
 
 
 def _on_cpu(t) -> bool:
@@ -38,3 +45,45 @@ def decode_attention(q, k_cache, v_cache, lengths):
     if _on_cpu(q):
         return ref.decode_attention_ref(q, k_cache, v_cache, lengths)
     return _decode_kernel(q, k_cache, v_cache, lengths)
+
+
+def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths, *,
+                          k_new=None, v_new=None):
+    """[B,H,hd] against int8 [B,S,KVH,hd] caches with [B,S,KVH] scales ->
+    [B,H,hd]; ``lengths`` counts the cached tokens, and the fresh
+    ``k_new``/``v_new`` [B,KVH,hd], if given, are attended after them."""
+    if _on_cpu(q):
+        return ref.decode_attention_int8_ref(q, k_cache, v_cache, k_scale,
+                                             v_scale, lengths, k_new, v_new)
+    return _decode_int8_kernel(q, k_cache, v_cache, k_scale, v_scale,
+                               lengths, k_new=k_new, v_new=v_new)
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, lengths, *,
+                           k_scale=None, v_scale=None, k_new=None,
+                           v_new=None):
+    """[B,H,hd] against page pools [P,page,KVH,hd] through the block table
+    [B,W] -> [B,H,hd]. fp pools: ``lengths`` counts the inserted new
+    token. int8 pools (``k_scale``/``v_scale`` [P,page,KVH]): ``lengths``
+    counts the cached tokens and ``k_new``/``v_new`` fold the fresh one."""
+    if _on_cpu(q):
+        return ref.paged_decode_attention_ref(
+            q, k_pool, v_pool, table, lengths, k_scale=k_scale,
+            v_scale=v_scale, k_new=k_new, v_new=v_new)
+    if k_scale is None:
+        if k_new is not None:
+            raise ValueError("the fp paged decode attends an inserted token; "
+                             "k_new/v_new go with int8 pools")
+        return _paged_decode_kernel(q, k_pool, v_pool, table, lengths)
+    return _paged_decode_int8_kernel(q, k_pool, v_pool, k_scale, v_scale,
+                                     table, lengths, k_new=k_new, v_new=v_new)
+
+
+def paged_extend_attention(q, k_pool, v_pool, k_new, v_new, table, pos):
+    """Chunk [B,C,H,hd] continued from page pools at per-row offsets
+    ``pos`` [B], its own K/V ``k_new``/``v_new`` [B,C,KVH,hd] under the
+    causal triangle -> [B,C,H,hd]."""
+    if _on_cpu(q):
+        return ref.paged_extend_attention_ref(q, k_pool, v_pool, k_new,
+                                              v_new, table, pos)
+    return _paged_extend_kernel(q, k_pool, v_pool, k_new, v_new, table, pos)

@@ -49,3 +49,90 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def _decode_with_fresh(q, k_cache, v_cache, lengths, k_new, v_new):
+    """One-token attention over the cached prefix ``< lengths`` (fp32
+    caches) plus, when given, the fresh token's own K/V [B,KVH,hd] at full
+    precision, folded once after the cached keys."""
+    if k_new is None:
+        return decode_attention_ref(q, k_cache, v_cache, lengths)
+    B, H, hd = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KVH
+    qg = (q.reshape(B, KVH, G, hd) / math.sqrt(hd)).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.tensor(-1e30, device=q.device))
+    s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new.float())
+    p = torch.softmax(torch.cat([s, s_new[..., None]], dim=-1), dim=-1)
+    o = (torch.einsum("bkgs,bskd->bkgd", p[..., :S], v_cache.float())
+         + p[..., S:] * v_new.float()[:, :, None, :])
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_attention_int8_ref(q, k_cache, v_cache, k_scale, v_scale,
+                              lengths, k_new=None, v_new=None):
+    """q: [B,H,hd]; int8 caches [B,S,KVH,hd] with per-(token, KV head)
+    fp32 scales [B,S,KVH]: dequantize in fp32, then attend over the
+    ``lengths`` cached tokens (plus the fresh ``k_new``/``v_new``
+    [B,KVH,hd], if given)."""
+    kd = k_cache.float() * k_scale.float()[..., None]
+    vd = v_cache.float() * v_scale.float()[..., None]
+    return _decode_with_fresh(q, kd, vd, lengths, k_new, v_new)
+
+
+def paged_gather_ref(pool, table):
+    """A paged pool [P,page,...] as dense rows through the block table
+    [B,W] int32 -> [B, W*page, ...]. Entries past the pool (the sentinel)
+    clamp to its last page; what they gather lies past each row's length
+    and is masked by the caller."""
+    idx = table.long().clamp(0, pool.shape[0] - 1)
+    v = pool[idx]                                  # [B, W, page, ...]
+    B, W, page = v.shape[:3]
+    return v.reshape(B, W * page, *pool.shape[2:])
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, table, lengths, *,
+                               k_scale=None, v_scale=None, k_new=None,
+                               v_new=None):
+    """Paged twin of ``decode_attention_ref``: gather the pages the table
+    names, attend over the valid prefix (``lengths`` past the table's
+    width clamp to it). With ``k_scale``/``v_scale`` [P,page,KVH] the
+    pools are int8 and are dequantized in fp32; ``k_new``/``v_new``
+    [B,KVH,hd] fold the fresh token in after the cached keys."""
+    kc = paged_gather_ref(k_pool, table)
+    vc = paged_gather_ref(v_pool, table)
+    if k_scale is not None:
+        kc = kc.float() * paged_gather_ref(k_scale, table).float()[..., None]
+        vc = vc.float() * paged_gather_ref(v_scale, table).float()[..., None]
+    return _decode_with_fresh(q, kc, vc, lengths, k_new, v_new)
+
+
+def paged_extend_attention_ref(q, k_pool, v_pool, k_new, v_new, table, pos):
+    """Chunk attention continued from a paged cache. q: [B,C,H,hd] at
+    per-row offsets ``pos`` [B]; pools [P,page,KVH,hd]; k/v_new:
+    [B,C,KVH,hd], the chunk's own K/V, not yet in the pool. Query ``i``
+    of the chunk sees cached positions ``< pos`` plus chunk columns
+    ``<= i``."""
+    B, C, H, hd = q.shape
+    kc = paged_gather_ref(k_pool, table).float()
+    vc = paged_gather_ref(v_pool, table).float()
+    S, KVH = kc.shape[1], kc.shape[2]
+    G = H // KVH
+    neg = torch.tensor(-1e30, device=q.device)
+    qg = (q.reshape(B, C, KVH, G, hd) / math.sqrt(hd)).float()
+    s_c = torch.einsum("bikgd,bskd->bkgis", qg, kc)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < pos.to(q.device)[:, None])
+    s_c = torch.where(valid[:, None, None, None, :], s_c, neg)
+    s_n = torch.einsum("bikgd,bjkd->bkgij", qg, k_new.float())
+    tri = (torch.arange(C, device=q.device)[None, :]
+           <= torch.arange(C, device=q.device)[:, None])
+    s_n = torch.where(tri, s_n, neg)
+    p = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1)
+    o = (torch.einsum("bkgis,bskd->bkgid", p[..., :S], vc)
+         + torch.einsum("bkgij,bjkd->bkgid", p[..., S:], v_new.float()))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd).to(q.dtype)

@@ -1,17 +1,20 @@
 """Where the serving path's time goes on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile
+  PYTHONPATH=src python -m repro_torch.launch.profile [--paged]
 
 Runs ``serve_demo`` at full llama3.2-1b width three times with the same
 arguments as ``chip_smoke.py``: once to warm up (cuBLAS handles, lazily
 loaded kernels, the kernel build), once warm to read the engine metrics
-undisturbed, and once under ``torch.profiler``. Prints the warm metrics,
+undisturbed, and once under ``torch.profiler``; ``--paged`` serves from
+the paged KV cache at the default pool, as ``chip_smoke.py`` phase 4b
+does. Prints the warm metrics,
 the device's busy share in the profiled run (summed kernel time over wall
 time), the kernel launches per model call, and the top kernels by device
 time and top operators by host time.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -45,18 +48,22 @@ def _report(label: str, out: dict) -> None:
           f"{tokens / out['wall_seconds']:.1f} tok/s")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--paged", action="store_true",
+                    help="profile the paged KV-cache engines")
+    serve = dict(SERVE, paged=ap.parse_args(argv).paged)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[card] {smi}")
     t0 = time.perf_counter()
-    serve_demo(llama32_1b, **SERVE)
+    serve_demo(llama32_1b, **serve)
     print(f"[warm-up] {time.perf_counter() - t0:.3f} s")
-    _report("warm", serve_demo(llama32_1b, **SERVE))
+    _report("warm", serve_demo(llama32_1b, **serve))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = serve_demo(llama32_1b, **SERVE)
+        out = serve_demo(llama32_1b, **serve)
         torch.cuda.synchronize()
     _report("profiled", out)
     wall = out["wall_seconds"]

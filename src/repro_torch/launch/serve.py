@@ -7,6 +7,7 @@ control plane is not ported yet, so ``site_weights`` comes from the caller
 and defaults to uniform.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --sites 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
 """
 from __future__ import annotations
 
@@ -51,18 +52,24 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
                seed: int = 0, device=None,
                site_weights: Optional[Sequence[float]] = None,
                prompt_len: tuple = (4, 24), new_tokens: tuple = (2, 10),
+               paged: bool = False, page_size: int = 16,
+               num_pages: Optional[int] = None,
                verbose: bool = True) -> dict:
     """Serve ``num_requests`` over ``num_sites`` engines and return the
     summary: completed/submitted counts, wall time, each site's
-    ``EngineMetrics.summary()`` and the site weights. ``cfg=None`` serves
+    ``EngineMetrics.summary()``, the site weights and each completed
+    request's tokens by request id. ``cfg=None`` serves
     the llama3.2-1b smoke config; weights are random, drawn from ``seed``.
+    ``paged``: every site serves from a paged KV cache of ``num_pages``
+    pages (default the dense capacity) of ``page_size`` tokens.
     """
     cfg = cfg or smoke_config("llama3.2-1b")
     dev = resolve_device(device)
     model = build(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
     engines = [ServingEngine(model, params, max_batch=max_batch,
-                             max_seq=max_seq, seed=seed + i)
+                             max_seq=max_seq, seed=seed + i, paged=paged,
+                             page_size=page_size, num_pages=num_pages)
                for i in range(num_sites)]
     w = np.ones(num_sites) if site_weights is None else np.asarray(
         site_weights, float)
@@ -84,7 +91,12 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
     done = sum(s["num_completed"] for s in per_site)
     out = {"completed": done, "submitted": num_requests,
            "wall_seconds": dt, "per_site": per_site,
-           "site_weights": w.tolist()}
+           "site_weights": w.tolist(),
+           "tokens": {r.rid: list(r.tokens) for m in metrics
+                      for r in m.completed}}
+    if paged:
+        out["free_pages"] = [len(e._free_pages) for e in engines]
+        out["num_pages"] = [e.num_pages for e in engines]
     if verbose:
         print(f"[serve] {done}/{num_requests} requests served across "
               f"{num_sites} sites in {dt:.2f}s on {dev}")
@@ -104,9 +116,16 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from a paged KV cache")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pages per site (default: the dense capacity)")
     args = ap.parse_args(argv)
     out = serve_demo(num_requests=args.requests, num_sites=args.sites,
-                     max_batch=args.max_batch, device=args.device)
+                     max_batch=args.max_batch, device=args.device,
+                     paged=args.paged, page_size=args.page_size,
+                     num_pages=args.num_pages)
     return 0 if out["completed"] == out["submitted"] else 1
 
 

@@ -1,8 +1,9 @@
-"""Weights carried across from the reference package.
+"""Weights and decode caches carried across from the reference package.
 
 The one place that knows both layouts: the reference keeps ``x @ W`` with
 ``W`` shaped ``[in, out]`` and stacks the layers' weights as ``[L, ...]``;
-the port keeps PyTorch's ``[out, in]`` and one dict per layer.
+the port keeps PyTorch's ``[out, in]`` and one dict per layer. Caches keep
+the reference's layout, but for the paged pools' trash page.
 """
 from __future__ import annotations
 
@@ -40,3 +41,30 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     } for i in range(cfg.num_layers)]
     p["final_norm"] = t(tree["final_norm"])
     return p
+
+
+def cache_from_numpy(tree: dict, device) -> dict:
+    """The reference's decode cache, already converted to numpy arrays, in
+    the port's layout on ``device``: dense, int8 (``k_scale``/``v_scale``)
+    or paged (``table``). The leaves keep their shapes and dtypes, except
+    that each paged pool gains the trash page (zeros) after its P pages,
+    whose id P is the reference's sentinel; the ``span`` marker is
+    dropped."""
+    paged = "table" in tree
+
+    def t(a):
+        a = np.asarray(a)
+        if paged:                      # [L, P, page, ...] -> [L, P+1, ...]
+            a = np.concatenate([a, np.zeros_like(a[:, :1])], axis=1)
+        if a.dtype.name == "bfloat16":      # numpy has no bf16 of its own
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.tensor(a, device=device)   # a copy: caches are written
+
+    out = {"kv": {name: t(leaf) for name, leaf in tree["kv"].items()},
+           "pos": torch.tensor(np.asarray(tree["pos"], np.int32),
+                               device=device)}
+    if paged:
+        out["table"] = torch.tensor(np.asarray(tree["table"], np.int32),
+                                    device=device)
+    return out

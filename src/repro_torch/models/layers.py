@@ -1,15 +1,18 @@
 """Dense transformer building blocks (plain PyTorch tensor functions).
 
-Port of the dense, non-int8 parts of ``repro/models/layers.py``. Weights
-follow PyTorch's ``nn.Linear`` layout, ``[out, in]`` applied with
-``F.linear``; ``models.convert`` maps the reference's ``[in, out]`` layout
-onto it. Norms and RoPE compute in fp32 and cast back.
+Port of the dense parts of ``repro/models/layers.py``, with its paged
+(block-table) and int8 KV caches. Weights follow PyTorch's ``nn.Linear``
+layout, ``[out, in]`` applied with ``F.linear``; ``models.convert`` maps
+the reference's ``[in, out]`` layout onto it. Norms and RoPE compute in
+fp32 and cast back.
 
-Attention goes through ``kernels.ops``: prefill to the flash kernel and
-decode to the decode kernel on the card (their plain versions on the CPU);
-``reference=True`` sends both to the plain versions on any device, which is
-the oracle path ``chip_smoke.py`` compares the card's logits with. The
-cache is updated in place.
+Attention goes through ``kernels.ops``: on the card prefill runs the flash
+kernel, decode the decode kernels (dense, int8, paged fp or paged int8)
+and a paged extend the paged extend kernel; on the CPU their plain
+versions. ``reference=True`` sends every call to the plain versions on any
+device, which is the oracle path ``chip_smoke.py`` compares the card's
+logits with. Dense and int8 extends are plain PyTorch everywhere, as the
+reference leaves them to XLA. Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -120,19 +123,90 @@ def _cache_insert(cache, new, pos):
     _cache_insert_chunk(cache, new[:, None], pos)
 
 
+# --------------------------------------------------- paged (block-table) KV
+# A paged cache leaf is a pool [P + 1, page, KVH, ...]: P pages that rows
+# own through a block table [B, W] of page ids, and one trash page, id P,
+# which is also the table's sentinel for an unmapped entry. Logical token t
+# of row b lives at pool[table[b, t // page], t % page]. The reference
+# drops writes through the sentinel (a scatter with mode="drop"); on the
+# card an index past the pool is a fault, so here they land in the trash
+# page, which no live row reads. Reads clamp ids to the pool, so a
+# sentinel reads the trash page, past every live row's length.
+
+def paged_view(pool, table):
+    """Dense [B, W*page, ...] view of the pages ``table`` [B, W] names."""
+    return ref.paged_gather_ref(pool, table)
+
+
+def _paged_cache_insert_chunk(pool, new, table, pos, rows=None):
+    """Write a C-token chunk [B,C,...] per row at logical offsets
+    pos..pos+C-1 through the table, in place. A write through the
+    sentinel, past the table's width, or of a row with ``rows[b]`` False
+    goes to the trash page (id P = pool.shape[0] - 1) instead."""
+    C = new.shape[1]
+    page, trash = pool.shape[1], pool.shape[0] - 1
+    W = table.shape[1]
+    cols = pos.long()[:, None] + torch.arange(C, device=pool.device)[None, :]
+    pidx = torch.div(cols, page, rounding_mode="floor")
+    phys = torch.gather(table.long(), 1, pidx.clamp(0, W - 1))
+    keep = pidx < W
+    if rows is not None:
+        keep = keep & rows[:, None]
+    phys = torch.where(keep, phys.clamp(max=trash), trash)
+    pool[phys, cols % page] = new.to(pool.dtype)
+
+
+def _paged_cache_insert(pool, new, table, pos):
+    """One token [B,...] per row: ``_paged_cache_insert_chunk`` with C=1."""
+    _paged_cache_insert_chunk(pool, new[:, None], table, pos)
+
+
+def quantize_kv(x):
+    """Per-(token, KV head) absmax int8 quantization of K or V.
+
+    x: [..., KVH, hd] -> (q int8 [..., KVH, hd], scale fp32 [..., KVH])."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1).clamp(min=1e-30) / 127.0
+    q = torch.round(x32 / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequant(c, s, dtype):
+    """int8 cache and its scales -> values in ``dtype`` (the reference
+    casts the dequantized cache to the activations' dtype)."""
+    return (c.float() * s[..., None]).to(dtype)
+
+
+def _insert_int8(cache, k, v, insert):
+    """Quantize the new K/V and write values and scales with ``insert``."""
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    for name, val in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
+        insert(cache[name], val)
+
+
 def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
-                    cache=None, pos=None, rows=None, reference: bool = False):
+                    cache=None, pos=None, rows=None, table=None,
+                    reference: bool = False):
     """Projections + RoPE + attention (+ cache update), dense GQA.
 
     Returns (out, kv). ``mode="prefill"``: causal attention over ``x``
     itself through the flash kernel; ``kv`` is the layer's (k, v)
     [B,S,KVH,hd] for the caller's cache. The other modes continue from
-    ``cache`` ({"k", "v"} [B,S,KVH,hd] of this layer) at per-row offsets
-    ``pos`` [B], update it in place and return ``kv = None``:
-    ``"decode"`` (one token: insert it, then the decode kernel over
-    ``pos + 1`` tokens) and ``"extend"`` (a chunk of any length: plain
-    attention over the cached prefix and the chunk, then insert, only into
-    the rows that ``rows`` [B] bool selects, if given).
+    ``cache``, this layer's leaves: {"k", "v"} [B,S,KVH,hd], plus
+    {"k_scale", "v_scale"} [B,S,KVH] when int8; with a block ``table``
+    [B,W] they are page pools [P+1,page,KVH,...] instead. They continue at
+    per-row offsets ``pos`` [B], update the cache in place and return
+    ``kv = None``:
+
+    ``"decode"`` (one token): fp caches insert it, then attend over
+    ``pos + 1`` tokens; int8 caches attend over the ``pos`` cached tokens
+    dequantized plus the new token at full precision, then insert it
+    quantized (as the reference does).
+    ``"extend"`` (a chunk of any length): attention over the cached prefix
+    and the chunk, then insert, only into the rows that ``rows`` [B] bool
+    selects, if given. Rows left out of a paged extend attend to no cached
+    token; their output is the caller's to drop.
     """
     hd = cfg.resolved_head_dim
     H, KVH = cfg.num_heads, cfg.num_kv_heads
@@ -143,6 +217,7 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
     cos, sin = rope_table(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    int8 = cache is not None and "k_scale" in cache
 
     kv = None
     if mode == "prefill":
@@ -151,17 +226,66 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
         else:
             o = ops.flash_attention(q, k, v, causal=True)
         kv = (k, v)
+    elif mode == "decode" and table is not None:
+        k0, v0 = k[:, 0], v[:, 0]
+        attend = (ref.paged_decode_attention_ref if reference
+                  else ops.paged_decode_attention)
+        if int8:
+            o = attend(q[:, 0], cache["k"], cache["v"], table, pos,
+                       k_scale=cache["k_scale"], v_scale=cache["v_scale"],
+                       k_new=k0, v_new=v0)
+            _insert_int8(cache, k0, v0, lambda c, val: _paged_cache_insert(
+                c, val, table, pos))
+        else:
+            _paged_cache_insert(cache["k"], k0, table, pos)
+            _paged_cache_insert(cache["v"], v0, table, pos)
+            o = attend(q[:, 0], cache["k"], cache["v"], table, pos + 1)
+        o = o[:, None]
     elif mode == "decode":
-        kc, vc = cache["k"], cache["v"]
-        _cache_insert(kc, k[:, 0], pos)
-        _cache_insert(vc, v[:, 0], pos)
-        attend = ref.decode_attention_ref if reference else ops.decode_attention
-        o = attend(q[:, 0], kc, vc, pos + 1)[:, None]
+        k0, v0 = k[:, 0], v[:, 0]
+        if int8:
+            attend = (ref.decode_attention_int8_ref if reference
+                      else ops.decode_attention_int8)
+            o = attend(q[:, 0], cache["k"], cache["v"], cache["k_scale"],
+                       cache["v_scale"], pos, k_new=k0, v_new=v0)
+            _insert_int8(cache, k0, v0,
+                         lambda c, val: _cache_insert(c, val, pos))
+        else:
+            kc, vc = cache["k"], cache["v"]
+            _cache_insert(kc, k0, pos)
+            _cache_insert(vc, v0, pos)
+            attend = (ref.decode_attention_ref if reference
+                      else ops.decode_attention)
+            o = attend(q[:, 0], kc, vc, pos + 1)
+        o = o[:, None]
+    elif mode == "extend" and table is not None:
+        attn_pos = pos if rows is None else torch.where(rows, pos, 0)
+        if int8:
+            kd = _dequant(paged_view(cache["k"], table),
+                          paged_view(cache["k_scale"], table), q.dtype)
+            vd = _dequant(paged_view(cache["v"], table),
+                          paged_view(cache["v_scale"], table), q.dtype)
+            o = extend_attention(q, kd, vd, k, v, attn_pos)
+            _insert_int8(cache, k, v, lambda c, val: _paged_cache_insert_chunk(
+                c, val, table, pos, rows))
+        else:
+            attend = (ref.paged_extend_attention_ref if reference
+                      else ops.paged_extend_attention)
+            o = attend(q, cache["k"], cache["v"], k, v, table, attn_pos)
+            _paged_cache_insert_chunk(cache["k"], k, table, pos, rows)
+            _paged_cache_insert_chunk(cache["v"], v, table, pos, rows)
     elif mode == "extend":
-        kc, vc = cache["k"], cache["v"]
-        o = extend_attention(q, kc, vc, k, v, pos)
-        _cache_insert_chunk(kc, k, pos, rows)
-        _cache_insert_chunk(vc, v, pos, rows)
+        if int8:
+            kd = _dequant(cache["k"], cache["k_scale"], q.dtype)
+            vd = _dequant(cache["v"], cache["v_scale"], q.dtype)
+            o = extend_attention(q, kd, vd, k, v, pos)
+            _insert_int8(cache, k, v, lambda c, val: _cache_insert_chunk(
+                c, val, pos, rows))
+        else:
+            kc, vc = cache["k"], cache["v"]
+            o = extend_attention(q, kc, vc, k, v, pos)
+            _cache_insert_chunk(kc, k, pos, rows)
+            _cache_insert_chunk(vc, v, pos, rows)
     else:
         raise ValueError(f"attention mode {mode!r}")
     return F.linear(o.reshape(B, Sq, H * hd), p["wo"]), kv

@@ -5,13 +5,21 @@ layer stack is a Python loop over a list of per-layer parameter dicts (the
 reference scans a stacked ``[L, ...]`` tree). Parameters live on the device
 of the ``torch.Generator`` that draws them.
 
-Cache layout: ``{"kv": {"k": [L,B,S,KVH,hd], "v": ...}, "pos": [B] int32}``
-as in the reference. ``extend_fn`` and ``decode_fn`` update it in place and
-return it.
+Cache layouts, as in the reference: dense ``{"kv": {"k": [L,B,S,KVH,hd],
+"v": ...}, "pos": [B] int32}``; int8 adds ``"k_scale"``/``"v_scale"``
+[L,B,S,KVH] fp32 beside int8 ``k``/``v``; paged keeps page pools
+``[L,P+1,page,KVH,...]`` (the last page is the trash page, see
+``layers.paged_view``) and a block table ``"table"`` [B,W] int32. The
+reference's ``span`` leaf (the logical ``max_seq``, used there to pad the
+softmax sum to the dense width) has no counterpart: paged and dense agree
+to rounding here, not bit for bit. ``extend_fn`` and ``decode_fn`` update
+the cache in place and return it.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -59,11 +67,11 @@ def _device(params) -> torch.device:
 
 
 def _layer(cfg, p, x, positions, *, mode="prefill", cache=None, pos=None,
-           rows=None, reference=False):
+           rows=None, table=None, reference=False):
     h = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
     o, kv = Lyr.attention_block(cfg, p["attn"], h, positions=positions,
                                 mode=mode, cache=cache, pos=pos, rows=rows,
-                                reference=reference)
+                                table=table, reference=reference)
     x = x + o
     h = Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + Lyr.mlp(p["mlp"], h), kv
@@ -95,12 +103,18 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
     return _head(cfg, params, x), cache
 
 
+def _layer_cache(kv: dict, i: int) -> dict:
+    """Layer ``i``'s leaves of a stacked cache (views, written in place)."""
+    return {name: leaf[i] for name, leaf in kv.items()}
+
+
 def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
               rows=None, reference: bool = False):
-    """Continue a prefill from a decode cache with a [B, C] chunk at each
-    row's offset ``cache["pos"]``. ``rows`` [B] bool (default all) picks
-    the rows whose cache and ``pos`` move; the others are left as they
-    were. Returns (last-token logits [B, V], the cache, updated in place).
+    """Continue a prefill from a decode cache (dense, int8 or paged) with a
+    [B, C] chunk at each row's offset ``cache["pos"]``. ``rows`` [B] bool
+    (default all) picks the rows whose cache and ``pos`` move; the others
+    are left as they were (their logits are not meaningful). Returns
+    (last-token logits [B, V], the cache, updated in place).
     """
     dev = _device(params)
     tokens = torch.as_tensor(inputs["tokens"], device=dev)
@@ -108,11 +122,11 @@ def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     pos = cache["pos"]
     x = Lyr.embed(params["embed"], tokens)
     positions = pos[:, None] + torch.arange(C, device=dev)[None, :]
-    kv = cache["kv"]
+    kv, table = cache["kv"], cache.get("table")
     for i, p in enumerate(params["layers"]):
         x, _ = _layer(cfg, p, x, positions, mode="extend",
-                      cache={"k": kv["k"][i], "v": kv["v"][i]}, pos=pos,
-                      rows=rows, reference=reference)
+                      cache=_layer_cache(kv, i), pos=pos, rows=rows,
+                      table=table, reference=reference)
     step = C if rows is None else rows.to(torch.int32) * C
     cache["pos"] = pos + step
     return _head(cfg, params, x), cache
@@ -120,28 +134,81 @@ def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
 
 def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
               reference: bool = False):
-    """One decode step: token [B] against the cache. Returns (logits [B, V],
-    the cache, updated in place with ``pos += 1``)."""
+    """One decode step: token [B] against the cache (dense, int8 or paged;
+    a paged cache's table may be narrowed to the pages the live rows
+    need). Returns (logits [B, V], the cache, updated in place with
+    ``pos += 1``)."""
     dev = _device(params)
     token = torch.as_tensor(inputs["token"], device=dev)
     pos = cache["pos"]
     x = Lyr.embed(params["embed"], token[:, None])
     positions = pos[:, None]
-    kv = cache["kv"]
+    kv, table = cache["kv"], cache.get("table")
     for i, p in enumerate(params["layers"]):
         x, _ = _layer(cfg, p, x, positions, mode="decode",
-                      cache={"k": kv["k"][i], "v": kv["v"][i]}, pos=pos,
+                      cache=_layer_cache(kv, i), pos=pos, table=table,
                       reference=reference)
     cache["pos"] = pos + 1
     return _head(cfg, params, x), cache
 
 
+def _kv_leaves(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
+    """Zeroed K/V leaves [*lead, KVH, hd]: int8 with fp32 scales
+    [*lead, KVH] when ``dtype`` is "int8", else of ``dtype``."""
+    shape = (*lead, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if str(dtype) == "int8":
+        z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)
+        return {"k": z(shape, torch.int8),
+                "k_scale": z(shape[:-1], torch.float32),
+                "v": z(shape, torch.int8),
+                "v_scale": z(shape[:-1], torch.float32)}
+    dt = torch_dtype(dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
 def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                       dtype=None) -> dict:
-    """Zeroed decode cache for ``batch`` rows of ``max_seq`` tokens."""
-    dt = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
-                   "v": torch.zeros(shape, dtype=dt, device=device)},
+    """Zeroed decode cache for ``batch`` rows of ``max_seq`` tokens;
+    ``dtype="int8"`` gives the quantized layout."""
+    lead = (cfg.num_layers, batch, max_seq)
+    return {"kv": _kv_leaves(cfg, lead, dtype or cfg.dtype, device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def quantize_decode_cache(cache: dict) -> dict:
+    """An fp decode cache (dense or paged) -> a new int8 one with
+    per-(token, KV head) scales; ``pos`` and the table are shared."""
+    k, ks = Lyr.quantize_kv(cache["kv"]["k"])
+    v, vs = Lyr.quantize_kv(cache["kv"]["v"])
+    return {**cache, "kv": {"k": k, "k_scale": ks, "v": v, "v_scale": vs}}
+
+
+def supports_paged_cache(cfg: ModelConfig) -> bool:
+    """Paged KV applies to the GQA attention families; MLA latents and the
+    recurrent families keep O(1) state per token and stay dense."""
+    return cfg.family not in ("ssm", "hybrid") and not cfg.use_mla
+
+
+def make_paged_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                            device, *, page_size: int = 16,
+                            num_pages: Optional[int] = None,
+                            dtype=None) -> dict:
+    """Paged (block-table) decode cache: pools [L, P+1, page, KVH, ...] of
+    ``P = num_pages`` pages (default the dense capacity ``batch * max_seq
+    / page_size``) plus the trash page, id P, which is also the sentinel
+    that fills the table [batch, max_seq / page_size]."""
+    if page_size <= 0 or page_size & (page_size - 1):
+        raise ValueError(f"page_size {page_size} must be a power of two")
+    if max_seq % page_size:
+        raise ValueError(f"max_seq {max_seq} not a multiple of page_size")
+    if not supports_paged_cache(cfg):
+        raise ValueError(f"family {cfg.family!r} (use_mla={cfg.use_mla}) "
+                         "has no paged layout: use make_decode_cache")
+    maxP = max_seq // page_size
+    P = num_pages if num_pages is not None else batch * maxP
+    lead = (cfg.num_layers, P + 1, page_size)
+    return {"kv": _kv_leaves(cfg, lead, dtype or cfg.dtype, device),
+            "table": torch.full((batch, maxP), P, dtype=torch.int32,
+                                device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

@@ -19,9 +19,23 @@ The schedule of buckets and chunks is the reference's, so ``prefill_calls``
 and the greedy streams match it. Every token draw is keyed by (engine seed,
 request id, token index) — see ``serving.sampling``.
 
-Paged caches, async admission, the int8 cache, preempt/drain/resume,
-brownout, deadlines and the queue watermark are not ported yet: asking for
-one raises ``NotImplementedError``.
+Paged KV cache (``paged=True``, as in the reference): the dense rows
+give way to a shared pool of ``num_pages`` pages of ``page_size`` tokens
+(default: the dense capacity) addressed through a host-side block table
+per slot. Pages for a request's whole contract (prompt + max_new_tokens
+- 1) are reserved at admission; a request that could never fit is
+rejected, and one that does not fit now waits (nothing live is evicted);
+a finished slot's pages go back on the free list, and a failed admission
+gives back everything it reserved. Decode runs over the table sliced to
+the power-of-2 page count that covers the live rows; extends run at full
+width, with the rows outside the chunk masked. Greedy streams equal the
+dense engine's (to rounding: the reference's paged path is bitwise the
+dense one, the port's paged kernels sum in another order).
+
+Async admission, preempt/drain/resume, brownout, deadlines and the queue
+watermark are not ported yet: asking for async or a watermark raises
+``NotImplementedError``. The int8 KV cache is reached, as in the
+reference, through the model's cache functions, not through the engine.
 """
 from __future__ import annotations
 
@@ -82,10 +96,30 @@ def insert_cache_rows(engine_cache: dict, group_cache: dict,
     dev = engine_cache["pos"].device
     dst = torch.as_tensor([int(slots[r]) for r in rows], device=dev)
     src = torch.as_tensor(rows, device=dev)
-    for name in ("k", "v"):
+    for name, e in engine_cache["kv"].items():
         g = group_cache["kv"][name]
-        engine_cache["kv"][name][:, dst, :g.shape[2]] = g[:, src]
+        e[:, dst, :g.shape[2]] = g[:, src]
     engine_cache["pos"][dst] = group_cache["pos"][src]
+
+
+def insert_cache_pages(pool_kv: dict, group_kv: dict,
+                       page_map: torch.Tensor) -> None:
+    """Scatter a dense prefill cache's kv leaves [L, kb, S, ...] into the
+    page pools [L, P+1, page, ...], in place: row ``r``'s tokens land in
+    pages ``page_map[r]`` ([kb, ceil(S / page)] int64). Entries past the
+    real pages (the sentinel) write the trash page, which is how padding
+    rows and table columns past a slot's reservation are dropped."""
+    for name, pool in pool_kv.items():
+        g = group_kv[name].to(pool.dtype)
+        page = pool.shape[2]
+        L, kb, S = g.shape[:3]
+        npr = page_map.shape[1]
+        if npr * page > S:
+            pad = torch.zeros((L, kb, npr * page - S, *g.shape[3:]),
+                              dtype=g.dtype, device=g.device)
+            g = torch.cat([g, pad], dim=2)
+        g = g[:, :, :npr * page].reshape(L, kb, npr, page, *g.shape[3:])
+        pool[:, page_map.clamp(0, pool.shape[1] - 1)] = g
 
 
 @dataclass
@@ -99,6 +133,7 @@ class EngineMetrics:
     decode_steps: int = 0      # decode calls (steps with >= 1 live row)
     extend_chunks: int = 0     # extend calls of the batched prompt tails
     admit_stall_steps: int = 0 # steps that admitted with no live decode row
+    page_waits: int = 0        # steps whose admission stopped for pages
 
     def summary(self) -> dict:
         ttfts = [r.ttft for r in self.completed if r.ttft is not None]
@@ -113,6 +148,7 @@ class EngineMetrics:
                "decode_steps": self.decode_steps,
                "extend_chunks": self.extend_chunks,
                "admit_stall_steps": self.admit_stall_steps,
+               "page_waits": self.page_waits,
                "mean_ttft": f(ttfts), "mean_tbt": f(tbts), "mean_e2e": f(e2es)}
         for name, xs in (("ttft", ttfts), ("tbt", tbts), ("e2e", e2es)):
             out[f"p50_{name}"] = percentile(xs, 50)
@@ -126,7 +162,9 @@ class ServingEngine:
     ``params`` decide the device: the cache and every call live where the
     weights do. ``admit_mode``: "batched" (default) or "serial" (the
     reference). ``admit_token_budget``: max prompt tokens admitted per step
-    (None = unlimited), at least one request per step.
+    (None = unlimited), at least one request per step. ``paged``: a paged
+    KV cache of ``num_pages`` pages of ``page_size`` tokens (families
+    without a paged layout stay dense).
     """
 
     def __init__(self, model: Model, params, *, max_batch: int = 8,
@@ -134,13 +172,12 @@ class ServingEngine:
                  clock=None, admit_mode: str = "batched",
                  admit_token_budget: Optional[int] = None,
                  queue_watermark: Optional[int] = None,
-                 paged: bool = False):
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None):
         if admit_mode == "async":
             raise NotImplementedError("admit_mode='async' is not ported yet")
         if admit_mode not in ("batched", "serial"):
             raise ValueError(f"admit_mode {admit_mode!r}")
-        if paged:
-            raise NotImplementedError("paged KV cache is not ported yet")
         if queue_watermark is not None:
             raise NotImplementedError("queue_watermark is not ported yet")
         self.model = model
@@ -154,8 +191,32 @@ class ServingEngine:
         self.admit_token_budget = admit_token_budget
         self.seed = seed
         self._clock = clock or time.perf_counter
-        self.cache = T.make_decode_cache(self.cfg, max_batch, max_seq,
-                                         self.device)
+        self.paged = bool(paged) and T.supports_paged_cache(self.cfg)
+        if self.paged:
+            if page_size < 1 or page_size & (page_size - 1):
+                raise ValueError(f"page_size {page_size} not a power of 2")
+            if max_seq % page_size:
+                raise ValueError("max_seq must be a multiple of page_size")
+            self.page_size = page_size
+            self._maxP = max_seq // page_size
+            self.num_pages = (num_pages if num_pages is not None
+                              else max_batch * self._maxP)
+            cache = T.make_paged_decode_cache(
+                self.cfg, max_batch, max_seq, self.device,
+                page_size=page_size, num_pages=self.num_pages)
+            # the block table lives on the host (allocation is host work);
+            # each call gets it sliced to the width it needs
+            cache.pop("table")
+            self.cache = cache
+            self._tbl = np.full((max_batch, self._maxP), self.num_pages,
+                                np.int32)
+            self._free_pages = list(range(self.num_pages - 1, -1, -1))
+            self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
+            self._slot_len = np.zeros((max_batch,), np.int64)
+        else:
+            self.page_size = self.num_pages = self._maxP = 0
+            self.cache = T.make_decode_cache(self.cfg, max_batch, max_seq,
+                                             self.device)
         self.active: list[Optional[Request]] = [None] * max_batch
         self.last_token = torch.zeros((max_batch,), dtype=torch.int32,
                                       device=self.device)
@@ -219,30 +280,61 @@ class ServingEngine:
         while self.waiting and free:
             req = self.waiting[0]
             S = len(req.prompt)
+            need = self._pages_needed(req) if self.paged else 0
             if req.max_new_tokens <= 0:
                 # nothing to generate: complete as-is, no slot, no prefill
                 self.waiting.popleft()
                 req.finish_s = self._clock()
                 self.metrics.completed.append(req)
                 continue
-            if S == 0 or S + req.max_new_tokens - 1 > self.max_seq:
-                # can never fit this engine's cache: reject without a slot
+            if (S == 0 or S + req.max_new_tokens - 1 > self.max_seq
+                    or need > self.num_pages):
+                # can never fit this engine's cache (or page pool): reject
+                # without a slot
                 self.waiting.popleft()
                 req.finish_s = self._clock()
                 self.metrics.rejected.append(req)
                 continue
+            if self.paged and need > len(self._free_pages):
+                # pool exhausted for now: wait for live requests to finish
+                # and give their pages back; nothing is evicted
+                self.metrics.page_waits += 1
+                break
             if admits and budget is not None and spent + S > budget:
                 break
             self.waiting.popleft()
-            admits.append((free.pop(0), req))
+            slot = free.pop(0)
+            if self.paged:
+                self._alloc_pages(slot, need)
+            admits.append((slot, req))
             spent += S
         if not admits:
             return
-        if self.admit_mode == "serial":
-            for slot, req in admits:
-                self._admit_serial(slot, req)
-        else:
-            self._admit_batched(admits)
+        try:
+            if self.admit_mode == "serial":
+                for slot, req in admits:
+                    self._admit_serial(slot, req)
+            else:
+                self._admit_batched(admits)
+        except Exception:
+            self._rollback_admits(admits)
+            raise
+
+    def _rollback_admits(self, admits: list) -> None:
+        """A failed admission round: every request not yet live, completed
+        or rejected goes back to the front of the queue with no tokens,
+        and its slot (and pages) are released."""
+        requeue = []
+        for slot, req in admits:
+            settled = (self.active[slot] is req
+                       or any(r is req for r in self.metrics.completed)
+                       or any(r is req for r in self.metrics.rejected))
+            if not settled:
+                req.tokens.clear()
+                req.prefill_done_s = None
+                self.release_slot(slot)
+                requeue.append(req)
+        self.waiting.extendleft(reversed(requeue))
 
     def _admit_serial(self, slot: int, req: Request) -> None:
         """Reference path: pow2-prefix prefill + serial B=1 decode tail."""
@@ -268,7 +360,11 @@ class ServingEngine:
                     self.params, {"token": torch.as_tensor([tok])}, b1)
                 self.metrics.prefill_calls += 1
             req_cache = b1
-        insert_cache_rows(self.cache, req_cache, np.asarray([slot]))
+        self._insert_group_cache(req_cache, np.asarray([slot]))
+        if self.paged:
+            # the logical length is the request cache's pos, not its kv
+            # length (the serial tail cache spans max_seq)
+            self._slot_len[slot] = int(req_cache["pos"][0])
         self._finalize_admits([(slot, req, 0)], logits)
 
     def _admit_batched(self, admits: list) -> None:
@@ -291,7 +387,10 @@ class ServingEngine:
             logits, gcache = self.model.prefill_fn(
                 self.params, {"tokens": torch.as_tensor(toks)})
             self.metrics.prefill_calls += 1
-            insert_cache_rows(self.cache, gcache, slots)
+            self._insert_group_cache(gcache, slots)
+            if self.paged:
+                for slot, _req, _full in group:
+                    self._slot_len[slot] = bucket
             fins = []
             for r, (slot, req, full) in enumerate(group):
                 if bucket == len(full):
@@ -312,14 +411,7 @@ class ServingEngine:
                     toks[slot] = full[cons:cons + C]
                     mask[slot] = True
                     takers.append(slot)
-            # the extend runs over the whole engine batch; rows outside the
-            # mask keep their cache and pos (written in place, where the
-            # reference selects old against new)
-            logits, self.cache = self.model.extend_fn(
-                self.params, {"tokens": torch.as_tensor(toks)}, self.cache,
-                rows=torch.as_tensor(mask, device=self.device))
-            self.metrics.prefill_calls += 1
-            self.metrics.extend_chunks += 1
+            logits = self._dispatch_extend(toks, mask, takers, C)
             fins = []
             for slot in takers:
                 req, full, cons = pend[slot]
@@ -331,17 +423,89 @@ class ServingEngine:
                     pend[slot][2] = cons
             self._finalize_admits(fins, logits)
 
+    def _dispatch_extend(self, toks, mask, takers: list, C: int):
+        """One masked extend chunk over the whole engine batch: rows
+        outside ``mask`` keep their cache and pos (written in place, where
+        the reference selects old against new). Paged: at the table's
+        full width, so only the chunk length varies."""
+        cache = self._call_cache(self._maxP) if self.paged else self.cache
+        logits, cache = self.model.extend_fn(
+            self.params, {"tokens": torch.as_tensor(toks)}, cache,
+            rows=torch.as_tensor(mask, device=self.device))
+        self.cache["pos"] = cache["pos"]
+        if self.paged:
+            self._slot_len[takers] += C
+        self.metrics.prefill_calls += 1
+        self.metrics.extend_chunks += 1
+        return logits
+
+    # --------------------------------------------------------------- pages
+    def _call_cache(self, width: int) -> dict:
+        """The per-call paged cache: the device pools and ``pos`` with the
+        host block table sliced to ``width`` pages (a [B, width] int32
+        upload per call)."""
+        return {**self.cache, "table": torch.as_tensor(
+            self._tbl[:, :width], device=self.device)}
+
+    def _pages_needed(self, req: Request) -> int:
+        """Pages covering the whole contract: prompt + max_new_tokens - 1
+        cache positions (the last sampled token never writes KV)."""
+        total = len(req.prompt) + req.max_new_tokens - 1
+        return -(-total // self.page_size)
+
+    def _alloc_pages(self, slot: int, need: int) -> None:
+        """Reserve ``need`` free pages for ``slot`` and point its table row
+        at them (the rest stays sentinel). The caller checked there are
+        enough."""
+        pages = [self._free_pages.pop() for _ in range(need)]
+        self.slot_pages[slot] = pages
+        self._tbl[slot, :] = self.num_pages
+        self._tbl[slot, :need] = pages
+
+    def _decode_width(self, live: list) -> int:
+        """Smallest power-of-2 page count covering every live row's next
+        token write; free rows' tables are all sentinel."""
+        need = max([int(self._slot_len[i]) + 1 for i in live] + [1])
+        pages = -(-need // self.page_size)
+        return min(1 << (pages - 1).bit_length(), self._maxP)
+
+    def _insert_group_cache(self, gcache: dict, slots: np.ndarray) -> None:
+        """Copy row ``r`` of a dense prefill (or B=1 tail) cache into slot
+        ``slots[r]``: dense rows, or the slot's reserved pages. Slot ids
+        past the engine (padding rows) are dropped."""
+        if not self.paged:
+            insert_cache_rows(self.cache, gcache, slots)
+            return
+        S_g = gcache["kv"]["k"].shape[2]
+        npr = -(-S_g // self.page_size)
+        pm = np.full((len(slots), npr), self.num_pages, np.int64)
+        for r, s in enumerate(slots):
+            if 0 <= s < self.max_batch:
+                # columns past the reservation stay sentinel, so a tail
+                # cache that spans max_seq writes no stray page
+                pm[r] = self._tbl[s, :npr]
+        insert_cache_pages(self.cache["kv"], gcache["kv"],
+                           torch.as_tensor(pm, device=self.device))
+        insert_cache_rows({"kv": {}, "pos": self.cache["pos"]}, gcache, slots)
+
     # --------------------------------------------------------------- slots
     def release_slot(self, slot: int) -> None:
         """Retire a slot: clear its bookkeeping and zero its cache position
-        so its stale cache rows are masked. Idempotent; an out-of-range
-        slot id raises."""
+        so its stale cache rows are masked; paged, its pages go back on
+        the free list and its table row to the sentinel, so a stale write
+        lands in the trash page, not in the pages' next owner. Idempotent;
+        an out-of-range slot id raises."""
         if not 0 <= slot < self.max_batch:
             raise ValueError(
                 f"slot {slot} out of range [0, {self.max_batch})")
         self.active[slot] = None
         self.new_counts[slot] = 0
         self.cache["pos"][slot] = 0
+        if self.paged and self.slot_pages[slot]:
+            self._free_pages.extend(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+            self._tbl[slot, :] = self.num_pages
+            self._slot_len[slot] = 0
 
     # --------------------------------------------------------------- step
     def step(self) -> int:
@@ -354,9 +518,17 @@ class ServingEngine:
                 self.metrics.admit_stall_steps += 1
             return 0
         # every row decodes, free ones too (their results are dropped and
-        # their cache writes past max_seq are dropped in the layer)
-        logits, self.cache = self.model.decode_fn(
-            self.params, {"token": self.last_token}, self.cache)
+        # their cache writes are dropped in the layer: past max_seq, or
+        # into the trash page through a sentinel table row)
+        if self.paged:
+            cache = self._call_cache(self._decode_width(live))
+            logits, cache = self.model.decode_fn(
+                self.params, {"token": self.last_token}, cache)
+            self.cache["pos"] = cache["pos"]
+            self._slot_len[live] += 1
+        else:
+            logits, self.cache = self.model.decode_fn(
+                self.params, {"token": self.last_token}, self.cache)
         self.metrics.decode_steps += 1
         keys = [0] * self.max_batch
         temps = [0.0] * self.max_batch

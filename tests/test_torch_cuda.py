@@ -9,7 +9,8 @@ it runs on a machine that has only PyTorch for CUDA and ``nvcc``:
 
 Tolerances: bf16 outputs round once to 8 mantissa bits on each side, so
 2e-2 (abs + rel); fp32 differs only in the order of sums of up to 1024
-products and in fused multiply-adds, so 2e-5.
+products and in fused multiply-adds, so 2e-5. The int8 kernels dequantize
+in fp32 as their plain versions do, so they are held to the same bounds.
 """
 from __future__ import annotations
 
@@ -19,7 +20,13 @@ import torch
 from repro_torch.configs import llama32_1b, reduced
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention_int8 import decode_attention_int8
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention, paged_decode_attention_int8)
+from repro_torch.kernels.paged_extend_attention import paged_extend_attention
+from repro_torch.models import layers as Lyr
+from repro_torch.models import transformer as T
 from repro_torch.models.api import build
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -107,5 +114,122 @@ def test_model_kernel_path_matches_plain_path(gen):
             full["kv"][n][:, :, :37] = cache["kv"][n]
         ld, _ = m.decode_fn(params, {"token": lp.argmax(-1)}, full)
         out[reference] = (lp, ld)
+    for a, b in zip(out[False], out[True]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _pools(gen, P, page, KVH, hd, dtype):
+    """Random page pools [P + 1, page, KVH, hd] (the last is the trash
+    page) and, for int8, their fp32 scales [P + 1, page, KVH]."""
+    if dtype != torch.int8:
+        return [_rnd(gen, (P + 1, page, KVH, hd), dtype) for _ in range(2)]
+    out = []
+    for _ in range(2):
+        out += list(Lyr.quantize_kv(_rnd(gen, (P + 1, page, KVH, hd),
+                                         torch.float32)))
+    return out[0], out[2], out[1], out[3]
+
+
+def _table(gen, B, W, P, sentinel_rows=()):
+    perm = torch.randperm(P, generator=gen, device="cuda")[:B * W]
+    table = perm.reshape(B, W).to(torch.int32)
+    for b in sentinel_rows:
+        table[b] = P
+    return table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_decode_kernel_matches_plain(gen, dtype, hd):
+    """Rows of every kind: short, page-aligned, past the table's width, and
+    all sentinel with a length (a free slot), which reads the trash page
+    on both sides."""
+    B, H, KVH, page, P, W = 6, 32, 8, 16, 512, 64
+    q = _rnd(gen, (B, H, hd), dtype)
+    kp, vp = _pools(gen, P, page, KVH, hd, dtype)
+    table = _table(gen, B, W, P, sentinel_rows=(4,))
+    lens = torch.tensor([1, 16, 333, 1024, 40, 5000], dtype=torch.int32,
+                        device="cuda")
+    for w in (W, 8):
+        t = table[:, :w]
+        got = paged_decode_attention(q, kp, vp, t, lens)
+        want = ref.paged_decode_attention_ref(q, kp, vp, t, lens)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fresh", [False, True])
+def test_paged_decode_int8_kernel_matches_plain(gen, dtype, fresh):
+    B, H, KVH, hd, page, P, W = 5, 32, 8, 64, 16, 320, 64
+    q = _rnd(gen, (B, H, hd), dtype)
+    kp, vp, ks, vs = _pools(gen, P, page, KVH, hd, torch.int8)
+    table = _table(gen, B, W, P, sentinel_rows=(3,))
+    lens = torch.tensor([1, 17, 1000, 77, 4096], dtype=torch.int32,
+                        device="cuda")
+    kn, vn = ((_rnd(gen, (B, KVH, hd), dtype) for _ in range(2)) if fresh
+              else (None, None))
+    got = paged_decode_attention_int8(q, kp, vp, ks, vs, table, lens,
+                                      k_new=kn, v_new=vn)
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, lens,
+                                          k_scale=ks, v_scale=vs, k_new=kn,
+                                          v_new=vn)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_int8_kernel_matches_plain(gen, dtype, hd):
+    """Dense int8 with the fresh token: lengths 0 (the fresh token alone),
+    ragged, full and past the cache."""
+    B, S, H, KVH = 4, 1024, 32, 8
+    q = _rnd(gen, (B, H, hd), dtype)
+    kc, ks = Lyr.quantize_kv(_rnd(gen, (B, S, KVH, hd), torch.float32))
+    vc, vs = Lyr.quantize_kv(_rnd(gen, (B, S, KVH, hd), torch.float32))
+    kn, vn = (_rnd(gen, (B, KVH, hd), dtype) for _ in range(2))
+    lens = torch.tensor([0, 333, S, S + 9], dtype=torch.int32, device="cuda")
+    got = decode_attention_int8(q, kc, vc, ks, vs, lens, k_new=kn, v_new=vn)
+    want = ref.decode_attention_int8_ref(q, kc, vc, ks, vs, lens, kn, vn)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,hd", [(1, 64), (7, 64), (64, 64), (33, 128)])
+def test_paged_extend_kernel_matches_plain(gen, dtype, C, hd):
+    """Cached pages below pos, then the chunk's causal triangle; one row
+    masked (all sentinel, pos 0) and one with pos past the table."""
+    B, H, KVH, page, P, W = 4, 32, 8, 16, 256, 64
+    q = _rnd(gen, (B, C, H, hd), dtype)
+    kp, vp = _pools(gen, P, page, KVH, hd, dtype)
+    kn, vn = (_rnd(gen, (B, C, KVH, hd), dtype) for _ in range(2))
+    table = _table(gen, B, W, P, sentinel_rows=(2,))
+    pos = torch.tensor([0, 300, 0, 2000], dtype=torch.int32, device="cuda")
+    got = paged_extend_attention(q, kp, vp, kn, vn, table, pos)
+    want = ref.paged_extend_attention_ref(q, kp, vp, kn, vn, table, pos)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["paged", "int8", "paged_int8"])
+def test_model_paged_and_int8_kernel_paths_match_plain_path(gen, kind):
+    """extend + decode at fp32 over paged and int8 caches, through the
+    kernels vs through the plain versions."""
+    cfg = reduced(llama32_1b, num_kv_heads=2, head_dim=64, dtype="float32")
+    params = build(cfg).init_params(gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21), generator=gen,
+                         device="cuda")
+    out = {}
+    for reference in (False, True):
+        m = build(cfg, reference=reference)
+        dtype = "int8" if "int8" in kind else None
+        if "paged" in kind:
+            cache = T.make_paged_decode_cache(cfg, 2, 64, "cuda",
+                                              page_size=16, dtype=dtype)
+            cache["table"] = torch.tensor([[3, 0, 6, 1], [5, 2, 7, 4]],
+                                          dtype=torch.int32, device="cuda")
+        else:
+            cache = T.make_decode_cache(cfg, 2, 64, "cuda", dtype=dtype)
+        le, cache = m.extend_fn(params, {"tokens": toks}, cache)
+        ld, _ = m.decode_fn(params, {"token": le.argmax(-1).to(torch.int32)},
+                            cache)
+        out[reference] = (le, ld)
     for a, b in zip(out[False], out[True]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

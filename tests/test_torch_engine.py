@@ -134,7 +134,8 @@ def test_admit_token_budget_bounds_per_step_work(setup):
     assert eng.run().summary()["num_completed"] == 6
 
 
-@pytest.mark.parametrize("kw", [dict(admit_mode="async"), dict(paged=True),
+@pytest.mark.parametrize("kw", [dict(admit_mode="async"),
+                                dict(admit_mode="async", paged=True),
                                 dict(queue_watermark=4)])
 def test_unported_modes_raise(setup, kw):
     cfg, model, params, _, _, _ = setup

@@ -24,6 +24,14 @@ def test_serve_demo_completes_every_request():
     assert out["site_weights"] == [0.5, 0.5]
 
 
+def test_serve_demo_paged_returns_every_page():
+    out = serve_demo(device="cpu", num_requests=6, num_sites=2, max_batch=2,
+                     max_seq=64, seed=1, paged=True, num_pages=4,
+                     verbose=False)
+    assert out["completed"] == out["submitted"] == 6
+    assert out["free_pages"] == out["num_pages"] == [4, 4]
+
+
 def test_default_device_is_the_card(monkeypatch):
     """No silent drop to the CPU: the default device is CUDA, and asking
     for it without a card raises."""
@@ -38,6 +46,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.models.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.kernels.paged_decode_attention\n"
+        "import repro_torch.kernels.paged_extend_attention\n"
+        "import repro_torch.kernels.decode_attention_int8\n"
+        "import repro_torch.models.transformer, repro_torch.serving.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
