@@ -22,7 +22,15 @@ Phases (any failure exits non-zero before the result line):
      a 2-layer fp32 model at full width gives the dense streams;
   4c. int8: a prefilled batch quantized into a dense and a paged int8
      cache, one extend chunk and decode steps through kernels 3 and
-     4-int8, logits against the plain path.
+     4-int8, logits against the plain path;
+  5. moe: phi3.5-moe at its published width, 8 of its 32 layers (the
+     whole model does not fit one 80 GB card), the same 16 requests; the
+     expert GEMM (kernel 6) launches three times per layer and model call,
+     and one prompt's logits match the plain path's;
+  6. ssm: rwkv6-1.6b whole, the same 16 requests; the WKV6 kernel
+     (kernel 7) launches once per layer and admission call, and one
+     prompt's logits match the plain path's at fp32, and at bf16 within
+     twice the plain path's own spread between two chunk sizes.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -49,6 +57,16 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # each layer's attention output differs by up to one bf16 rounding, which
 # the later layers carry into logits of std ~1
 LOGIT_BOUND = 0.25
+# the same at fp32 for the 24-layer recurrent rwkv6-1.6b: the kernel and the
+# plain form sum the same fp32 terms in another order (~1e-6 relative per
+# layer), carried through 24 layers to logits of std ~1
+LOGIT_BOUND_FP32 = 1e-3
+# rwkv6-1.6b at bf16: its recurrent layers re-round each layer's output to
+# bf16 and carry the rounding across the prompt, so the plain path differs
+# from itself, run at 16-token chunks in place of 32 (the same math), by as
+# much as from the kernel path; the kernel path is held within this
+# multiple of that spread
+SPREAD_FACTOR_BF16 = 2.0
 SEED = 0
 
 
@@ -93,17 +111,20 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     import torch.nn.functional as F
-    from repro_torch.configs import llama32_1b
+    from repro_torch.configs import get_config, llama32_1b
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.decode_attention_int8 import (
         decode_attention_int8)
+    from repro_torch.kernels.expert_matmul import expert_matmul
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_int8)
     from repro_torch.kernels.paged_extend_attention import (
         paged_extend_attention)
-    from repro_torch.launch.serve import demo_requests, serve_demo
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.serve import (demo_requests, full_width_config,
+                                          serve_demo)
     from repro_torch.models import layers as Lyr
     from repro_torch.models import transformer as T
     from repro_torch.models.api import build as build_model
@@ -111,7 +132,7 @@ def main() -> int:
     kernel_fns = {k.__name__: k for k in (
         flash_attention, decode_attention, decode_attention_int8,
         paged_decode_attention, paged_decode_attention_int8,
-        paged_extend_attention)}
+        paged_extend_attention, expert_matmul, wkv6)}
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -127,12 +148,14 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build(["flash_attention", "decode_attention",
                         "decode_attention_int8", "paged_decode_attention",
-                        "paged_extend_attention"])
+                        "paged_extend_attention", "expert_matmul", "wkv6"])
     print(f"[build] {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Used" in line or "error" in line.lower():
+            spills = "spill" in line and not line.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores")
+            if "Used" in line or spills or "error" in line.lower():
                 print(f"  {name}: {line.strip()}")
 
     # --------------------------------------------------------- 3. kernels
@@ -400,7 +423,115 @@ def main() -> int:
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, shape=f"bf16 B=8 C={C} W={W} page={page} "
                 f"H={H} KVH={KVH} hd={hd} pos={pos_tail.tolist()}")
-    del l2, q, kc, vc, kr, vr, mask, kp, vp, kp8, vp8, kc8, vc8
+    del q, kc, vc, kr, vr, mask, kp, vp, kp8, vp8, kc8, vc8
+
+    # kernel 6 at phi3.5-moe's shapes: 16 experts, D 4096, F 6400 (gate/up;
+    # down swaps them), C = T tokens with fill from a seeded top-2 routing
+    E6, D6, F6 = 16, 4096, 6400
+
+    def routed_fill(T):
+        idx = torch.topk(torch.rand((T, E6), generator=gen, device=dev), 2,
+                         dim=-1).indices
+        return torch.bincount(idx.reshape(-1), minlength=E6).to(torch.int32)
+
+    print("[kernels] expert_matmul vs expert_matmul_ref")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for E, C, D, F_, fill in [
+                (E6, 8, D6, F6, routed_fill(8)),
+                (E6, 8, F6, D6, routed_fill(8)),
+                (E6, 2048, D6, F6, routed_fill(2048)),
+                (4, 200, D6, 640, torch.tensor([0, 77, 200, 64],
+                                               dtype=torch.int32,
+                                               device=dev))]:
+            xe = rnd(E, C, D, dtype=dt)
+            w = (rnd(E, D, F_, dtype=torch.float32) / D ** 0.5).to(dt)
+            got = expert_matmul(xe, w, fill)
+            rows_past = (torch.arange(C, device=dev)[None, :]
+                         >= fill[:, None])
+            check(not got[rows_past].any(), f"expert_matmul E={E} C={C}: "
+                  "rows past fill are not zero")
+            compare("expert_matmul", got, ref.expert_matmul_ref(xe, w, fill),
+                    dtype, f"{dtype} E={E} C={C} D={D} F={F_} fill="
+                    f"{fill.tolist()}")
+            del xe, w, got
+
+    # kernel 7 at rwkv6-1.6b's heads (H 32, hd 64): the serving shape, a
+    # ragged S, and the decay clamp over 64 tokens; a chained state
+    def wkv_inputs(B, S, dt, logw=None):
+        r, k, v = (0.5 * rnd(B, S, 32, 64, dtype=torch.float32)
+                   for _ in range(3))
+        w = (-1.5 * torch.rand((B, S, 32, 64), generator=gen, device=dev)
+             if logw is None else torch.full((B, S, 32, 64), logw,
+                                             device=dev))
+        return (r.to(dt), k.to(dt), v.to(dt), w,
+                0.3 * rnd(32, 64, dtype=torch.float32),
+                0.1 * rnd(B, 32, 64, 64, dtype=torch.float32))
+
+    print("[kernels] wkv6 vs wkv6_chunked_ref and wkv6_ref (outputs fp32)")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for B, S, logw in ((8, 512, None), (2, 100, None), (1, 64, -1.5)):
+            a = wkv_inputs(B, S, dt, logw)
+            o, st = wkv6(*a)
+            for plain in (ref.wkv6_chunked_ref, ref.wkv6_ref):
+                po, ps = plain(*a)
+                case = (f"{dtype} inputs B={B} S={S} H=32 hd=64 logw="
+                        f"{logw or 'U(-1.5, 0)'} vs {plain.__name__}")
+                compare("wkv6", o, po, "float32", case + " out")
+                compare("wkv6", st, ps, "float32", case + " state")
+            h = S // 2 + 3
+            o1, s1 = wkv6(*(t[:, :h].contiguous() for t in a[:4]), a[4], a[5])
+            o2, s2 = wkv6(*(t[:, h:].contiguous() for t in a[:4]), a[4], s1)
+            compare("wkv6", torch.cat([o1, o2], 1), o, "float32",
+                    f"{dtype} B={B} S={h}+{S - h} chained vs one call out")
+            compare("wkv6", s2, st, "float32",
+                    f"{dtype} B={B} S={h}+{S - h} chained vs one call state")
+
+    print("[kernels] times of kernels 6 and 7 (bf16, CUDA events, median of "
+          "30, L2 flushed)")
+    extra_shapes = {}
+    for ntok in (8, 2048):
+        fill = routed_fill(ntok)
+        xe = rnd(E6, ntok, D6, dtype=bf)
+        w = (rnd(E6, D6, F6, dtype=torch.float32) / D6 ** 0.5).to(bf)
+        ms = time_ms(lambda: expert_matmul(xe, w, fill), flush)
+        plain = time_ms(lambda: ref.expert_matmul_ref(xe, w, fill), flush)
+        lib = time_ms(lambda: torch.bmm(xe, w), flush)
+        live_rows, live_e = int(fill.sum()), int((fill > 0).sum())
+        nbytes = 2 * (live_rows * D6 + live_e * D6 * F6 + E6 * ntok * F6) + 4 * E6
+        b_ms, b_by = bound(nbytes, 2.0 * live_rows * D6 * F6, BF16_FLOP_PER_S)
+        shape = (f"bf16 E={E6} C=T={ntok} D={D6} F={F6} top-2 fill "
+                 f"{fill.tolist()} ({live_e} live experts)")
+        print(f"  expert_matmul T={ntok}: kernel {ms:.4f} ms, plain {plain:.4f}, "
+              f"library (bmm, every row) {lib:.4f}, bound {b_ms:.5f} "
+              f"({b_by}) -> {b_ms / ms:.1%} of bound")
+        entry = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                     bound_by=b_by, shape=shape)
+        if ntok == 8:      # the decode shape: most launches on the path
+            rows["expert_matmul"].update(entry)
+        else:
+            extra_shapes["expert_matmul"] = [entry]
+        del xe, w
+    for S in (512, 64):
+        a = wkv_inputs(8, S, bf)
+        ms = time_ms(lambda: wkv6(*a), flush)
+        plain = time_ms(lambda: ref.wkv6_chunked_ref(*a), flush)
+        n = 8 * S * 32 * 64
+        nbytes = 3 * 2 * n + 2 * 4 * n + 4 * 32 * 64 + 2 * 4 * 8 * 32 * 64 * 64
+        b_ms, b_by = bound(nbytes, 4.0 * 64 * n, BF16_FLOP_PER_S)
+        shape = f"bf16 r/k/v, fp32 logw B=8 S={S} H=32 hd=64"
+        print(f"  wkv6 B=8 S={S}: kernel {ms:.4f} ms, plain (chunked) "
+              f"{plain:.4f}, bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of "
+              f"bound")
+        entry = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                     bound_by=b_by, shape=shape)
+        if S == 512:
+            rows["wkv6"].update(entry)
+        else:
+            extra_shapes["wkv6"] = [entry]
+        del a
+    del l2
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 4. serve
@@ -635,8 +766,103 @@ def main() -> int:
             "paged_decode_attention"],
         paged_extend_attention=paged_runs["num_pages=default"][
             "paged_extend_attention"])
+    del params, model, int8_caches, got, want
+    torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- 5. report
+    # ------------------------------------------------- 5-6. moe and ssm
+    # the same traffic at each arch's full width: phi3.5-moe at 8 of its 32
+    # layers, as its 1.30 B parameters a layer (2.60 GB in bf16) make 83.7 GB
+    # of weights at 32 layers, more than one 80 GB card holds beside the
+    # caches (8 layers: 21.3 GB); rwkv6-1.6b whole
+    for arch, depth in (("phi3.5-moe-42b-a6.6b", 8), ("rwkv6-1.6b", None)):
+        fcfg = full_width_config(arch, depth)
+        Lf = fcfg.num_layers
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(*kernel_fns.values())
+        fout = serve_demo(fcfg, max_batch=8, max_seq=1024, device="cuda",
+                          **serve_kw)
+        fl = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        fsites = fout["per_site"]
+        check(fout["completed"] == fout["submitted"] == 16,
+              f"{arch}: served {fout['completed']}/{fout['submitted']}")
+        calls = sum(s["prefill_calls"] for s in fsites)   # buckets + chunks
+        chunks = sum(s["extend_chunks"] for s in fsites)
+        steps = sum(s["decode_steps"] for s in fsites)
+        if fcfg.is_moe:
+            want_l = {"expert_matmul": 3 * Lf * (calls + steps),
+                      "flash_attention": Lf * (calls - chunks),
+                      "decode_attention": Lf * steps}
+        else:
+            want_l = {"wkv6": Lf * calls}
+        check(fl == want_l, f"{arch}: launches {fl} != {want_l} ({calls} "
+              f"admission calls, {chunks} of them extend chunks, {steps} "
+              f"decode steps, {Lf} layers)")
+        freqs = demo_requests(fcfg, **serve_kw)
+        served_f = sum(s["served_tokens"] for s in fsites)
+        check(served_f == sum(r.max_new_tokens for _, r in freqs),
+              f"{arch}: served {served_f} tokens")
+        print(f"[{fcfg.family}] {arch} L={Lf} of {get_config(arch).num_layers} "
+              f"d={fcfg.d_model} V={fcfg.vocab_size} bf16: 16/16 requests, "
+              f"{served_f} tokens in {fout['wall_seconds']:.3f} s "
+              f"({served_f / fout['wall_seconds']:.1f} tok/s), peak memory "
+              f"{peak_gb:.2f} GB")
+        for i, s in enumerate(fsites):
+            print(f"  site {i}: {s['num_completed']} requests, prefill calls "
+                  f"{s['prefill_calls'] - s['extend_chunks']}, extend chunks "
+                  f"{s['extend_chunks']}, decode steps {s['decode_steps']}, "
+                  f"TTFT mean {s['mean_ttft'] * 1e3:.1f} / p99 "
+                  f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+                  f"{s['mean_tbt'] * 1e3:.2f} / p99 {s['p99_tbt'] * 1e3:.2f} ms")
+        print(f"  launches on the serving path: {fl}")
+        launches.update({k: v for k, v in fl.items()
+                         if k in ("expert_matmul", "wkv6")})
+
+        # request 0's first-token logits, kernel path vs plain path: the
+        # moe model at bf16, bounded as in phase 4; the ssm model at fp32,
+        # and at bf16 within SPREAD_FACTOR_BF16 times the plain path's own
+        # spread between 16- and 32-token chunks
+        fprompt = torch.as_tensor(freqs[0][1].prompt[None, :])
+        runs = [fcfg]
+        if fcfg.family == "ssm":
+            runs.append(dataclasses.replace(fcfg, dtype="float32"))
+        for ccfg in runs:
+            cparams = build_model(ccfg).init_params(
+                torch.Generator(device=dev).manual_seed(SEED))
+            with torch.no_grad():
+                got, _ = build_model(ccfg).prefill_fn(cparams,
+                                                      {"tokens": fprompt})
+                want, _ = build_model(ccfg, reference=True).prefill_fn(
+                    cparams, {"tokens": fprompt})
+                spread_txt = ""
+                if fcfg.family != "ssm":
+                    lbound = LOGIT_BOUND
+                elif ccfg.dtype == "float32":
+                    lbound = LOGIT_BOUND_FP32
+                else:
+                    alt, _ = build_model(ccfg, reference=True,
+                                         wkv_chunk=16).prefill_fn(
+                        cparams, {"tokens": fprompt})
+                    spread = (alt.float() - want.float()).abs().max().item()
+                    lbound = SPREAD_FACTOR_BF16 * spread
+                    spread_txt = (f"; plain path with 16-token chunks vs 32: "
+                                  f"{spread:.4g}, argmax {int(alt.argmax())}")
+            torch.cuda.synchronize()
+            check(got.shape == (1, ccfg.vocab_size)
+                  and bool(torch.isfinite(got).all()),
+                  f"{arch}: logits shape {tuple(got.shape)} or non-finite")
+            ferr = (got.float() - want.float()).abs().max().item()
+            check(ferr <= lbound, f"{arch} {ccfg.dtype}: logits differ by "
+                  f"{ferr:.3g} > {lbound:.3g}")
+            print(f"[{fcfg.family}] request 0 (prompt {fprompt.shape[1]} "
+                  f"tokens) first-token logits at {ccfg.dtype}, kernel path "
+                  f"vs plain path: max |diff| {ferr:.4g} (bound "
+                  f"{lbound:.4g}), argmax {int(got.argmax())} vs "
+                  f"{int(want.argmax())}{spread_txt}")
+            del cparams, got, want
+            torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 7. report
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),
            "decode_attention": ("decode_attention.py:92", "decode_attention"),
            "decode_attention_int8": ("decode_attention.py:139",
@@ -646,7 +872,9 @@ def main() -> int:
            "paged_decode_attention_int8": ("decode_attention.py:263",
                                            "paged_decode_attention"),
            "paged_extend_attention": ("flash_attention.py:209",
-                                      "paged_extend_attention")}
+                                      "paged_extend_attention"),
+           "expert_matmul": ("grouped_matmul.py:56", "expert_matmul"),
+           "wkv6": ("wkv6.py:74", "wkv6")}
     csrc = {"paged_decode_attention_int8": "paged_decode_attention"}
     table = []
     for name, r in rows.items():
@@ -661,7 +889,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "other_shapes": extra_shapes.get(name, [])})
     print(smi)                        # the card, as nvidia-smi gives it
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

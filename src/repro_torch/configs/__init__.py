@@ -1,11 +1,15 @@
-"""Architecture registry of the port: the families ported so far, plus the
-reduced smoke configs. Later slices register the other families."""
+"""Architecture registry of the port: the families ported so far (dense,
+moe, ssm), plus the reduced smoke configs. Later slices register the other
+families."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.llama32_1b import CONFIG as llama32_1b
+from repro_torch.configs.phi35_moe_42b import CONFIG as phi35_moe_42b
+from repro_torch.configs.rwkv6_1b6 import CONFIG as rwkv6_1b6
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [llama32_1b]}
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c for c in [llama32_1b, phi35_moe_42b, rwkv6_1b6]}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,4 +1,4 @@
-"""Attention kernels of the port: hand-written CUDA for Hopper
+"""Kernels of the port: hand-written CUDA for Hopper
 (``csrc/``), their wrappers, the plain PyTorch versions (``ref``) and the
 device dispatch (``ops``).
 
@@ -10,4 +10,7 @@ device dispatch (``ops``).
                      fp or int8 pools (repro/kernels/decode_attention.py)
   paged_extend_attention — chunk attention continued from page pools
                      (repro/kernels/flash_attention.py)
+  expert_matmul    — capacity-bucketed MoE expert GEMM
+                     (repro/kernels/grouped_matmul.py)
+  wkv6             — chunked RWKV6 recurrence (repro/kernels/wkv6.py)
 """

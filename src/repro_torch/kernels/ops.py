@@ -14,6 +14,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention as _decode_kernel)
 from repro_torch.kernels.decode_attention_int8 import (
     decode_attention_int8 as _decode_int8_kernel)
+from repro_torch.kernels.expert_matmul import (
+    expert_matmul as _expert_matmul_kernel)
 from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_kernel)
 from repro_torch.kernels.paged_decode_attention import (
@@ -21,6 +23,7 @@ from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_int8 as _paged_decode_int8_kernel)
 from repro_torch.kernels.paged_extend_attention import (
     paged_extend_attention as _paged_extend_kernel)
+from repro_torch.kernels.wkv6 import wkv6 as _wkv6_kernel
 
 
 def _on_cpu(t) -> bool:
@@ -28,7 +31,7 @@ def _on_cpu(t) -> bool:
         return True
     if t.is_cuda:
         return False
-    raise ValueError(f"no attention path for device {t.device}")
+    raise ValueError(f"no kernel path for device {t.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
@@ -87,3 +90,19 @@ def paged_extend_attention(q, k_pool, v_pool, k_new, v_new, table, pos):
         return ref.paged_extend_attention_ref(q, k_pool, v_pool, k_new,
                                               v_new, table, pos)
     return _paged_extend_kernel(q, k_pool, v_pool, k_new, v_new, table, pos)
+
+
+def expert_matmul(xe, w, fill=None):
+    """Capacity-bucketed expert GEMM [E,C,D] x [E,D,F] -> [E,C,F] in xe's
+    dtype, fp32 accumulation; rows at or past ``fill[e]`` are zero."""
+    if _on_cpu(xe):
+        return ref.expert_matmul_ref(xe, w, fill)
+    return _expert_matmul_kernel(xe, w, fill)
+
+
+def wkv6(r, k, v, logw, u, state0):
+    """WKV6 over a segment [B,S,H,hd] from the carried state [B,H,hd,hd]
+    -> (out fp32, final state fp32)."""
+    if _on_cpu(r):
+        return ref.wkv6_chunked_ref(r, k, v, logw, u, state0)
+    return _wkv6_kernel(r, k, v, logw, u, state0)

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the ported attention kernels.
+"""Plain PyTorch versions of the ported kernels.
 
-Each is the direct O(S²) math in fp32 with the reference's ``-1e30`` mask
-and GQA head mapping (query head ``h`` reads KV head ``h // G``). They are
-what a wrapper runs for a tensor on the CPU, what ``chip_smoke.py`` holds
-each kernel against on the card, and the oracle path of the model's
-reference mode.
+The attention ones are the direct O(S²) math in fp32 with the reference's
+``-1e30`` mask and GQA head mapping (query head ``h`` reads KV head
+``h // G``); the expert GEMM is one fp32 batched product; WKV6 has its
+token-serial definition and the chunked form the model runs. They are what
+a wrapper runs for a tensor on the CPU, what ``chip_smoke.py`` holds each
+kernel against on the card, and the oracle path of the model's reference
+mode.
 """
 from __future__ import annotations
 
@@ -136,3 +138,76 @@ def paged_extend_attention_ref(q, k_pool, v_pool, k_new, v_new, table, pos):
     o = (torch.einsum("bkgis,bskd->bkgid", p[..., :S], vc)
          + torch.einsum("bkgij,bjkd->bkgid", p[..., S:], v_new.float()))
     return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd).to(q.dtype)
+
+
+def expert_matmul_ref(xe, w, fill=None):
+    """Capacity-bucketed expert GEMM. xe: [E,C,D]; w: [E,D,F]; ``fill``
+    [E] int (default C) counts each expert's valid rows. Returns [E,C,F]
+    in xe's dtype: the fp32 product, with rows ``>= fill[e]`` zeroed."""
+    y = torch.bmm(xe.float(), w.float())
+    if fill is not None:
+        row = torch.arange(xe.shape[1], device=xe.device)[None, :, None]
+        y = torch.where(row < fill.to(xe.device)[:, None, None], y, 0.0)
+    return y.to(xe.dtype)
+
+
+def wkv6_ref(r, k, v, logw, u, state0):
+    """Token-by-token WKV6 recurrence (the definitional form).
+
+    r/k/v/logw: [B,S,H,hd]; u: [H,hd]; state0: [B,H,hd,hd]::
+
+        S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
+        out_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+
+    Returns (out [B,S,H,hd] fp32, state [B,H,hd,hd] fp32)."""
+    r, k, v, w = (a.float() for a in (r, k, v, logw))
+    u = u.float()
+    S = state0.float()
+    outs = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t = r[:, t], k[:, t], v[:, t]
+        rk_u = (r_t * u[None] * k_t).sum(-1)                 # [B,H]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r_t, S)
+                    + rk_u[..., None] * v_t)
+        S = (torch.exp(w[:, t])[..., None] * S
+             + k_t[..., :, None] * v_t[..., None, :])
+    out = torch.stack(outs, 1) if outs else torch.zeros_like(r)
+    return out, S
+
+
+WKV6_CHUNK = 32
+
+
+def wkv6_chunked_ref(r, k, v, logw, u, state0, chunk: int = WKV6_CHUNK):
+    """The chunked form of ``wkv6_ref`` (``repro/models/rwkv6.py``
+    ``wkv6_chunked``), for any S: chunks of ``chunk`` tokens, the last one
+    shorter. Within a chunk, with c the inclusive cumsum of logw:
+    decayed strictly causal scores (r e^{c_prev})(k e^{-c})^T, the bonus
+    diagonal, the carried state's term (r e^{c_prev}) S, and the carry
+    S <- e^{c_last} S + (k e^{c_last - c})^T v. At the model's clamp
+    (logw >= -1.5) a 32-token chunk keeps every factor within e^{±48}, in
+    fp32 range. Returns (out fp32, state fp32) like ``wkv6_ref``."""
+    B, S, H, hd = r.shape
+    r, k, v, w = (a.float() for a in (r, k, v, logw))
+    u = u.float()
+    st = state0.float()
+    outs = []
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, min(t0 + chunk, S))
+        r_i, k_i, v_i, w_i = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
+        C = r_i.shape[1]
+        c = torch.cumsum(w_i, dim=1)
+        A = r_i * torch.exp(c - w_i)
+        Bm = k_i * torch.exp(-c)
+        tri = torch.tril(torch.ones((C, C), device=r.device), diagonal=-1)
+        s = torch.einsum("bthd,bjhd->bhtj", A, Bm) * tri
+        diag = (r_i * u[None, None] * k_i).sum(-1)           # [B,C,H]
+        out = (torch.einsum("bhtj,bjhd->bthd", s, v_i) + diag[..., None] * v_i
+               + torch.einsum("bthk,bhkv->bthv", A, st))
+        c_last = c[:, -1:]
+        k_dec = k_i * torch.exp(c_last - c)
+        st = (torch.exp(c_last[:, 0])[..., None] * st
+              + torch.einsum("bthk,bthv->bhkv", k_dec, v_i))
+        outs.append(out)
+    out = torch.cat(outs, 1) if outs else torch.zeros_like(r)
+    return out, st

@@ -1,10 +1,15 @@
 """Where the serving path's time goes on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile [--paged]
+  PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.profile \
+      --arch phi3.5-moe-42b-a6.6b --layers 8
 
-Runs ``serve_demo`` at full llama3.2-1b width three times with the same
-arguments as ``chip_smoke.py``: once to warm up (cuBLAS handles, lazily
-loaded kernels, the kernel build), once warm to read the engine metrics
+Runs ``serve_demo`` at an arch's full width (default llama3.2-1b) and
+published depth, or at ``--layers`` layers (phi3.5-moe needs 8: its 32
+do not fit one 80 GB card), three times with the same arguments as
+``chip_smoke.py``: once to warm up (cuBLAS handles, lazily loaded
+kernels, the kernel build), once warm to read the engine metrics
 undisturbed, and once under ``torch.profiler``; ``--paged`` serves from
 the paged KV cache at the default pool, as ``chip_smoke.py`` phase 4b
 does. Prints the warm metrics,
@@ -21,8 +26,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import llama32_1b
-from repro_torch.launch.serve import serve_demo
+from repro_torch.configs import ARCHS
+from repro_torch.launch.serve import full_width_config, serve_demo
 
 SERVE = dict(num_requests=16, num_sites=2, max_batch=8, max_seq=1024,
              seed=0, prompt_len=(16, 701), new_tokens=(8, 33),
@@ -52,18 +57,27 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--paged", action="store_true",
                     help="profile the paged KV-cache engines")
-    serve = dict(SERVE, paged=ap.parse_args(argv).paged)
+    ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the published one); "
+                         "phi3.5-moe-42b-a6.6b needs --layers 8 on one 80 GB "
+                         "card, whose memory its 32 layers (83.7 GB of bf16 "
+                         "weights) exceed")
+    args = ap.parse_args(argv)
+    serve = dict(SERVE, paged=args.paged)
+    cfg = full_width_config(args.arch, args.layers)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[card] {smi}")
+    print(f"[model] {cfg.name} at full width, {cfg.num_layers} layers")
     t0 = time.perf_counter()
-    serve_demo(llama32_1b, **serve)
+    serve_demo(cfg, **serve)
     print(f"[warm-up] {time.perf_counter() - t0:.3f} s")
-    _report("warm", serve_demo(llama32_1b, **serve))
+    _report("warm", serve_demo(cfg, **serve))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = serve_demo(llama32_1b, **serve)
+        out = serve_demo(cfg, **serve)
         torch.cuda.synchronize()
     _report("profiled", out)
     wall = out["wall_seconds"]

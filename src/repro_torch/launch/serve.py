@@ -8,21 +8,36 @@ and defaults to uniform.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --sites 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch rwkv6-1.6b
+
+The command line serves an arch's reduced smoke config (``--layers``
+overrides its depth); ``full_width_config`` gives the published width
+that ``chip_smoke.py`` and ``launch/profile.py`` serve on the card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.configs import smoke_config
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.api import build
 from repro_torch.serving.engine import Request, ServingEngine
+
+
+def full_width_config(arch: str, layers: Optional[int] = None
+                      ) -> ModelConfig:
+    """``arch`` at its published width, at ``layers`` layers (default: its
+    published depth). A depth cut is the caller's, with its reason."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
 
 
 def demo_requests(cfg: ModelConfig, *, num_requests: int, num_sites: int,
@@ -61,7 +76,8 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
     request's tokens by request id. ``cfg=None`` serves
     the llama3.2-1b smoke config; weights are random, drawn from ``seed``.
     ``paged``: every site serves from a paged KV cache of ``num_pages``
-    pages (default the dense capacity) of ``page_size`` tokens.
+    pages (default the dense capacity) of ``page_size`` tokens (families
+    without a paged layout, such as ssm, stay dense).
     """
     cfg = cfg or smoke_config("llama3.2-1b")
     dev = resolve_device(device)
@@ -94,7 +110,7 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
            "site_weights": w.tolist(),
            "tokens": {r.rid: list(r.tokens) for m in metrics
                       for r in m.completed}}
-    if paged:
+    if engines[0].paged:
         out["free_pages"] = [len(e._free_pages) for e in engines]
         out["num_pages"] = [e.num_pages for e in engines]
     if verbose:
@@ -111,6 +127,10 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS),
+                    help="architecture whose smoke config is served")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="number of layers (default: the smoke config's)")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--sites", type=int, default=2)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -122,7 +142,10 @@ def main(argv=None) -> int:
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pages per site (default: the dense capacity)")
     args = ap.parse_args(argv)
-    out = serve_demo(num_requests=args.requests, num_sites=args.sites,
+    cfg = smoke_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    out = serve_demo(cfg, num_requests=args.requests, num_sites=args.sites,
                      max_batch=args.max_batch, device=args.device,
                      paged=args.paged, page_size=args.page_size,
                      num_pages=args.num_pages)

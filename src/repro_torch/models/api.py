@@ -7,9 +7,11 @@
     extend_fn(params, inputs, cache)  -> (logits, cache)   cache in place
     decode_fn(params, inputs, cache)  -> (logits, cache)   cache in place
 
-``build(cfg, reference=True)`` runs attention through the plain PyTorch
-versions of the kernels on any device: the oracle path that the card's
-kernel path is held against.
+``build(cfg, reference=True)`` runs every kernel call (attention, the
+expert GEMM, the WKV6 scan) through its plain PyTorch version on any
+device: the oracle path that the card's kernel path is held against;
+``wkv_chunk`` sets that path's WKV6 chunk (the ssm family's prefill and
+extend), which changes only the order of its fp32 sums.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import WKV6_CHUNK
 from repro_torch.models import transformer as T
+
+FAMILIES = ("dense", "moe", "ssm")
 
 
 @dataclass(frozen=True)
@@ -30,14 +35,18 @@ class Model:
     decode_fn: Callable
 
 
-def build(cfg: ModelConfig, *, reference: bool = False) -> Model:
-    if cfg.family != "dense" or cfg.qk_norm or cfg.use_mla:
+def build(cfg: ModelConfig, *, reference: bool = False,
+          wkv_chunk: int = WKV6_CHUNK) -> Model:
+    if cfg.family not in FAMILIES or cfg.qk_norm or cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported so far")
+            f"{cfg.name}: only the {', '.join(FAMILIES)} families (GQA "
+            "attention, no MLA or qk-norm) are ported so far")
     return Model(
         cfg=cfg,
         init_params=functools.partial(T.init_params, cfg),
-        prefill_fn=functools.partial(T.prefill_fn, cfg, reference=reference),
-        extend_fn=functools.partial(T.extend_fn, cfg, reference=reference),
+        prefill_fn=functools.partial(T.prefill_fn, cfg, reference=reference,
+                                     wkv_chunk=wkv_chunk),
+        extend_fn=functools.partial(T.extend_fn, cfg, reference=reference,
+                                    wkv_chunk=wkv_chunk),
         decode_fn=functools.partial(T.decode_fn, cfg, reference=reference),
     )

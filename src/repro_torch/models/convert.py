@@ -2,8 +2,12 @@
 
 The one place that knows both layouts: the reference keeps ``x @ W`` with
 ``W`` shaped ``[in, out]`` and stacks the layers' weights as ``[L, ...]``;
-the port keeps PyTorch's ``[out, in]`` and one dict per layer. Caches keep
-the reference's layout, but for the paged pools' trash page.
+the port keeps PyTorch's ``[out, in]`` and one dict per layer, except in
+the MoE block, whose leaves keep the reference's layout (``models.moe``).
+RWKV6 vectors (``mu_*``, ``decay_base``, ``bonus_u``, norm scales) keep
+their shapes. Leaves the reference keeps in fp32 (the MoE router,
+``decay_base``, ``bonus_u``) stay fp32. Caches keep the reference's
+layout, but for the paged pools' trash page.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.rwkv6 import FP32_LEAVES, MATRICES
 from repro_torch.models.transformer import torch_dtype
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -22,8 +27,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     arrays, as the port's parameters on ``device`` in ``cfg.dtype``."""
     dt = torch_dtype(cfg.dtype)
 
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), dtype=dt,
+    def t(a, dtype=dt):
+        return torch.tensor(np.asarray(a, np.float32), dtype=dtype,
                             device=device)
 
     def linear(a):                      # [in, out] -> [out, in]
@@ -34,22 +39,40 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     if "lm_head" in emb:
         p["embed"]["lm_head"] = linear(emb["lm_head"])
     lay = tree["layers"]
-    p["layers"] = [{
-        "ln1": t(lay["ln1"][i]), "ln2": t(lay["ln2"][i]),
-        "attn": {k: linear(lay["attn"][k][i]) for k in _ATTN},
-        "mlp": {k: linear(lay["mlp"][k][i]) for k in _MLP},
-    } for i in range(cfg.num_layers)]
     p["final_norm"] = t(tree["final_norm"])
+    if cfg.family == "ssm":
+        p["layers"] = [{
+            k: (linear(a[i]) if k in MATRICES else
+                t(a[i], torch.float32) if k in FP32_LEAVES else t(a[i]))
+            for k, a in lay.items()} for i in range(cfg.num_layers)]
+        return p
+
+    def moe(m, i):                      # the reference's layout, per layer
+        out = {k: t(m[k][i], torch.float32 if k == "router" else dt)
+               for k in ("router", *_MLP)}
+        if "shared" in m:
+            out["shared"] = {k: t(m["shared"][k][i]) for k in _MLP}
+        return out
+
+    p["layers"] = []
+    for i in range(cfg.num_layers):
+        layer = {"ln1": t(lay["ln1"][i]), "ln2": t(lay["ln2"][i]),
+                 "attn": {k: linear(lay["attn"][k][i]) for k in _ATTN}}
+        if "moe" in lay:
+            layer["moe"] = moe(lay["moe"], i)
+        else:
+            layer["mlp"] = {k: linear(lay["mlp"][k][i]) for k in _MLP}
+        p["layers"].append(layer)
     return p
 
 
 def cache_from_numpy(tree: dict, device) -> dict:
     """The reference's decode cache, already converted to numpy arrays, in
-    the port's layout on ``device``: dense, int8 (``k_scale``/``v_scale``)
-    or paged (``table``). The leaves keep their shapes and dtypes, except
-    that each paged pool gains the trash page (zeros) after its P pages,
-    whose id P is the reference's sentinel; the ``span`` marker is
-    dropped."""
+    the port's layout on ``device``: dense, int8 (``k_scale``/``v_scale``),
+    paged (``table``) or an ssm family's recurrent ``state``. The leaves
+    keep their shapes and dtypes, except that each paged pool gains the
+    trash page (zeros) after its P pages, whose id P is the reference's
+    sentinel; the ``span`` marker is dropped."""
     paged = "table" in tree
 
     def t(a):
@@ -61,7 +84,8 @@ def cache_from_numpy(tree: dict, device) -> dict:
                 device=device, dtype=torch.bfloat16)
         return torch.tensor(a, device=device)   # a copy: caches are written
 
-    out = {"kv": {name: t(leaf) for name, leaf in tree["kv"].items()},
+    part = "state" if "state" in tree else "kv"
+    out = {part: {name: t(leaf) for name, leaf in tree[part].items()},
            "pos": torch.tensor(np.asarray(tree["pos"], np.int32),
                                device=device)}
     if paged:

@@ -24,6 +24,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 
 
+def dense_init(gen: torch.Generator, shape, fan_in: int, dtype):
+    """normal / sqrt(fan_in), drawn in fp32 on ``gen.device`` and cast (the
+    reference's ``dense_init``)."""
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.div_(math.sqrt(fan_in)).to(dtype)
+
+
 def rmsnorm(scale, x, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)

@@ -1,9 +1,12 @@
-"""Dense decoder-only transformer: parameters, prefill, extend and decode.
+"""Decoder-only models: parameters, prefill, extend and decode.
 
-Port of the ``"dense"`` family of ``repro/models/transformer.py``. The
-layer stack is a Python loop over a list of per-layer parameter dicts (the
-reference scans a stacked ``[L, ...]`` tree). Parameters live on the device
-of the ``torch.Generator`` that draws them.
+Port of the ``"dense"``, ``"moe"`` and ``"ssm"`` (RWKV6) families of
+``repro/models/transformer.py``. The layer stack is a Python loop over a
+list of per-layer parameter dicts (the reference scans a stacked
+``[L, ...]`` tree). Parameters live on the device of the
+``torch.Generator`` that draws them. A moe layer has ``"moe"``
+(``models.moe``) in place of ``"mlp"``; an ssm layer is an RWKV6 block
+(``models.rwkv6``).
 
 Cache layouts, as in the reference: dense ``{"kv": {"k": [L,B,S,KVH,hd],
 "v": ...}, "pos": [B] int32}``; int8 adds ``"k_scale"``/``"v_scale"``
@@ -12,18 +15,22 @@ Cache layouts, as in the reference: dense ``{"kv": {"k": [L,B,S,KVH,hd],
 ``layers.paged_view``) and a block table ``"table"`` [B,W] int32. The
 reference's ``span`` leaf (the logical ``max_seq``, used there to pad the
 softmax sum to the dense width) has no counterpart: paged and dense agree
-to rounding here, not bit for bit. ``extend_fn`` and ``decode_fn`` update
-the cache in place and return it.
+to rounding here, not bit for bit. The ssm family's cache is its recurrent
+state, ``{"state": {"wkv": [L,B,H,hd,hd], "tm": [L,B,D], "cm": [L,B,D]}
+(fp32), "pos": [B]}``, with no sequence axis. ``extend_fn`` and
+``decode_fn`` update the cache in place and return it.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import WKV6_CHUNK
 from repro_torch.models import layers as Lyr
+from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as RWKV
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -31,11 +38,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _dense(gen, out_f: int, in_f: int, dtype):
-    """normal / sqrt(fan_in = in_f), drawn in fp32 and cast (the
-    reference's ``dense_init``), in the ``[out, in]`` layout."""
-    w = torch.randn((out_f, in_f), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w / math.sqrt(in_f)).to(dtype)
+    """A projection in the ``[out, in]`` layout, normal / sqrt(in_f)."""
+    return Lyr.dense_init(gen, (out_f, in_f), in_f, dtype)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -48,16 +52,26 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     p = {"embed": {"embed": _dense(gen, cfg.vocab_size, d, dt)}}
     if not cfg.tie_embeddings:
         p["embed"]["lm_head"] = _dense(gen, cfg.vocab_size, d, dt)
-    p["layers"] = [{
-        "ln1": ones(), "ln2": ones(),
-        "attn": {"wq": _dense(gen, H * hd, d, dt),
-                 "wk": _dense(gen, KVH * hd, d, dt),
-                 "wv": _dense(gen, KVH * hd, d, dt),
-                 "wo": _dense(gen, d, H * hd, dt)},
-        "mlp": {"w_gate": _dense(gen, f, d, dt),
-                "w_up": _dense(gen, f, d, dt),
-                "w_down": _dense(gen, d, f, dt)},
-    } for _ in range(cfg.num_layers)]
+    if cfg.family == "ssm":
+        p["layers"] = [RWKV.rwkv6_params(cfg, gen, dt)
+                       for _ in range(cfg.num_layers)]
+        p["final_norm"] = ones()
+        return p
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {"ln1": ones(), "ln2": ones(),
+                 "attn": {"wq": _dense(gen, H * hd, d, dt),
+                          "wk": _dense(gen, KVH * hd, d, dt),
+                          "wv": _dense(gen, KVH * hd, d, dt),
+                          "wo": _dense(gen, d, H * hd, dt)}}
+        if cfg.is_moe:
+            layer["moe"] = MOE.moe_params(cfg, gen, dt)
+        else:
+            layer["mlp"] = {"w_gate": _dense(gen, f, d, dt),
+                            "w_up": _dense(gen, f, d, dt),
+                            "w_down": _dense(gen, d, f, dt)}
+        layers.append(layer)
+    p["layers"] = layers
     p["final_norm"] = ones()
     return p
 
@@ -74,7 +88,27 @@ def _layer(cfg, p, x, positions, *, mode="prefill", cache=None, pos=None,
                                 table=table, reference=reference)
     x = x + o
     h = Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + Lyr.mlp(p["mlp"], h), kv
+    if "moe" in p:
+        o, _aux = MOE.moe_block(cfg, p["moe"], h, reference=reference)
+    else:
+        o = Lyr.mlp(p["mlp"], h)
+    return x + o, kv
+
+
+def _rwkv_forward(cfg, params, x, state: dict, *, rows=None, **scan):
+    """The RWKV6 layers from ``state`` (leaves [L, B, ...]); each layer's
+    new state is written into it in place, for the rows ``rows`` [B] bool
+    selects (default all): the others keep theirs bit for bit. ``scan``:
+    ``rwkv6.time_mix``'s keywords (``step`` for a decode step)."""
+    for i, p in enumerate(params["layers"]):
+        x, new = RWKV.rwkv6_block(cfg, p, x, _layer_cache(state, i), **scan)
+        for name, leaf in state.items():
+            if rows is None:
+                leaf[i] = new[name]
+            else:
+                keep = rows.view(-1, *([1] * (leaf.dim() - 2)))
+                leaf[i] = torch.where(keep, new[name], leaf[i])
+    return x
 
 
 def _head(cfg, params, x):
@@ -84,13 +118,20 @@ def _head(cfg, params, x):
 
 
 def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
-               reference: bool = False):
+               reference: bool = False, wkv_chunk: int = WKV6_CHUNK):
     """Run the whole prompt [B, S]; return (last-token logits, a cache of
-    exactly S positions with ``pos == S``)."""
+    exactly S positions with ``pos == S``). ``wkv_chunk``: the ssm plain
+    path's chunk (``reference``)."""
     dev = _device(params)
     tokens = torch.as_tensor(inputs["tokens"], device=dev)
     B, S = tokens.shape
     x = Lyr.embed(params["embed"], tokens)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    if cfg.family == "ssm":
+        state = RWKV.rwkv6_state_init(cfg, B, dev)
+        x = _rwkv_forward(cfg, params, x, state, reference=reference,
+                          wkv_chunk=wkv_chunk)
+        return _head(cfg, params, x), {"state": state, "pos": pos}
     positions = torch.arange(S, device=dev)
     L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     k_all = torch.empty((L, B, S, KVH, hd), dtype=x.dtype, device=dev)
@@ -98,9 +139,8 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
     for i, p in enumerate(params["layers"]):
         x, (k, v) = _layer(cfg, p, x, positions, reference=reference)
         k_all[i], v_all[i] = k, v
-    cache = {"kv": {"k": k_all, "v": v_all},
-             "pos": torch.full((B,), S, dtype=torch.int32, device=dev)}
-    return _head(cfg, params, x), cache
+    return _head(cfg, params, x), {"kv": {"k": k_all, "v": v_all},
+                                   "pos": pos}
 
 
 def _layer_cache(kv: dict, i: int) -> dict:
@@ -109,11 +149,13 @@ def _layer_cache(kv: dict, i: int) -> dict:
 
 
 def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
-              rows=None, reference: bool = False):
-    """Continue a prefill from a decode cache (dense, int8 or paged) with a
-    [B, C] chunk at each row's offset ``cache["pos"]``. ``rows`` [B] bool
-    (default all) picks the rows whose cache and ``pos`` move; the others
-    are left as they were (their logits are not meaningful). Returns
+              rows=None, reference: bool = False,
+              wkv_chunk: int = WKV6_CHUNK):
+    """Continue a prefill from a decode cache (dense, int8, paged, or the
+    ssm family's state) with a [B, C] chunk at each row's offset
+    ``cache["pos"]``. ``rows`` [B] bool (default all) picks the rows whose
+    cache and ``pos`` move; the others are left as they were, bit for bit
+    (their logits are not meaningful). Returns
     (last-token logits [B, V], the cache, updated in place).
     """
     dev = _device(params)
@@ -121,12 +163,16 @@ def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     B, C = tokens.shape
     pos = cache["pos"]
     x = Lyr.embed(params["embed"], tokens)
-    positions = pos[:, None] + torch.arange(C, device=dev)[None, :]
-    kv, table = cache["kv"], cache.get("table")
-    for i, p in enumerate(params["layers"]):
-        x, _ = _layer(cfg, p, x, positions, mode="extend",
-                      cache=_layer_cache(kv, i), pos=pos, rows=rows,
-                      table=table, reference=reference)
+    if cfg.family == "ssm":
+        x = _rwkv_forward(cfg, params, x, cache["state"], rows=rows,
+                          reference=reference, wkv_chunk=wkv_chunk)
+    else:
+        positions = pos[:, None] + torch.arange(C, device=dev)[None, :]
+        kv, table = cache["kv"], cache.get("table")
+        for i, p in enumerate(params["layers"]):
+            x, _ = _layer(cfg, p, x, positions, mode="extend",
+                          cache=_layer_cache(kv, i), pos=pos, rows=rows,
+                          table=table, reference=reference)
     step = C if rows is None else rows.to(torch.int32) * C
     cache["pos"] = pos + step
     return _head(cfg, params, x), cache
@@ -142,12 +188,15 @@ def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     token = torch.as_tensor(inputs["token"], device=dev)
     pos = cache["pos"]
     x = Lyr.embed(params["embed"], token[:, None])
-    positions = pos[:, None]
-    kv, table = cache["kv"], cache.get("table")
-    for i, p in enumerate(params["layers"]):
-        x, _ = _layer(cfg, p, x, positions, mode="decode",
-                      cache=_layer_cache(kv, i), pos=pos, table=table,
-                      reference=reference)
+    if cfg.family == "ssm":
+        x = _rwkv_forward(cfg, params, x, cache["state"], step=True,
+                          reference=reference)
+    else:
+        kv, table = cache["kv"], cache.get("table")
+        for i, p in enumerate(params["layers"]):
+            x, _ = _layer(cfg, p, x, pos[:, None], mode="decode",
+                          cache=_layer_cache(kv, i), pos=pos, table=table,
+                          reference=reference)
     cache["pos"] = pos + 1
     return _head(cfg, params, x), cache
 
@@ -170,7 +219,12 @@ def _kv_leaves(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
 def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                       dtype=None) -> dict:
     """Zeroed decode cache for ``batch`` rows of ``max_seq`` tokens;
-    ``dtype="int8"`` gives the quantized layout."""
+    ``dtype="int8"`` gives the quantized layout. The ssm family's is its
+    recurrent state, whatever ``max_seq`` and ``dtype``."""
+    if cfg.family == "ssm":
+        return {"state": RWKV.rwkv6_state_init(cfg, batch, device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
     lead = (cfg.num_layers, batch, max_seq)
     return {"kv": _kv_leaves(cfg, lead, dtype or cfg.dtype, device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

@@ -3,8 +3,12 @@
 Port of the dense, batched and serial paths of ``repro/serving/engine.py``:
 
   * a fixed pool of ``max_batch`` cache slots over one dense cache
-    ``[L, max_batch, max_seq, KVH, hd]``; every step runs ONE batched
-    decode over all slots, and a finished sequence frees its slot at once;
+    ``[L, max_batch, max_seq, KVH, hd]`` (or, for the recurrent ssm
+    family, one state ``[L, max_batch, ...]`` with no sequence axis,
+    overwritten whole when a slot is admitted); every step runs ONE
+    batched decode over all slots, free ones too (a free slot's state
+    drifts until its next admission overwrites it), and a finished
+    sequence frees its slot at once;
   * batched admission (``admit_mode="batched"``, the default): waiting
     requests are grouped by the largest power of two of their prompt
     (bucket) and prefilled together, one ``prefill_fn`` call per (bucket,
@@ -85,10 +89,24 @@ class Request:
         return (self.finish_s - self.prefill_done_s) / max(len(self.tokens) - 1, 1)
 
 
+CACHE_PARTS = ("kv", "state")   # attention KV leaves, recurrent state
+
+
+def cache_leaves(cache: dict):
+    """(part, name, tensor) for every per-slot leaf [L, B, ...] of a
+    decode cache, ``pos`` aside."""
+    for part in CACHE_PARTS:
+        for name, leaf in cache.get(part, {}).items():
+            yield part, name, leaf
+
+
 def insert_cache_rows(engine_cache: dict, group_cache: dict,
                       slots: np.ndarray) -> None:
     """Copy row ``r`` of a prefill cache into engine slot ``slots[r]``, in
-    place; ids >= max_batch (power-of-2 padding rows) are dropped."""
+    place, for every leaf of the engine cache: a KV leaf's first S
+    positions (S the group's length), a state leaf [L, B, ...] whole, so
+    a slot's recurrent state is overwritten at admission. Ids >= max_batch
+    (power-of-2 padding rows) are dropped."""
     B = engine_cache["pos"].shape[0]
     rows = [r for r, s in enumerate(slots) if 0 <= s < B]
     if not rows:
@@ -96,9 +114,10 @@ def insert_cache_rows(engine_cache: dict, group_cache: dict,
     dev = engine_cache["pos"].device
     dst = torch.as_tensor([int(slots[r]) for r in rows], device=dev)
     src = torch.as_tensor(rows, device=dev)
-    for name, e in engine_cache["kv"].items():
-        g = group_cache["kv"][name]
-        e[:, dst, :g.shape[2]] = g[:, src]
+    for part, name, e in cache_leaves(engine_cache):
+        g = group_cache[part][name]
+        e[(slice(None), dst, *(slice(0, n) for n in g.shape[2:]))] = (
+            g[:, src].to(e.dtype))
     engine_cache["pos"][dst] = group_cache["pos"][src]
 
 
@@ -352,8 +371,9 @@ class ServingEngine:
                                                      self.max_seq,
                                                      self.device)
             b1 = self._b1_cache
-            for t in (b1["kv"]["k"], b1["kv"]["v"], b1["pos"]):
-                t.zero_()
+            for _part, _name, leaf in cache_leaves(b1):
+                leaf.zero_()
+            b1["pos"].zero_()
             insert_cache_rows(b1, req_cache, np.zeros(1, np.int32))
             for tok in full[bucket:]:
                 logits, b1 = self.model.decode_fn(

@@ -11,20 +11,25 @@ Tolerances: bf16 outputs round once to 8 mantissa bits on each side, so
 2e-2 (abs + rel); fp32 differs only in the order of sums of up to 1024
 products and in fused multiply-adds, so 2e-5. The int8 kernels dequantize
 in fp32 as their plain versions do, so they are held to the same bounds.
+The expert GEMM sums up to 4096 fp32 products (2e-5 still holds at unit-
+variance inputs scaled by 1/sqrt(D)); the WKV6 kernel reads bf16 inputs
+but computes and writes fp32, so it is held to 2e-5 at both dtypes.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
-from repro_torch.configs import llama32_1b, reduced
+from repro_torch.configs import llama32_1b, phi35_moe_42b, reduced, rwkv6_1b6
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_int8 import decode_attention_int8
+from repro_torch.kernels.expert_matmul import expert_matmul
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_int8)
 from repro_torch.kernels.paged_extend_attention import paged_extend_attention
+from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import layers as Lyr
 from repro_torch.models import transformer as T
 from repro_torch.models.api import build
@@ -231,5 +236,79 @@ def test_model_paged_and_int8_kernel_paths_match_plain_path(gen, kind):
         ld, _ = m.decode_fn(params, {"token": le.argmax(-1).to(torch.int32)},
                             cache)
         out[reference] = (le, ld)
+    for a, b in zip(out[False], out[True]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F,fill", [
+    (16, 8, 4096, 640, [0, 2, 1, 1, 2, 0, 1, 0, 1, 1, 1, 2, 1, 0, 1, 2]),
+    (4, 70, 200, 300, [0, 5, 64, 70]),       # ragged C, D, F; partial tile
+    (3, 130, 256, 128, None),                 # fill defaults to C
+])
+def test_expert_matmul_kernel_matches_plain(gen, dtype, E, C, D, F, fill):
+    xe = _rnd(gen, (E, C, D), dtype)
+    w = (_rnd(gen, (E, D, F), torch.float32) / D ** 0.5).to(dtype)
+    f = None if fill is None else torch.tensor(fill, dtype=torch.int32,
+                                               device="cuda")
+    got = expert_matmul(xe, w, f)
+    want = ref.expert_matmul_ref(xe, w, f)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if f is not None:
+        rows = torch.arange(C, device="cuda")[None, :]
+        assert (got[rows.expand(E, C) >= f[:, None]] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,logw", [
+    (2, 100, 4, 64, None),      # ragged last chunk
+    (2, 33, 3, 16, None),
+    (1, 64, 2, 64, -1.5),       # the decay clamp over 64 tokens
+    (1, 5, 2, 16, None),
+])
+def test_wkv6_kernel_matches_plain(gen, dtype, B, S, H, hd, logw):
+    r, k, v = (0.5 * _rnd(gen, (B, S, H, hd), dtype) for _ in range(3))
+    if logw is None:
+        w = -torch.rand((B, S, H, hd), generator=gen, device="cuda") * 1.5
+    else:
+        w = torch.full((B, S, H, hd), logw, device="cuda")
+    u = 0.3 * _rnd(gen, (H, hd), torch.float32)
+    s0 = 0.1 * _rnd(gen, (B, H, hd, hd), torch.float32)
+    o, s = wkv6(r, k, v, w, u, s0)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    for plain in (ref.wkv6_chunked_ref, ref.wkv6_ref):
+        po, ps = plain(r, k, v, w, u, s0)
+        torch.testing.assert_close(o, po, **TOL[torch.float32])
+        torch.testing.assert_close(s, ps, **TOL[torch.float32])
+    # two calls chained through the state equal one call
+    o1, s1 = wkv6(r[:, :S // 2].contiguous(), k[:, :S // 2].contiguous(),
+                  v[:, :S // 2].contiguous(), w[:, :S // 2].contiguous(), u,
+                  s0)
+    o2, s2 = wkv6(r[:, S // 2:].contiguous(), k[:, S // 2:].contiguous(),
+                  v[:, S // 2:].contiguous(), w[:, S // 2:].contiguous(), u,
+                  s1)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o,
+                               **TOL[torch.float32])
+    torch.testing.assert_close(s2, s, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-1.6b"])
+def test_moe_and_rwkv6_kernel_paths_match_plain_path(gen, arch):
+    """prefill, extend and decode at fp32 through kernels 6 / 7 (and the
+    attention kernels, hd 64) vs the plain versions."""
+    base = {"phi3.5-moe-42b-a6.6b": phi35_moe_42b,
+            "rwkv6-1.6b": rwkv6_1b6}[arch]
+    cfg = reduced(base, d_model=256, head_dim=64, dtype="float32")
+    params = build(cfg).init_params(gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 45), generator=gen,
+                         device="cuda").to(torch.int32)
+    out = {}
+    for reference in (False, True):
+        m = build(cfg, reference=reference)
+        lp, _ = m.prefill_fn(params, {"tokens": toks[:, :32]})
+        cache = T.make_decode_cache(cfg, 2, 64, "cuda")
+        le, cache = m.extend_fn(params, {"tokens": toks[:, :40]}, cache)
+        ld, _ = m.decode_fn(params, {"token": toks[:, 40]}, cache)
+        out[reference] = (lp, le, ld)
     for a, b in zip(out[False], out[True]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

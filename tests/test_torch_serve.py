@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.launch.serve import serve_demo
+from repro_torch.configs import smoke_config
+from repro_torch.launch.serve import full_width_config, main, serve_demo
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -32,6 +33,26 @@ def test_serve_demo_paged_returns_every_page():
     assert out["free_pages"] == out["num_pages"] == [4, 4]
 
 
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-1.6b"])
+def test_serve_demo_new_families(arch):
+    """The smoke configs of the moe and ssm families through the entry
+    point; the command line's ``--arch``/``--layers`` reach it."""
+    out = serve_demo(smoke_config(arch), device="cpu", num_requests=6,
+                     num_sites=2, max_batch=2, max_seq=64, seed=1,
+                     verbose=False)
+    assert out["completed"] == out["submitted"] == 6
+    assert main(["--device", "cpu", "--arch", arch, "--layers", "1",
+                 "--requests", "3", "--max-batch", "2"]) == 0
+
+
+def test_full_width_config_takes_depth_from_caller():
+    phi = full_width_config("phi3.5-moe-42b-a6.6b")
+    assert (phi.num_layers, phi.d_model, phi.num_experts) == (32, 4096, 16)
+    assert full_width_config("rwkv6-1.6b").num_layers == 24
+    cut = full_width_config("phi3.5-moe-42b-a6.6b", 8)
+    assert (cut.num_layers, cut.d_model, cut.moe_d_ff) == (8, 4096, 6400)
+
+
 def test_default_device_is_the_card(monkeypatch):
     """No silent drop to the CPU: the default device is CUDA, and asking
     for it without a card raises."""
@@ -49,6 +70,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.paged_decode_attention\n"
         "import repro_torch.kernels.paged_extend_attention\n"
         "import repro_torch.kernels.decode_attention_int8\n"
+        "import repro_torch.kernels.expert_matmul, repro_torch.kernels.wkv6\n"
+        "import repro_torch.models.moe, repro_torch.models.rwkv6\n"
+        "import repro_torch.launch.profile, repro_torch.configs\n"
         "import repro_torch.models.transformer, repro_torch.serving.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
