@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero before the result line):
   1. device: the card, its power limit, TF32 off;
   2. build: every CUDA kernel with nvcc, from src/repro_torch/kernels/csrc,
-     one nvcc per source, started together;
+     one nvcc per source, started together; the registers, shared memory
+     and spills of the flash attention and expert GEMM kernels;
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes (the paged ones with all-sentinel rows and lengths past
      the table), with its time, the plain version's, one library call's
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -116,8 +118,10 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.decode_attention_int8 import (
         decode_attention_int8)
-    from repro_torch.kernels.expert_matmul import expert_matmul
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.expert_matmul import (
+        expert_matmul, smem_bytes as expert_smem_bytes)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, smem_bytes as flash_smem_bytes)
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_int8)
     from repro_torch.kernels.paged_extend_attention import (
@@ -157,6 +161,29 @@ def main() -> int:
                 "0 bytes stack frame, 0 bytes spill stores")
             if "Used" in line or spills or "error" in line.lower():
                 print(f"  {name}: {line.strip()}")
+    # the tensor-core kernels (bf16) beside the FMA ones (fp32): registers,
+    # static shared memory and spills of each instantiation from ptxas, the
+    # dynamic shared memory its launch asks for from the library
+    smem = {"flash_attention": [
+                (f"{dt} hd={hd}", flash_smem_bytes(getattr(torch, dt), hd))
+                for dt in ("bfloat16", "float32") for hd in (64, 128)],
+            "expert_matmul": [
+                (f"bfloat16 C{op}16", expert_smem_bytes(torch.bfloat16, c))
+                for op, c in (("<=", 16), (">", 17))]}
+    for name in ("flash_attention", "expert_matmul"):
+        fn, spill = None, ""
+        for line in logs.get(name, "").splitlines():
+            if "Compiling entry function" in line:   # mangled template
+                m = re.search(r"(flash_fwd_mma|flash_fwd|expert_gemm_mma|"
+                              r"expert_gemm)I(.*?)EEv", line)
+                fn = f"{m[1]}<{m[2]}>" if m else line.split("'")[1]
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and fn:
+                print(f"  [ptxas] {name} {fn}: {line.split(':', 1)[1].strip()}"
+                      f"; {spill}")
+        print(f"  [smem] {name} dynamic shared memory per launch: " +
+              ", ".join(f"{k} {v} B" for k, v in smem[name]))
 
     # --------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -165,8 +192,8 @@ def main() -> int:
     H, KVH, G = 32, 8, 4
     rows = {}
 
-    def rnd(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def rnd(*shape, dtype, g=None):
+        return torch.randn(shape, generator=g or gen, device=dev).to(dtype)
 
     def compare(name, got, want, dtype, case):
         torch.cuda.synchronize()
@@ -298,10 +325,16 @@ def main() -> int:
 
     print("[kernels] times (bf16, CUDA events, median of 30, L2 flushed)")
     bf = torch.bfloat16
-    for S in (5, 16, 300, 512):
-        B, hd = 4, 64
-        q = rnd(B, S, H, hd, dtype=bf)
-        k, v = rnd(B, S, KVH, hd, dtype=bf), rnd(B, S, KVH, hd, dtype=bf)
+    extra_shapes = {}
+    for S, hd in ((5, 64), (16, 64), (300, 64), (512, 64), (512, 128)):
+        # hd 128 draws from its own generator: every later input stays as
+        # it was before that case was timed
+        g = torch.Generator(device=dev).manual_seed(SEED + 1) if hd == 128 \
+            else None
+        B = 4
+        q = rnd(B, S, H, hd, dtype=bf, g=g)
+        k = rnd(B, S, KVH, hd, dtype=bf, g=g)
+        v = rnd(B, S, KVH, hd, dtype=bf, g=g)
         kr, vr = (t.repeat_interleave(G, dim=2).transpose(1, 2)
                   for t in (k, v))
         qt = q.transpose(1, 2)
@@ -314,12 +347,15 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
         print(f"  flash_attention B={B} S={S} hd={hd}: kernel {ms:.4f} ms, "
               f"plain {plain:.4f}, library {lib:.4f}, bound {b_ms:.5f} "
-              f"({b_by}) -> {b_ms / ms:.1%} of bound")
-        if S == 512:
-            rows["flash_attention"].update(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, shape=f"bf16 B={B} Sq=Sk={S} H={H} KVH={KVH} "
-                f"hd={hd} causal")
+              f"({b_by}) -> {b_ms / ms:.1%} of bound, kernel / library "
+              f"{ms / lib:.2f}")
+        entry = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                     bound_by=b_by, shape=f"bf16 B={B} Sq=Sk={S} H={H} "
+                     f"KVH={KVH} hd={hd} causal")
+        if (S, hd) == (512, 64):     # llama3.2-1b's largest bucket
+            rows["flash_attention"].update(entry)
+        elif S == 512:               # phi3.5-moe's heads
+            extra_shapes["flash_attention"] = [entry]
     hd = 64
     q = rnd(8, H, hd, dtype=bf)
     kc, vc = rnd(8, S_dec, KVH, hd, dtype=bf), rnd(8, S_dec, KVH, hd, dtype=bf)
@@ -490,7 +526,6 @@ def main() -> int:
 
     print("[kernels] times of kernels 6 and 7 (bf16, CUDA events, median of "
           "30, L2 flushed)")
-    extra_shapes = {}
     for ntok in (8, 2048):
         fill = routed_fill(ntok)
         xe = rnd(E6, ntok, D6, dtype=bf)
@@ -505,7 +540,8 @@ def main() -> int:
                  f"{fill.tolist()} ({live_e} live experts)")
         print(f"  expert_matmul T={ntok}: kernel {ms:.4f} ms, plain {plain:.4f}, "
               f"library (bmm, every row) {lib:.4f}, bound {b_ms:.5f} "
-              f"({b_by}) -> {b_ms / ms:.1%} of bound")
+              f"({b_by}) -> {b_ms / ms:.1%} of bound, kernel / library "
+              f"{ms / lib:.2f}")
         entry = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                      bound_by=b_by, shape=shape)
         if ntok == 8:      # the decode shape: most launches on the path

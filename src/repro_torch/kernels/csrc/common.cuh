@@ -1,5 +1,6 @@
-// Helpers shared by the attention kernels: fp32 conversion of bf16/fp32
-// elements, 16-byte vector loads (int8 rows too) and warp reductions.
+// Helpers shared by the kernels: fp32 conversion of bf16/fp32 elements,
+// 16-byte vector loads (int8 rows too), warp reductions, and the inline-PTX
+// pieces of the tensor-core kernels (cp.async, ldmatrix, mma.sync).
 #pragma once
 
 #include <cstdint>
@@ -72,6 +73,99 @@ __device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) out[16 * i + j] = static_cast<float>(c[j]);
   }
+}
+
+// ------------------------------------------------------------------------
+// Tensor-core and asynchronous-copy building blocks (inline PTX, sm_80+):
+// 16-byte cp.async copies into shared memory, ldmatrix fragment loads and
+// the bf16 m16n8k16 MMA with fp32 accumulation.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, in flight until the group is waited for;
+// valid == false reads nothing and zero-fills the 16 bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One 8-element bf16 chunk of a row into shared memory: n valid elements
+// (<= 0: none), the rest zero. vec: the row starts are 16-byte aligned and
+// a chunk is whole or empty, so one cp.async moves it; otherwise scalar
+// loads, stored at once (the caller's barrier publishes both kinds).
+__device__ __forceinline__ void copy_chunk(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int n,
+                                           bool vec) {
+  if (vec) {
+    cp_async16(dst, src, n > 0);
+    return;
+  }
+  const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
+  union {
+    uint4 v;
+    uint16_t h[8];
+  } t;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t.h[i] = i < n ? s[i] : uint16_t(0);
+  *reinterpret_cast<uint4*>(dst) = t.v;
+}
+
+// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// the same, each matrix transposed: B fragments from a K-major tile
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two fp32 values as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -6,23 +6,52 @@
 // softmax state, output in the input dtype; a row with nothing visible
 // gives 0.
 //
-// What bounds it on the H100: at long prompts the Sq*Sk*hd dot products
-// (compute); at short prompts the bytes of q, k, v and out (memory). This
-// first version does the products as fp32 FMAs on the CUDA cores, not on
-// the tensor cores, so at long prompts it sits far below the 989 TFLOP/s
-// bf16 bound; wgmma tiles are later work. What the design does about the
-// bound:
-//  * one block per (64 rows of (query, grouped head), b * KVH + kvh): the
-//    G query heads of a KV head share every K/V tile, so K/V are read from
-//    device memory once per 64/G queries, not once per query head;
-//  * K/V tiles of 32 keys are staged in shared memory as fp32; each lane
-//    of a warp owns one key for QK^T (float4 reads of a padded K row, no
-//    bank conflicts) and one slice of hd for PV;
+// What bounds it on the H100: the card's least time at the serving shapes
+// (prompts of up to a few thousand tokens, hd 64/128) is the bytes of q, k,
+// v and out, read once; the Sq * Sk * hd products stay below that only on
+// the tensor cores. Both kernels share the block layout:
+//  * one block per (64 or 128 rows of (query, grouped head), b * KVH +
+//    kvh): the G query heads of a KV head share every K/V tile, so K/V are
+//    read once per block of rows, not once per query head;
 //  * the key loop stops at the causal diagonal of the block's last query
 //    (or at the prefix), so a causal prompt does about half the work;
-//  * any Sq, Sk and G: rows and keys past the ragged edge are masked here.
+//  * any Sq, Sk and G: rows and keys past the ragged edge are masked here,
+//    and masked scores are -1e30 (never -inf).
+// bf16 (flash_fwd_mma, the serving path), FlashAttention-2 shaped:
+//  * four warps; at hd 64 each owns two m16 row fragments (128-row blocks,
+//    as FlashAttention-2 tiles hd 64), so that each K/V fragment load and
+//    each tile's copy, barrier and softmax bookkeeping serve 32 rows; at hd
+//    128 one (64-row blocks: two would not fit the registers). Q is copied
+//    once and held in registers as mma fragments;
+//  * K/V tiles of 64 keys come into a ring of shared-memory stages (three
+//    at hd 64, two at hd 128) by 16-byte cp.async, the next tiles' copies
+//    in flight during this tile's math, one barrier a tile; rows are padded
+//    by 16 bytes, so ldmatrix is free of bank conflicts;
+//  * S = Q K^T by mma.sync m16n8k16 (K through ldmatrix); the online
+//    softmax runs in registers on the accumulator layout, its row max
+//    reduced over the four lanes of a quad by shuffles, the 1/sqrt(hd)
+//    scale folded into one FFMA before ex2;
+//  * P is rounded to bf16 in registers and fed straight into O += P V by
+//    mma.sync (V through ldmatrix.trans); the row sums l are one more n8
+//    tile of that product (P times ones), so O and l sum the same bf16 P;
+//    O stays in fp32 registers and is written once, in bf16;
+//  * the tiles every row of the block sees whole take a path without the
+//    mask; the launch order walks (b, kvh) fastest and the longest causal
+//    row blocks first;
+//  * row starts that are not 16-byte aligned (odd strides or offsets of a
+//    view) take an instantiation with scalar loads into the same ring:
+//    same math, any shape the FMA kernel took.
+// At the serving shapes the loop is bound by instruction throughput (the
+// per-element softmax work beside mma.sync), not by bytes: see PERF.md.
+// fp32 (flash_fwd, the first version's body): fp32 FMAs on the CUDA cores
+// from K/V tiles of 32 keys widened in shared memory. The tensor cores'
+// fp32 input type is TF32 (10 mantissa bits), which cannot meet the fp32
+// checks (2e-5 against the plain version, 1e-4 on logits), so fp32 keeps
+// this body; the serving paths run bf16.
 // Inputs are strided [B, S, heads, hd] views (last dim contiguous); the
 // output is a contiguous [B, Sq, H, hd] tensor the wrapper allocated.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -185,22 +214,338 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ bf16: mma
+constexpr int kTileKeys = 64;  // keys per K/V tile
+
+// kMT m16 row fragments per warp: two at hd 64 (128-row blocks, as
+// FlashAttention-2 tiles hd 64), so that each K/V fragment load and each
+// tile's copy, barrier and softmax bookkeeping serve twice the rows; one at
+// hd 128, where two would not fit the registers. kStages K/V tiles in the
+// ring: three at hd 64 (two in flight during a tile's math); two at hd 128,
+// where three blocks of 168 registers then share an SM. Stage s holds K
+// then V; Q passes through the last stage, in registers before that stage
+// is first filled.
+template <int HD>
+struct MmaCfg {
+  static constexpr int kMT = HD == 64 ? 2 : 1;
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kMinBlocks = HD == 64 ? 1 : 3;
+  static constexpr int kRows = kWarps * 16 * kMT;  // (query, head) rows
+  static constexpr int kStride = HD + 8;  // bf16 per row, padded 16 bytes
+  static constexpr int kTile = kTileKeys * kStride;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int q = (kStages - 1) * kStage;
+  static constexpr int elems = kStages * kStage;
+  static constexpr size_t bytes = elems * sizeof(__nv_bfloat16);
+  static_assert(kRows <= 2 * kTileKeys, "Q fits one stage");
+};
+
+// the unaligned instantiation (scalar copies, a cold path) takes the
+// registers it needs rather than spill under the aligned one's limit
+template <int HD, bool kVec>
+__global__ void
+__launch_bounds__(kWarps * 32, kVec ? MmaCfg<HD>::kMinBlocks : 1)
+flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KVH,
+              long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+              long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+              long long v_sh, int causal, int prefix_len, float scale_log2) {
+  using bf16 = __nv_bfloat16;
+  using L = MmaCfg<HD>;
+  constexpr int kMT = L::kMT;
+  constexpr int kStages = L::kStages;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kChunks = HD / 8;               // 16-byte chunks per row
+  constexpr int kRowStep = kThreads / kChunks;  // rows one copy pass covers
+  constexpr int kNT = kTileKeys / 8;            // n8 score tiles per K tile
+  constexpr int kDT = HD / 8;                   // n8 output tiles
+  extern __shared__ float4 smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Qs = sm + L::q;
+
+  const int G = H / KVH;
+  // the blocks of one (b, kvh) share every K/V tile: the launch order walks
+  // (b, kvh) fastest, so that the blocks in flight together spread over
+  // heads instead of all reading one head's tiles at once, and it takes
+  // the longest causal row blocks first, for a shorter tail
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int bh = lin % gridDim.y;
+  const int b = bh / KVH;
+  const int kvh = bh % KVH;
+  const int rows_total = Sq * G;
+  const int r0 = (gridDim.x - 1 - lin / gridDim.y) * L::kRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int last_q = (min(r0 + L::kRows, rows_total) - 1) / G;
+  const int n_keys = causal ? min(Sk, max(last_q + 1, prefix_len)) : Sk;
+  const int n_tiles = (n_keys + kTileKeys - 1) / kTileKeys;
+
+  // every copy pass moves chunk c8 / 8 of rows j0, j0 + kRowStep, ...
+  const int c8 = (tid % kChunks) * 8;
+  const int j0 = tid / kChunks;
+
+  // Q rows (query fr / G, head kvh * G + fr % G) and tile 0: copy group 0
+#pragma unroll
+  for (int j = j0; j < L::kRows; j += kRowStep) {
+    const int fr = r0 + j;
+    const bool ok = fr < rows_total;
+    const bf16* src = ok ? q + b * q_sb + (fr / G) * q_ss +
+                               (kvh * G + fr % G) * q_sh + c8
+                         : q;
+    copy_chunk(Qs + j * L::kStride + c8, src, ok ? 8 : 0, kVec);
+  }
+  const bf16* kbase = k + b * k_sb + kvh * k_sh;
+  const bf16* vbase = v + b * v_sb + kvh * v_sh;
+  const bf16* krow = kbase + j0 * k_ss + c8;
+  const bf16* vrow = vbase + j0 * v_ss + c8;
+  const long long k_step = kRowStep * k_ss, v_step = kRowStep * v_ss;
+  auto load_kv = [&](int tile, int stage) {
+    const int key0 = tile * kTileKeys + j0;
+    const bf16* kp = krow + (long long)(tile * kTileKeys) * k_ss;
+    const bf16* vp = vrow + (long long)(tile * kTileKeys) * v_ss;
+    bf16* kd = sm + stage * L::kStage + j0 * L::kStride + c8;
+    bf16* vd = kd + L::kTile;
+#pragma unroll
+    for (int it = 0; it < kTileKeys / kRowStep; ++it) {
+      const bool ok = key0 + it * kRowStep < n_keys;
+      copy_chunk(kd + it * kRowStep * L::kStride, ok ? kp : kbase,
+                 ok ? 8 : 0, kVec);
+      copy_chunk(vd + it * kRowStep * L::kStride, ok ? vp : vbase,
+                 ok ? 8 : 0, kVec);
+      kp += k_step;
+      vp += v_step;
+    }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // this lane's rows are accumulator rows lane / 4 and lane / 4 + 8 of each
+  // of the warp's m16 fragments; row (query qp) sees the keys below lim:
+  // key <= qp or key < prefix_len (causal), any key (not), none past the
+  // last row. Tiles below the block's smallest lim (its first row's) need
+  // no mask.
+  const int wrow = warp * 16 * kMT;
+  auto row_lim = [&](int fr) {
+    if (fr >= rows_total) return 0;
+    return causal ? min(n_keys, max(fr / G + 1, prefix_len)) : n_keys;
+  };
+  int lim[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+      lim[mt][h2] = row_lim(r0 + wrow + mt * 16 + lane / 4 + 8 * h2);
+  const int n_whole = min(
+      n_tiles, (r0 + L::kRows <= rows_total ? row_lim(r0) : 0) / kTileKeys);
+
+  // Q into registers, then its buffer (the last stage) joins the ring
+  uint32_t qf[kMT][HD / 16][4];
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldmatrix_x4(qf[mt][kk],
+                  Qs + (wrow + mt * 16 + (lane & 15)) * L::kStride + kk * 16 +
+                      (lane >> 4) * 8);
+  __syncthreads();
+#pragma unroll
+  for (int s = 1; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_kv(s, s);
+    cp_async_commit();
+  }
+
+  // O and the softmax denominator: l = P . 1 is one more n8 tile of the PV
+  // product (a ones B fragment), so it sums the same bf16 P as O does
+  float oacc[kMT][kDT][4], lacc[kMT][4], m[kMT][2];
+  constexpr uint32_t kOnes = 0x3f803f80u;  // bf16 pair (1, 1)
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int d = 0; d < kDT; ++d) oacc[mt][d][i] = 0.f;
+      lacc[mt][i] = 0.f;
+    }
+    m[mt][0] = m[mt][1] = kNegInf;
+  }
+
+  // one K/V tile; kMask: the tile reaches the edge, the diagonal or the
+  // prefix for some row of the block. One barrier a tile: past it, tile t
+  // is visible to all and every warp is done with tile t - 1, whose stage
+  // then takes the copy of tile t + kStages - 1.
+  auto tile = [&](int t, auto kMask) {
+    cp_async_wait<kStages - 2>();      // tile t landed
+    __syncthreads();
+    const int next = t + kStages - 1;
+    if (next < n_tiles) load_kv(next, next % kStages);
+    cp_async_commit();
+    const bf16* Kt = sm + (t % kStages) * L::kStage;
+    const bf16* Vt = Kt + L::kTile;
+    const int t0 = t * kTileKeys;
+
+    // S = Q K^T: K rows are the col-major B operand as they lie; each K
+    // fragment serves the warp's kMT row fragments
+    float s[kMT][kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t kb[kNT / 2][4];  // all fragments first: one load latency
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np)
+        ldmatrix_x4(kb[np], Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                     L::kStride +
+                                kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          mma_bf16(s[mt][2 * np], qf[mt][kk], kb[np][0], kb[np][1]);
+          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], kb[np][2], kb[np][3]);
+        }
+    }
+    if constexpr (decltype(kMask)::value) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = t0 + j * 8 + (lane & 3) * 2 + (i & 1);
+            s[mt][j][i] = key < lim[mt][i >> 1] ? s[mt][j][i] : kNegInf;
+          }
+    }
+
+    // online softmax per row on raw scores; the scale folds into the
+    // exponent, exp2(s * scale_log2 - max * scale_log2); the row's four
+    // lanes share max and rescale
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float mx = m[mt][h2];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          mx = fmaxf(mx, fmaxf(s[mt][j][2 * h2], s[mt][j][2 * h2 + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row with no visible key yet keeps mx = -1e30: subtract 0 so
+        // its masked scores give exp2(-1e30 * scale) = 0, not exp2(0) = 1
+        const float base = mx == kNegInf ? 0.f : mx * scale_log2;
+        const float corr = ex2(m[mt][h2] * scale_log2 - base);
+        m[mt][h2] = mx;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          float* p = s[mt][j] + 2 * h2;
+          p[0] = ex2(fmaf(p[0], scale_log2, -base));
+          p[1] = ex2(fmaf(p[1], scale_log2, -base));
+        }
+#pragma unroll
+        for (int d = 0; d < kDT; ++d) {
+          oacc[mt][d][2 * h2] *= corr;
+          oacc[mt][d][2 * h2 + 1] *= corr;
+        }
+        lacc[mt][2 * h2] *= corr;
+      }
+
+    // O += P V: P's accumulator layout is the A fragment layout, so P goes
+    // to bf16 in registers; V rows are K-major for B, hence .trans
+#pragma unroll
+    for (int kk = 0; kk < kTileKeys / 16; ++kk) {
+      uint32_t vb[HD / 16][4];
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp)
+        ldmatrix_x4_trans(vb[dp], Vt + (kk * 16 + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8) * L::kStride +
+                                      dp * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const float(*p)[4] = s[mt];
+        const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                                pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                                pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                                pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          mma_bf16(oacc[mt][2 * dp], pa, vb[dp][0], vb[dp][1]);
+          mma_bf16(oacc[mt][2 * dp + 1], pa, vb[dp][2], vb[dp][3]);
+        }
+        mma_bf16(lacc[mt], pa, kOnes, kOnes);
+      }
+    }
+  };
+  for (int t = 0; t < n_whole; ++t) tile(t, std::false_type{});
+  for (int t = n_whole; t < n_tiles; ++t) tile(t, std::true_type{});
+  cp_async_wait<0>();  // nothing in flight at exit
+
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const float ls = lacc[mt][2 * h2];  // every column holds the row sum
+      const int fr = r0 + wrow + mt * 16 + lane / 4 + 8 * h2;
+      if (fr >= rows_total) continue;
+      const int qp = fr / G, h = kvh * G + fr % G;
+      const float inv = 1.f / fmaxf(ls, 1e-30f);
+      bf16* orow =
+          o + ((long long)(b * Sq + qp) * H + h) * HD + (lane & 3) * 2;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d)
+        *reinterpret_cast<uint32_t*>(orow + d * 8) = pack_bf16(
+            oacc[mt][d][2 * h2] * inv, oacc[mt][d][2 * h2 + 1] * inv);
+    }
+}
+
+template <typename T, int HD>
+size_t smem_bytes() {
+  if constexpr (std::is_same<T, float>::value) return Smem<HD>::bytes;
+  else return MmaCfg<HD>::bytes;
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KVH, const long long* st, int causal,
            int prefix_len, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd<T, HD>;
-  const size_t smem = Smem<HD>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const size_t smem = smem_bytes<T, HD>();
   const int G = H / KVH;
-  const dim3 grid((Sq * G + kRows - 1) / kRows, B * KVH);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KVH, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      prefix_len, scale);
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid((Sq * G + kRows - 1) / kRows, B * KVH);
+    auto kern = flash_fwd<T, HD>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KVH, st[0],
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
+        prefix_len, scale);
+  } else {
+    // cp.async needs every row start 16-byte aligned: base and strides
+    bool vec = (reinterpret_cast<uintptr_t>(q) |
+                reinterpret_cast<uintptr_t>(k) |
+                reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+    for (int i = 0; i < 9; ++i) vec = vec && st[i] % 8 == 0;
+    auto kern = vec ? flash_fwd_mma<HD, true> : flash_fwd_mma<HD, false>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    constexpr int rows = MmaCfg<HD>::kRows;
+    const dim3 grid((Sq * G + rows - 1) / rows, B * KVH);
+    kern<<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KVH, st[0],
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
+        prefix_len, scale * 1.4426950408889634f);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -228,4 +573,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KVH, strides, causal,
                               prefix_len, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the instantiation that flash_attention_fwd
+// launches for (dtype, hd), in bytes; 0 for one it does not take.
+extern "C" int flash_attention_smem_bytes(int dtype, int hd) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == kBFloat16 && hd == 64) return (int)smem_bytes<bf16, 64>();
+  if (dtype == kBFloat16 && hd == 128) return (int)smem_bytes<bf16, 128>();
+  if (dtype == kFloat32 && hd == 64) return (int)smem_bytes<float, 64>();
+  if (dtype == kFloat32 && hd == 128) return (int)smem_bytes<float, 128>();
+  return 0;
 }

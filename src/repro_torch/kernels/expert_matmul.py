@@ -30,6 +30,15 @@ def _kernel():
     return fn
 
 
+def smem_bytes(dtype: torch.dtype, capacity: int) -> int:
+    """Dynamic shared memory, in bytes, that the kernel's launch asks for
+    at ``dtype`` and a bucket of ``capacity`` rows (C)."""
+    fn = build.load("expert_matmul").expert_matmul_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(DTYPES[dtype], capacity)
+
+
 def expert_matmul(xe, w, fill=None):
     """xe: [E,C,D]; w: [E,D,F] contiguous CUDA tensors of one dtype (bf16
     or fp32); ``fill`` [E] int32 on the same device (default C) ->

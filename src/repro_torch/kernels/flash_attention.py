@@ -31,6 +31,15 @@ def _kernel():
     return fn
 
 
+def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory, in bytes, that the kernel's launch asks for
+    at ``dtype`` and ``head_dim``."""
+    fn = build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(DTYPES[dtype], head_dim)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     """q: [B,Sq,H,hd]; k/v: [B,Sk,KVH,hd] CUDA tensors (bf16 or fp32, hd 64
     or 128, last dim contiguous, any other strides) -> [B,Sq,H,hd]."""

@@ -14,8 +14,9 @@ undisturbed, and once under ``torch.profiler``; ``--paged`` serves from
 the paged KV cache at the default pool, as ``chip_smoke.py`` phase 4b
 does. Prints the warm metrics,
 the device's busy share in the profiled run (summed kernel time over wall
-time), the kernel launches per model call, and the top kernels by device
-time and top operators by host time.
+time), the kernel launches per model call, the top kernels by device
+time, each hand-written kernel's device time and share, and the top
+operators by host time.
 """
 from __future__ import annotations
 
@@ -32,6 +33,11 @@ from repro_torch.launch.serve import full_width_config, serve_demo
 SERVE = dict(num_requests=16, num_sites=2, max_batch=8, max_seq=1024,
              seed=0, prompt_len=(16, 701), new_tokens=(8, 33),
              device="cuda", verbose=False)
+
+
+# the __global__ functions of kernels/csrc
+CSRC_KERNELS = ("flash_fwd", "decode_fwd", "paged_decode_fwd",
+                "paged_extend_fwd", "expert_gemm", "wkv6_chunked")
 
 
 def _device_us(e) -> float:
@@ -97,6 +103,15 @@ def main(argv=None) -> int:
     print("[device] top 15 by self device time: total ms, calls, name")
     for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
         print(f"  {_device_us(e) / 1e3:10.2f} {e.count:7d}  {e.key[:90]}")
+    # each hand-written kernel's share of the device time, listed or not
+    # above (the kernels of kernels/csrc, by function name)
+    print("[device] hand-written kernels: total ms, calls, share of busy, "
+          "name")
+    for e in sorted(kernels, key=_device_us, reverse=True):
+        name = e.key.removeprefix("void (anonymous namespace)::")
+        if name.startswith(CSRC_KERNELS):
+            print(f"  {_device_us(e) / 1e3:10.2f} {e.count:7d} "
+                  f"{_device_us(e) / 1e6 / busy:6.1%}  {name[:62]}")
     print("[host] top 15 by self CPU time: total ms, calls, name")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:15]:

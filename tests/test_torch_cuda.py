@@ -60,6 +60,10 @@ def _rnd(gen, shape, dtype):
     (2, 130, 130, 32, 8, 64, True, 40),
     (1, 33, 33, 6, 2, 64, True, 0),       # G = 3
     (1, 40, 70, 8, 1, 64, False, 0),      # G = 8, Sq != Sk, bidirectional
+    (4, 512, 512, 32, 8, 64, True, 0),    # llama3.2-1b's largest bucket
+    (4, 512, 512, 32, 8, 128, True, 0),   # phi3.5-moe's heads
+    (2, 200, 200, 32, 8, 64, True, 70),   # Sq % 64 != 0, prefix past a tile
+    (1, 150, 150, 32, 8, 128, True, 100),
 ])
 def test_flash_kernel_matches_plain(gen, dtype, B, Sq, Sk, H, KVH, hd,
                                     causal, prefix):
@@ -80,6 +84,33 @@ def test_flash_kernel_takes_strided_views(gen):
     torch.testing.assert_close(
         flash_attention(q, k, v).float(),
         ref.attention_ref(q, k, v).float(), **TOL[torch.bfloat16])
+
+
+def test_flash_kernel_takes_unaligned_rows(gen):
+    """Row starts off the 16-byte grid (a view one element into its
+    storage) go through the kernel's scalar loads, with the same result."""
+    B, S, H, KVH, hd = 2, 70, 8, 2, 64
+    buf = _rnd(gen, (B, S, (H + 2 * KVH) * hd + 1), torch.bfloat16)
+    q = buf[..., 1:1 + H * hd].view(B, S, H, hd)
+    k = buf[..., 1 + H * hd:1 + (H + KVH) * hd].view(B, S, KVH, hd)
+    v = buf[..., 1 + (H + KVH) * hd:].view(B, S, KVH, hd)
+    assert q.data_ptr() % 16 and q.stride(1) % 8
+    torch.testing.assert_close(
+        flash_attention(q, k, v, prefix_len=9).float(),
+        ref.attention_ref(q, k, v, prefix_len=9).float(),
+        **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,prefix", [(64, 0), (128, 80)])
+def test_flash_kernel_rows_do_not_depend_on_the_batch(gen, dtype, hd, prefix):
+    """Batch element 0 of a B=4 call equals the B=1 call bit for bit."""
+    S, H, KVH = 200, 32, 8
+    q = _rnd(gen, (4, S, H, hd), dtype)
+    k, v = (_rnd(gen, (4, S, KVH, hd), dtype) for _ in range(2))
+    whole = flash_attention(q, k, v, prefix_len=prefix)
+    one = flash_attention(q[:1], k[:1], v[:1], prefix_len=prefix)
+    assert torch.equal(whole[:1], one)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -257,6 +288,36 @@ def test_expert_matmul_kernel_matches_plain(gen, dtype, E, C, D, F, fill):
     if f is not None:
         rows = torch.arange(C, device="cuda")[None, :]
         assert (got[rows.expand(E, C) >= f[:, None]] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("small,large,exact", [
+    (1, 8, True),         # both at or below the decode threshold (C <= 16)
+    (256, 2048, True),    # both above it
+    (8, 256, False),      # across it: another tiling, the same function
+])
+def test_expert_matmul_rows_do_not_depend_on_the_bucket(gen, dtype, small,
+                                                        large, exact):
+    """A live row's result is the same in a small bucket and in a larger
+    one whose other rows and fills differ: bit for bit on one side of the
+    decode/prefill threshold, to the dtype's tolerance across it."""
+    E, D, F = 4, 512, 384
+    w = (_rnd(gen, (E, D, F), torch.float32) / D ** 0.5).to(dtype)
+    xs = _rnd(gen, (E, small, D), dtype)
+    xl = _rnd(gen, (E, large, D), dtype)
+    xl[:, :small] = xs
+    fs = torch.tensor([small, small // 2, 0, small], dtype=torch.int32,
+                      device="cuda")
+    fl = torch.tensor([large, small + (large - small) // 3, large // 2,
+                       small], dtype=torch.int32, device="cuda")
+    got_s = expert_matmul(xs, w, fs)
+    got_l = expert_matmul(xl, w, fl)[:, :small]
+    live = torch.arange(small, device="cuda")[None, :] < fs[:, None]
+    if exact:
+        assert torch.equal(got_s[live], got_l[live])
+    else:
+        torch.testing.assert_close(got_s[live].float(), got_l[live].float(),
+                                   **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
