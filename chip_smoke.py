@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the result line):
   1. device: the card, its power limit, TF32 off;
   2. build: every CUDA kernel with nvcc, from src/repro_torch/kernels/csrc,
      one nvcc per source, started together; the registers, shared memory
-     and spills of the flash attention and expert GEMM kernels;
+     and spills of the flash attention, expert GEMM, paged extend and WKV6
+     kernels;
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes (the paged ones with all-sentinel rows and lengths past
      the table), with its time, the plain version's, one library call's
@@ -70,6 +71,16 @@ LOGIT_BOUND_FP32 = 1e-3
 # multiple of that spread
 SPREAD_FACTOR_BF16 = 2.0
 SEED = 0
+# ~50 us at the H100's 1.98 GHz boost clock (time_ms)
+SPIN_CYCLES = 100_000
+
+
+def clocks() -> str:
+    """The card's SM clock, power draw and throttle reasons now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
 
 
 def check(cond, msg: str) -> None:
@@ -80,13 +91,16 @@ def check(cond, msg: str) -> None:
 def time_ms(fn, flush, reps: int = 30) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up,
     with L2 flushed before each run (the serving path reads each layer's
-    cache cold)."""
+    cache cold). A 50 us device spin after the flush gives the host a head
+    start, so the time of a wrapper's host code never shows as an idle
+    device between the two events."""
     import torch
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -125,8 +139,8 @@ def main() -> int:
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_int8)
     from repro_torch.kernels.paged_extend_attention import (
-        paged_extend_attention)
-    from repro_torch.kernels.wkv6 import wkv6
+        paged_extend_attention, plan as extend_plan)
+    from repro_torch.kernels.wkv6 import plan as wkv6_plan, wkv6
     from repro_torch.launch.serve import (demo_requests, full_width_config,
                                           serve_demo)
     from repro_torch.models import layers as Lyr
@@ -169,13 +183,24 @@ def main() -> int:
                 for dt in ("bfloat16", "float32") for hd in (64, 128)],
             "expert_matmul": [
                 (f"bfloat16 C{op}16", expert_smem_bytes(torch.bfloat16, c))
-                for op, c in (("<=", 16), (">", 17))]}
-    for name in ("flash_attention", "expert_matmul"):
+                for op, c in (("<=", 16), (">", 17))],
+            # kernel 5 at the paged serving table (64 pages of 16), kernel 7
+            # at rwkv6-1.6b's heads: the launch's cut beside its bytes
+            "paged_extend_attention": [
+                (f"{dt} hd={hd} C={c}", extend_plan(getattr(torch, dt), hd, c,
+                                                    32, 8, 64, 16))
+                for dt in ("bfloat16", "float32") for hd, c in (
+                    (64, 1), (64, 64), (64, 256), (128, 64))],
+            "wkv6": [(f"{dt} B={b}", wkv6_plan(getattr(torch, dt), 64, b, 32))
+                     for dt in ("bfloat16", "float32") for b in (8, 1)]}
+    for name in ("flash_attention", "expert_matmul", "paged_extend_attention",
+                 "wkv6"):
         fn, spill = None, ""
         for line in logs.get(name, "").splitlines():
             if "Compiling entry function" in line:   # mangled template
                 m = re.search(r"(flash_fwd_mma|flash_fwd|expert_gemm_mma|"
-                              r"expert_gemm)I(.*?)EEv", line)
+                              r"expert_gemm|paged_extend_fwd_mma|"
+                              r"paged_extend_fwd|wkv6_chunked)I(.*?)EEv", line)
                 fn = f"{m[1]}<{m[2]}>" if m else line.split("'")[1]
             elif "spill stores" in line:
                 spill = line.strip()
@@ -183,7 +208,8 @@ def main() -> int:
                 print(f"  [ptxas] {name} {fn}: {line.split(':', 1)[1].strip()}"
                       f"; {spill}")
         print(f"  [smem] {name} dynamic shared memory per launch: " +
-              ", ".join(f"{k} {v} B" for k, v in smem[name]))
+              ", ".join(f"{k} {v} B" if isinstance(v, int) else f"{k} {v}"
+                        for k, v in smem[name]))
 
     # --------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -242,17 +268,17 @@ def main() -> int:
     # (a free slot) and rows 3/4 run past the table's width
     P_pool, page, W = 512, 16, 64
 
-    def paged_inputs(dtype, hd, B=8, sentinel=(5,)):
+    def paged_inputs(dtype, hd, B=8, sentinel=(5,), g=None):
         if dtype == torch.int8:
             kp, ks = Lyr.quantize_kv(rnd(P_pool + 1, page, KVH, hd,
-                                         dtype=torch.float32))
+                                         dtype=torch.float32, g=g))
             vp, vs = Lyr.quantize_kv(rnd(P_pool + 1, page, KVH, hd,
-                                         dtype=torch.float32))
+                                         dtype=torch.float32, g=g))
         else:
-            kp = rnd(P_pool + 1, page, KVH, hd, dtype=dtype)
-            vp = rnd(P_pool + 1, page, KVH, hd, dtype=dtype)
+            kp = rnd(P_pool + 1, page, KVH, hd, dtype=dtype, g=g)
+            vp = rnd(P_pool + 1, page, KVH, hd, dtype=dtype, g=g)
             ks = vs = None
-        perm = torch.randperm(P_pool, generator=gen, device=dev)
+        perm = torch.randperm(P_pool, generator=g or gen, device=dev)
         table = perm[:B * W].reshape(B, W).to(torch.int32)
         for b in sentinel:
             table[b] = P_pool
@@ -310,6 +336,13 @@ def main() -> int:
     print("[kernels] paged_extend_attention vs paged_extend_attention_ref")
     pos_ext = torch.tensor([256, 0, 512, 0, 128, 900, 64, 2000],
                            dtype=torch.int32, device=dev)
+    # every row near the table's width (1024): the bf16 kernel splits each
+    # row's keys over a cluster of blocks at C <= 32. These cases draw from
+    # their own generator, so every other input stays as it was before
+    # they were added
+    gen_full = torch.Generator(device=dev).manual_seed(SEED + 2)
+    pos_full = torch.tensor([1024, 1000, 1017, 990, 1024, 1003, 1010, 1021],
+                            dtype=torch.int32, device=dev)
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for C, hd in ((1, 64), (16, 64), (64, 64), (256, 64), (64, 128)):
@@ -322,6 +355,17 @@ def main() -> int:
                                                    pos_ext),
                     dtype, f"{dtype} B=8 C={C} W={W} hd={hd} pos="
                     f"{pos_ext.tolist()} rows 1,3 sentinel")
+            if C in (1, 64):
+                qf = rnd(8, C, H, hd, dtype=dt, g=gen_full)
+                kf, vf = (rnd(8, C, KVH, hd, dtype=dt, g=gen_full)
+                          for _ in range(2))
+                compare("paged_extend_attention",
+                        paged_extend_attention(qf, kp, vp, kf, vf, table,
+                                               pos_full),
+                        ref.paged_extend_attention_ref(qf, kp, vp, kf, vf,
+                                                       table, pos_full),
+                        dtype, f"{dtype} B=8 C={C} W={W} hd={hd} pos="
+                        f"{pos_full.tolist()} rows 1,3 sentinel")
 
     print("[kernels] times (bf16, CUDA events, median of 30, L2 flushed)")
     bf = torch.bfloat16
@@ -438,27 +482,35 @@ def main() -> int:
     # them masked (pos 0), the others mid-prompt
     pos_tail = torch.tensor([256, 0, 512, 0, 128, 0, 64, 0],
                             dtype=torch.int32, device=dev)
-    cached = int(pos_tail.sum())
     kp, vp, _, _, table = paged_inputs(bf, hd, sentinel=())
-    for C in (1, 16, 64, 256):
-        qe = rnd(8, C, H, hd, dtype=bf)
-        kn, vn = (rnd(8, C, KVH, hd, dtype=bf) for _ in range(2))
+    # the tails, then C = 1 and 64 at a near-full table (other_shapes)
+    for pos, C in ([(pos_tail, c) for c in (1, 16, 64, 256)]
+                   + [(pos_full, c) for c in (1, 64)]):
+        g = gen_full if pos is pos_full else None
+        qe = rnd(8, C, H, hd, dtype=bf, g=g)
+        kn, vn = (rnd(8, C, KVH, hd, dtype=bf, g=g) for _ in range(2))
         ms = time_ms(lambda: paged_extend_attention(
-            qe, kp, vp, kn, vn, table, pos_tail), flush)
+            qe, kp, vp, kn, vn, table, pos), flush)
         plain = time_ms(lambda: ref.paged_extend_attention_ref(
-            qe, kp, vp, kn, vn, table, pos_tail), flush)
+            qe, kp, vp, kn, vn, table, pos), flush)
+        cached = int(pos.clamp(max=W * page).sum())
         nbytes = (2 * 2 * qe.numel() + 2 * 2 * kn.numel()
                   + 2 * 2 * cached * KVH * hd + 4 * 8 + 4 * table.numel())
         flops = 4.0 * H * hd * (C * cached + 8 * C * (C + 1) / 2)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        print(f"  paged_extend_attention B=8 C={C} pos={pos_tail.tolist()} "
-              f"hd={hd}: kernel {ms:.4f} ms, plain {plain:.4f}, bound "
-              f"{b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound")
-        if C == 64:
-            rows["paged_extend_attention"].update(
-                ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, shape=f"bf16 B=8 C={C} W={W} page={page} "
-                f"H={H} KVH={KVH} hd={hd} pos={pos_tail.tolist()}")
+        cut = extend_plan(bf, hd, C, H, KVH, W, page)
+        print(f"  paged_extend_attention B=8 C={C} pos={pos.tolist()} "
+              f"hd={hd} ({cut['splits']} splits of {cut['split_len']} keys): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f}, bound {b_ms:.5f} "
+              f"({b_by}) -> {b_ms / ms:.1%} of bound")
+        entry = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                     bound_by=b_by, shape=f"bf16 B=8 C={C} W={W} page={page} "
+                     f"H={H} KVH={KVH} hd={hd} pos={pos.tolist()}")
+        if C == 64 and pos is pos_tail:
+            rows["paged_extend_attention"].update(entry)
+        else:
+            extra_shapes.setdefault("paged_extend_attention",
+                                    []).append(entry)
     del q, kc, vc, kr, vr, mask, kp, vp, kp8, vp8, kc8, vc8
 
     # kernel 6 at phi3.5-moe's shapes: 16 experts, D 4096, F 6400 (gate/up;
@@ -494,21 +546,24 @@ def main() -> int:
 
     # kernel 7 at rwkv6-1.6b's heads (H 32, hd 64): the serving shape, a
     # ragged S, and the decay clamp over 64 tokens; a chained state
-    def wkv_inputs(B, S, dt, logw=None):
-        r, k, v = (0.5 * rnd(B, S, 32, 64, dtype=torch.float32)
+    def wkv_inputs(B, S, dt, logw=None, g=None):
+        r, k, v = (0.5 * rnd(B, S, 32, 64, dtype=torch.float32, g=g)
                    for _ in range(3))
-        w = (-1.5 * torch.rand((B, S, 32, 64), generator=gen, device=dev)
+        w = (-1.5 * torch.rand((B, S, 32, 64), generator=g or gen, device=dev)
              if logw is None else torch.full((B, S, 32, 64), logw,
                                              device=dev))
         return (r.to(dt), k.to(dt), v.to(dt), w,
-                0.3 * rnd(32, 64, dtype=torch.float32),
-                0.1 * rnd(B, 32, 64, 64, dtype=torch.float32))
+                0.3 * rnd(32, 64, dtype=torch.float32, g=g),
+                0.1 * rnd(B, 32, 64, 64, dtype=torch.float32, g=g))
 
     print("[kernels] wkv6 vs wkv6_chunked_ref and wkv6_ref (outputs fp32)")
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for B, S, logw in ((8, 512, None), (2, 100, None), (1, 64, -1.5)):
-            a = wkv_inputs(B, S, dt, logw)
+        for B, S, logw in ((8, 512, None), (1, 512, None), (2, 100, None),
+                           (1, 64, -1.5)):
+            # B=1 draws from its own generator (see pos_full above)
+            a = wkv_inputs(B, S, dt, logw, g=gen_full if B == 1 and S == 512
+                           else None)
             o, st = wkv6(*a)
             for plain in (ref.wkv6_chunked_ref, ref.wkv6_ref):
                 po, ps = plain(*a)
@@ -549,23 +604,32 @@ def main() -> int:
         else:
             extra_shapes["expert_matmul"] = [entry]
         del xe, w
-    for S in (512, 64):
-        a = wkv_inputs(8, S, bf)
+    # the serving shape, a short segment, and one long prompt admitted
+    # alone (B=1: the value columns split over 8 blocks a head). Kernel 6's
+    # timings above hold the card at its power limit and pull the SM clock
+    # down (1380 MHz against 1980 idle on a 700 W H100): idle first, so
+    # that kernel 7 is timed at the clock the serving path gives it
+    print(f"  after kernel 6: {clocks()}")
+    time.sleep(2.0)
+    print(f"  after 2 s idle: {clocks()}")
+    for B, S in ((8, 512), (8, 64), (1, 512)):
+        a = wkv_inputs(B, S, bf, g=gen_full if B == 1 else None)
         ms = time_ms(lambda: wkv6(*a), flush)
         plain = time_ms(lambda: ref.wkv6_chunked_ref(*a), flush)
-        n = 8 * S * 32 * 64
-        nbytes = 3 * 2 * n + 2 * 4 * n + 4 * 32 * 64 + 2 * 4 * 8 * 32 * 64 * 64
+        n = B * S * 32 * 64
+        nbytes = 3 * 2 * n + 2 * 4 * n + 4 * 32 * 64 + 2 * 4 * B * 32 * 64 * 64
         b_ms, b_by = bound(nbytes, 4.0 * 64 * n, BF16_FLOP_PER_S)
-        shape = f"bf16 r/k/v, fp32 logw B=8 S={S} H=32 hd=64"
-        print(f"  wkv6 B=8 S={S}: kernel {ms:.4f} ms, plain (chunked) "
+        shape = f"bf16 r/k/v, fp32 logw B={B} S={S} H=32 hd=64"
+        print(f"  wkv6 B={B} S={S} ({wkv6_plan(bf, 64, B, 32)['slices']} "
+              f"blocks a head): kernel {ms:.4f} ms, plain (chunked) "
               f"{plain:.4f}, bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of "
               f"bound")
         entry = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
                      bound_by=b_by, shape=shape)
-        if S == 512:
+        if (B, S) == (8, 512):
             rows["wkv6"].update(entry)
         else:
-            extra_shapes["wkv6"] = [entry]
+            extra_shapes.setdefault("wkv6", []).append(entry)
         del a
     del l2
     torch.cuda.empty_cache()

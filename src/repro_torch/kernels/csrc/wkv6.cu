@@ -23,19 +23,37 @@
 // logw = 0, which leaves the state as it is; its outputs are not written.
 //
 // What bounds it on the H100: bytes (r/k/v, logw, out, the states once),
-// about 126 MB at B = 8, S = 512, H = 32, hd = 64; its 3.3 GFLOP do not
-// matter. What the design does:
-//  * one block per (b, h), with a loop over chunks in the block in place of
-//    the TPU's sequential grid axis; the state never leaves the block:
-//    4 * hd threads hold it in registers, thread (q, v) keeping column v at
-//    rows k = 4i + q, so the inter term's sum over k is a two-step shuffle
-//    among four neighbouring lanes;
-//  * each chunk's r, k, v, logw are staged once in shared memory as fp32
-//    (rows padded by one float against bank conflicts), turned in place
-//    into the decayed operands by hd threads walking the cumsum, and the
-//    32 x 32 score tile is built once and shared by all output columns;
-//  * fp32 FMAs on the CUDA cores throughout; tensor-core tiles are later
-//    work.
+// about 126 MB at B = 8, S = 512, H = 32, hd = 64, 0.038 ms; the chunk's
+// products are ~1.6 GMAC there (~0.05 ms of fp32 FMAs), and the chunk loop
+// is serial through the state. This design:
+//  * splits the value columns across blocks: a block is (b, h, slice of
+//    CW = hd / s columns), slice fastest, so the s blocks of a head read
+//    r/k/logw from L2 together. out and the state's columns depend only on
+//    their own columns of v; the decayed operands and the score tile depend
+//    on r/k/logw only and each slice recomputes them. s is the fewest that
+//    gives every SM a block (B * H and the SM count, host values), and every
+//    value is computed by the same operations in the same order for any s,
+//    so an output's bits do not depend on B;
+//  * two groups of four warps, pipelined over chunks with two barriers a
+//    chunk: while the first computes chunk i's outputs, the second makes
+//    chunk i + 1's decayed operands; while the first carries the state over
+//    chunk i, the second scores chunk i + 1 and copies chunk i + 2's inputs
+//    by 16-byte cp.async (A, Kd, P double-buffered, v triple-buffered);
+//  * the products (scores, P v + A S for the outputs, Kd^T v for the carry)
+//    run on the tensor cores as 3xTF32 MMAs (mma.sync m16n8k8): each fp32
+//    operand is split into a TF32 high part and a TF32 remainder, and a b =
+//    a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms in an accumulator
+//    of their own; a bf16 v is exact in TF32 and takes two MMAs. Plain TF32
+//    (10 mantissa bits) or bf16 operands would not hold the 2e-5 the checks
+//    ask of this kernel's fp32 outputs; the split does, and the MMA
+//    fragments need a fraction of the shared-memory operand traffic that
+//    bounds register-tiled fp32 FMAs here. The state stays in the first
+//    group's registers as MMA accumulators across the loop;
+//  * the cumsum runs on every thread of the second group: thread (d,
+//    segment) sums logw down column d in token order, then transforms its
+//    segment (hd 64: 16 tokens), two expf per element; the bonus r.(u*k) is
+//    reduced over d by warp shuffles;
+//  * rows are padded so that every fragment load is free of bank conflicts.
 
 #include "common.cuh"
 
@@ -44,194 +62,533 @@ using namespace rt;
 namespace {
 
 constexpr int kChunk = 32;
+// two groups of four warps: the first computes the outputs and carries the
+// state, the second makes the operands and scores and copies the inputs
+constexpr int kThreads = 256;
+constexpr int kGroup = kThreads / 2;
 
-template <int HD>
-struct Smem {
-  static constexpr int kStride = HD + 1;
-  static constexpr int kTile = kChunk * kStride;
-  static constexpr int a = 0;             // r, then r e^{c_prev}
-  static constexpr int b = a + kTile;     // k, then k e^{-c}
-  static constexpr int kd = b + kTile;    // logw, then k e^{c_last - c}
-  static constexpr int v = kd + kTile;
-  static constexpr int ruk = v + kTile;   // r * u * k, for the bonus
-  static constexpr int p = ruk + kTile;   // scores [kChunk][kChunk + 1]
-  static constexpr int ecl = p + kChunk * (kChunk + 1);  // e^{c_last} [HD]
-  static constexpr int floats = ecl + HD;
-  static constexpr size_t bytes = floats * sizeof(float);
+// shared memory, in bytes: r, k, logw of one chunk (input layout); v of
+// three chunks (rows padded by 32 bytes); the fp32 operands: A, Kd, P and
+// e^{c_last} of two chunks, Bm and the bonus partials of one; the state
+// snapshot. Row pads keep every fragment load free of bank conflicts.
+template <typename T, int HD, int CW>
+struct Layout {
+  static constexpr int kAStr = HD + 4;    // A, Bm rows (tokens)
+  static constexpr int kKStr = HD + 8;    // Kd rows, read transposed
+  static constexpr int kPStr = kChunk + 4;
+  static constexpr int kSStr = CW + 8;    // state snapshot rows
+  static constexpr int kVStr = CW + 32 / (int)sizeof(T);  // v rows
+  static constexpr int kRK = HD < 32 ? 1 : HD / 32;  // bonus partials
+  static constexpr int kA = kChunk * kAStr * 4;
+  static constexpr int kKd = kChunk * kKStr * 4;
+  static constexpr int kP = kChunk * kPStr * 4;
+  static constexpr int kV = kChunk * kVStr * (int)sizeof(T);
+  static constexpr int r = 0;
+  static constexpr int k = r + kChunk * HD * (int)sizeof(T);
+  static constexpr int w = k + kChunk * HD * (int)sizeof(T);
+  static constexpr int v = w + kChunk * HD * 4;
+  static constexpr int a = v + 3 * kV;
+  static constexpr int kd = a + 2 * kA;
+  static constexpr int bm = kd + 2 * kKd;
+  static constexpr int p = bm + kA;
+  static constexpr int st = p + 2 * kP;
+  static constexpr int ecl = st + HD * kSStr * 4;
+  static constexpr int rk = ecl + 2 * HD * 4;
+  static constexpr int bytes = rk + kRK * kChunk * 4;
+  static_assert(kV % 16 == 0 && (HD * (int)sizeof(T)) % 16 == 0 &&
+                (CW * (int)sizeof(T)) % 16 == 0,
+                "rows copy in 16-byte parts");
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(4 * HD)
+// 16 bytes global -> shared, any element type: cp.async when the tensors'
+// rows are 16-byte aligned, else two-byte loads (copy_chunk); an invalid
+// part is zeros
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       bool valid, bool vec) {
+  copy_chunk(static_cast<__nv_bfloat16*>(dst),
+             static_cast<const __nv_bfloat16*>(src), valid ? 8 : 0, vec);
+}
+
+// ---------------------------------------------------------------- 3xTF32
+// An fp32 product on the tensor cores to fp32 accuracy: x = hi + lo with
+// hi = x rounded to TF32 (10 mantissa bits) and lo = the remainder rounded
+// to TF32, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi (the a_lo b_lo term,
+// ~2^-22 a b, is dropped). A bf16 value is exact in TF32 (lo = 0), so a
+// product with a bf16 operand takes two MMAs.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+struct Split {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = to_tf32(x);
+  return {hi, to_tf32(x - __uint_as_float(hi))};
+}
+// d += a (16x8, row) * b (8x8, col), tf32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// an A fragment, split: elements (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4) of a 16 x 8 tile, as at(row, col) gives them
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+template <typename F>
+__device__ __forceinline__ FragA frag_a(F at, int g, int t) {
+  const float x[4] = {at(g, t), at(g + 8, t), at(g, t + 4), at(g + 8, t + 4)};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Split s = split(x[i]);
+    f.hi[i] = s.hi, f.lo[i] = s.lo;
+  }
+  return f;
+}
+// a B fragment: elements (t, g), (t + 4, g) of an 8 x 8 tile
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  const Split s0 = split(b0), s1 = split(b1);
+  return {{s0.hi, s1.hi}, {s0.lo, s1.lo}};
+}
+__device__ __forceinline__ FragB frag_b(__nv_bfloat16 b0, __nv_bfloat16 b1) {
+  return {{uint32_t(__bfloat16_as_ushort(b0)) << 16,
+           uint32_t(__bfloat16_as_ushort(b1)) << 16},
+          {0u, 0u}};
+}
+// hi += a_hi b_hi and lo += a_lo b_hi + a_hi b_lo (exact_b: b's lo part
+// is zero). The small terms have their own accumulator, added to hi once
+// at the end: the tensor cores' fp32 accumulation truncates, and every
+// MMA into the large accumulator costs up to one of its ulps.
+template <bool exact_b>
+__device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
+                                     const FragA& a, const FragB& b) {
+  mma_tf32(lo, a.lo, b.hi[0], b.hi[1]);
+  if constexpr (!exact_b) mma_tf32(lo, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(hi, a.hi, b.hi[0], b.hi[1]);
+}
+
+// two blocks an SM (at most 128 registers a thread): at B * H = 256 heads
+// every block is then resident at once
+template <typename T, int HD, int CW>
+__global__ void __launch_bounds__(kThreads, 2)
 wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ logw,
              const float* __restrict__ u, const float* __restrict__ state0,
              float* __restrict__ out, float* __restrict__ state_out, int S,
-             int H) {
-  using L = Smem<HD>;
-  constexpr int kThreads = 4 * HD;
-  constexpr int kRows = HD / 4;  // state rows per thread
-  constexpr int kSt = L::kStride;
-  extern __shared__ float smem[];
-  float* As = smem + L::a;
-  float* Bs = smem + L::b;
-  float* Ks = smem + L::kd;
-  float* Vs = smem + L::v;
-  float* Us = smem + L::ruk;
-  float* Ps = smem + L::p;
-  float* Ecl = smem + L::ecl;
+             int H, int vec) {
+  using L = Layout<T, HD, CW>;
+  constexpr bool kExactV = sizeof(T) == 2;  // bf16 v is exact in TF32
+  constexpr int kSplit = HD / CW;
+  constexpr int kLanes = HD < 32 ? HD : 32;  // lanes of one segment
+  constexpr int kNT = CW / 8;              // n8 column tiles of the slice
+  constexpr int kOutN = kNT >= 2 ? kNT / 2 : 1;  // out n-tiles a warp
+  constexpr int kKM = HD / 16;             // m16 tiles of the state's rows
+  static_assert(kKM <= 4, "one state m-tile a warp of the first group");
 
-  const int bh = blockIdx.x;
+  extern __shared__ float4 smem_raw[];
+  char* sm = reinterpret_cast<char*>(smem_raw);
+  const T* Rs = reinterpret_cast<const T*>(sm + L::r);
+  const T* Ks = reinterpret_cast<const T*>(sm + L::k);
+  const float* Ws = reinterpret_cast<const float*>(sm + L::w);
+  float* Bs = reinterpret_cast<float*>(sm + L::bm);
+  float* Sts = reinterpret_cast<float*>(sm + L::st);
+  float* RKp = reinterpret_cast<float*>(sm + L::rk);
+  auto As = [&](int i) { return reinterpret_cast<float*>(sm + L::a + (i & 1) * L::kA); };
+  auto Kds = [&](int i) { return reinterpret_cast<float*>(sm + L::kd + (i & 1) * L::kKd); };
+  auto Ps = [&](int i) { return reinterpret_cast<float*>(sm + L::p + (i & 1) * L::kP); };
+  auto Ecl = [&](int i) { return reinterpret_cast<float*>(sm + L::ecl + (i & 1) * HD * 4); };
+  auto Vs = [&](int i) { return reinterpret_cast<const T*>(sm + L::v + (i % 3) * L::kV); };
+
+  const int slice = blockIdx.x % kSplit;
+  const int bh = blockIdx.x / kSplit;
   const int b = bh / H, h = bh % H;
+  const int cb = slice * CW;  // the slice's first value column
   const int tid = threadIdx.x;
-  const int q = tid & 3, col = tid >> 2;  // state rows 4i + q, column col
-
-  float st[kRows];
-  const float* s0 = state0 + (long long)bh * HD * HD;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) st[i] = s0[(4 * i + q) * HD + col];
-
-  const float ud = tid < HD ? u[h * HD + tid] : 0.f;
-  const long long tok_stride = (long long)H * HD;  // one token, all heads
+  const bool g1 = tid < kGroup;  // outputs and state, else operands
+  const int g2 = tid - kGroup;   // index in the second group
+  const int wid = (tid % kGroup) / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4;  // fragment row and column
+  const long long tok = (long long)H * HD;  // one token, all heads
   const long long base = ((long long)b * S * H + h) * HD;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
 
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int n = min(kChunk, S - t0);
-    __syncthreads();  // the previous chunk's tiles fully consumed
-    for (int i = tid; i < kChunk * HD; i += kThreads) {
-      const int t = i / HD, d = i % HD;
-      float rx = 0.f, kx = 0.f, vx = 0.f, wx = 0.f;
-      if (t < n) {
-        const long long off = base + (t0 + t) * tok_stride + d;
-        rx = to_float(r[off]);
-        kx = to_float(k[off]);
-        vx = to_float(v[off]);
-        wx = logw[off];
+  // r/k/logw and this slice's v columns of chunk i, one commit group
+  auto load = [&](int i) {
+    const int t0 = i * kChunk;
+    constexpr int kPartsR = HD * (int)sizeof(T) / 16;
+    constexpr int kPartsW = HD * 4 / 16;
+    constexpr int kPartsV = CW * (int)sizeof(T) / 16;
+    for (int e = g2; e < kChunk * kPartsR; e += kGroup) {
+      const int t = e / kPartsR, part = e % kPartsR;
+      const bool ok = t0 + t < S;
+      const long long off =
+          base + (t0 + t) * tok + part * (16 / (int)sizeof(T));
+      copy16(sm + L::r + e * 16, ok ? r + off : r, ok, vec);
+      copy16(sm + L::k + e * 16, ok ? k + off : k, ok, vec);
+    }
+    for (int e = g2; e < kChunk * kPartsW; e += kGroup) {
+      const int t = e / kPartsW, part = e % kPartsW;
+      const bool ok = t0 + t < S;
+      const long long off = base + (t0 + t) * tok + part * 4;
+      copy16(sm + L::w + e * 16, ok ? logw + off : logw, ok, vec);
+    }
+    char* vd = sm + L::v + (i % 3) * L::kV;
+    for (int e = g2; e < kChunk * kPartsV; e += kGroup) {
+      const int t = e / kPartsV, part = e % kPartsV;
+      const bool ok = t0 + t < S;
+      const long long off =
+          base + (t0 + t) * tok + cb + part * (16 / (int)sizeof(T));
+      copy16(vd + t * L::kVStr * (int)sizeof(T) + part * 16,
+             ok ? v + off : v, ok, vec);
+    }
+    cp_async_commit();
+  };
+
+  // decayed operands of chunk i from its raw r/k/logw, by the second group:
+  // thread (d, segment) sums column d's logw in token order, then
+  // transforms its segment of tokens; the bonus r.(u*k) is reduced over d
+  // by shuffles
+  constexpr int kSegs = kGroup / HD;  // token segments per column
+  constexpr int kSegLen = kChunk / kSegs;
+  static_assert(kSegs >= 1 && kChunk % kSegs == 0, "segments");
+  const int d = (tid % kGroup) % HD, seg = (tid % kGroup) / HD;
+  const float ud = u[h * HD + d];
+  auto transforms = [&](int i) {
+    float* A = As(i);
+    float* Kd = Kds(i);
+    float cs[kSegLen], c = 0.f;
+    const float* wd = Ws + d;
+    int tk = 0;
+    for (; tk < seg * kSegLen; ++tk) c += wd[tk * HD];  // segments before
+    const float before = c;
+#pragma unroll
+    for (int e = 0; e < kSegLen; ++e, ++tk) cs[e] = c += wd[tk * HD];
+    for (; tk < kChunk; ++tk) c += wd[tk * HD];  // segments after
+    const float ecl = expf(c);
+    if (seg == 0) Ecl(i)[d] = ecl;
+#pragma unroll
+    for (int e = 0; e < kSegLen; ++e) {
+      const int t = seg * kSegLen + e;
+      const float rx = to_float(Rs[t * HD + d]);
+      const float kx = to_float(Ks[t * HD + d]);
+      const float bx = kx * expf(-cs[e]);
+      A[t * L::kAStr + d] = rx * expf(e == 0 ? before : cs[e - 1]);
+      Bs[t * L::kAStr + d] = bx;
+      Kd[t * L::kKStr + d] = bx * ecl;
+      float y = rx * ud * kx;
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
+        y += __shfl_xor_sync(0xffffffffu, y, off);
+      if (g2 % kLanes == 0) RKp[(d / kLanes) * kChunk + t] = y;
+    }
+  };
+
+  // score tile of chunk i: P[t, j] = A[t] . Bm[j] below the diagonal, the
+  // bonus on it, zero above (never written). The m16 x n8 tiles that reach
+  // the diagonal or lie below it: warp 0 (tokens 0-15, keys 0-15), warp 1
+  // (tokens 16-31, keys 0-15), warps 2 and 3 (tokens 16-31, keys 16-23
+  // and 24-31).
+  auto score = [&](int i) {
+    const float* A = As(i);
+    float* P = Ps(i);
+    const int mt = wid == 0 ? 0 : 1;
+    const int n0 = wid < 2 ? 0 : wid;        // first n-tile
+    const int nn = wid < 2 ? 2 : 1;          // n-tiles of this warp
+    float acc[2][4] = {}, lo[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      const FragA fa = frag_a(
+          [&](int row, int col) {
+            return A[(16 * mt + row) * L::kAStr + 8 * ks + col];
+          },
+          fg, ft);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q >= nn) break;
+        const float* bj = Bs + (8 * (n0 + q) + fg) * L::kAStr + 8 * ks + ft;
+        mma3<false>(acc[q], lo[q], fa, frag_b(bj[0], bj[4]));
       }
-      As[t * kSt + d] = rx;
-      Bs[t * kSt + d] = kx;
-      Ks[t * kSt + d] = wx;
-      Vs[t * kSt + d] = vx;
     }
-    __syncthreads();
-
-    // decayed operands, one column d per thread: the cumsum first (for
-    // c_last), then the in-place transforms
-    if (tid < HD) {
-      const int d = tid;
-      float c_last = 0.f;
-      for (int t = 0; t < kChunk; ++t) c_last += Ks[t * kSt + d];
-      float c = 0.f;
-      for (int t = 0; t < kChunk; ++t) {
-        const float c_prev = c;
-        c += Ks[t * kSt + d];
-        const float rx = As[t * kSt + d], kx = Bs[t * kSt + d];
-        As[t * kSt + d] = rx * expf(c_prev);
-        Bs[t * kSt + d] = kx * expf(-c);
-        Ks[t * kSt + d] = kx * expf(c_last - c);
-        Us[t * kSt + d] = rx * ud * kx;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q >= nn) break;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = 16 * mt + fg + 8 * hf;
+        float x[2];
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int j = 8 * (n0 + q) + 2 * ft + cc;
+          x[cc] = j < t ? acc[q][2 * hf + cc] + lo[q][2 * hf + cc] : 0.f;
+          if (j == t) {
+            x[cc] = RKp[t];
+#pragma unroll
+            for (int gg = 1; gg < L::kRK; ++gg) x[cc] += RKp[gg * kChunk + t];
+          }
+        }
+        *reinterpret_cast<float2*>(P + t * L::kPStr + 8 * (n0 + q) + 2 * ft) =
+            make_float2(x[0], x[1]);
       }
-      Ecl[d] = expf(c_last);
     }
-    __syncthreads();
+  };
 
-    // score tile: a warp takes one query row t, lane j one key
-    for (int e = tid; e < kChunk * kChunk; e += kThreads) {
-      const int t = e / kChunk, j = e % kChunk;
-      float p = 0.f;
-      if (j < t) {
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) p += As[t * kSt + d] * Bs[j * kSt + d];
-      } else if (j == t) {
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) p += Us[t * kSt + d];
+  // out of chunk i: out[t, c] = sum_j P[t, j] v[j, c] + sum_k A[t, k]
+  // S[k, c], one MMA chain over j then k per m16 x n8 tile (the j-steps
+  // past a tile's last token, where P is zero, are skipped). Warp w takes
+  // m-tile w % 2 and the n-tiles w / 2, w / 2 + 2, ...
+  const int out_mt = wid % 2;
+  auto outputs = [&](int i) {
+    if (wid / 2 >= kNT) return;
+    const float* P = Ps(i);
+    const float* A = As(i);
+    const T* V = Vs(i);
+    float acc[kOutN][4] = {}, lo[kOutN][4] = {};
+    const int j_steps = out_mt == 0 ? 2 : 4;
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 8; ++ks) {
+      if (ks >= j_steps) break;
+      const FragA fa = frag_a(
+          [&](int row, int col) {
+            return P[(16 * out_mt + row) * L::kPStr + 8 * ks + col];
+          },
+          fg, ft);
+#pragma unroll
+      for (int q = 0; q < kOutN; ++q) {
+        const T* vj = V + (8 * ks + ft) * L::kVStr + 8 * (wid / 2 + 2 * q) + fg;
+        mma3<kExactV>(acc[q], lo[q], fa, frag_b(vj[0], vj[4 * L::kVStr]));
       }
-      Ps[t * (kChunk + 1) + j] = p;
     }
-    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      const FragA fa = frag_a(
+          [&](int row, int col) {
+            return A[(16 * out_mt + row) * L::kAStr + 8 * ks + col];
+          },
+          fg, ft);
+#pragma unroll
+      for (int q = 0; q < kOutN; ++q) {
+        const float* sk = Sts + (8 * ks + ft) * L::kSStr + 8 * (wid / 2 + 2 * q) + fg;
+        mma3<false>(acc[q], lo[q], fa, frag_b(sk[0], sk[4 * L::kSStr]));
+      }
+    }
+    const int n = min(kChunk, S - i * kChunk);
+#pragma unroll
+    for (int q = 0; q < kOutN; ++q)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = 16 * out_mt + fg + 8 * hf;
+        if (t < n)
+          *reinterpret_cast<float2*>(
+              out + base + (long long)(i * kChunk + t) * tok + cb +
+              8 * (wid / 2 + 2 * q) + 2 * ft) =
+              make_float2(acc[q][2 * hf] + lo[q][2 * hf],
+                          acc[q][2 * hf + 1] + lo[q][2 * hf + 1]);
+      }
+  };
 
-    // out_t[col] = sum_j P[t, j] v_j[col] + sum_k A[t, k] S[k, col]: each
-    // of the four lanes of a column takes keys j = 4m + q and rows k =
-    // 4i + q, then the four partial sums meet by shuffles
-    float vq[kChunk / 4];
+  // the state slice in registers as MMA accumulators: warp w of the first
+  // group holds rows 16 w .. 16 w + 16 (a thread rows fg, fg + 8), every
+  // n-tile of the slice's columns (a thread columns 2 ft, 2 ft + 1)
+  const bool st_warp = g1 && wid < kKM;
+  const int m0 = 16 * wid;
+  float st[kNT][4];
+  {
+    const float* s0 = state0 + (long long)bh * HD * HD + cb;
 #pragma unroll
-    for (int m = 0; m < kChunk / 4; ++m) vq[m] = Vs[(4 * m + q) * kSt + col];
-    float* orow = out + base + (long long)t0 * tok_stride + col;
-    for (int t = 0; t < n; ++t) {
-      float acc = 0.f;
+    for (int q = 0; q < kNT; ++q)
 #pragma unroll
-      for (int m = 0; m < kChunk / 4; ++m)
-        acc += Ps[t * (kChunk + 1) + 4 * m + q] * vq[m];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) acc += As[t * kSt + 4 * i + q] * st[i];
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (q == 0) orow[t * tok_stride] = acc;
-    }
-
-    // carry: S = e^{c_last} S + sum_j kd_j v_j^T
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) st[i] *= Ecl[4 * i + q];
-    for (int j = 0; j < kChunk; ++j) {
-      const float vx = Vs[j * kSt + col];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) st[i] += Ks[j * kSt + 4 * i + q] * vx;
-    }
+      for (int e = 0; e < 4; ++e)
+        st[q][e] = st_warp ? s0[(m0 + fg + 8 * (e / 2)) * HD + 8 * q +
+                                2 * ft + e % 2]
+                           : 0.f;
   }
 
-  float* so = state_out + (long long)bh * HD * HD;
+  // carry of chunk i: S = e^{c_last} S + Kd^T v, its rows scaled first,
+  // then an MMA chain over the chunk's tokens; then the snapshot the next
+  // chunk's inter term reads
+  auto carry = [&](int i) {
+    if (!st_warp) return;
+    const float* Kd = Kds(i);
+    const float* E = Ecl(i);
+    const T* V = Vs(i);
+    const float e0 = E[m0 + fg], e1 = E[m0 + fg + 8];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) so[(4 * i + q) * HD + col] = st[i];
+    for (int q = 0; q < kNT; ++q) {
+      st[q][0] *= e0, st[q][1] *= e0;
+      st[q][2] *= e1, st[q][3] *= e1;
+    }
+    float lo[kNT][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 8; ++ks) {
+      const FragA fa = frag_a(
+          [&](int row, int col) {
+            return Kd[(8 * ks + col) * L::kKStr + m0 + row];
+          },
+          fg, ft);
+#pragma unroll
+      for (int q = 0; q < kNT; ++q) {
+        const T* vj = V + (8 * ks + ft) * L::kVStr + 8 * q + fg;
+        mma3<kExactV>(st[q], lo[q], fa, frag_b(vj[0], vj[4 * L::kVStr]));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kNT; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[q][e] += lo[q][e];
+  };
+  auto snapshot = [&]() {
+    if (!st_warp) return;
+#pragma unroll
+    for (int q = 0; q < kNT; ++q)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(Sts + (m0 + fg + 8 * hf) * L::kSStr +
+                                   8 * q + 2 * ft) =
+            make_float2(st[q][2 * hf], st[q][2 * hf + 1]);
+  };
+
+  // Pipelined over chunks, two barriers a chunk. Phase X: the first group
+  // computes chunk i's outputs while the second makes chunk i + 1's
+  // operands; phase Y: the first carries the state over chunk i while the
+  // second scores chunk i + 1 and starts the copy of chunk i + 2. A, Kd, P
+  // and e^{c_last} alternate between two buffers, v between three.
+  for (int e = tid; e < 2 * L::kP / 4; e += kThreads)
+    reinterpret_cast<float*>(sm + L::p)[e] = 0.f;
+  if (n_chunks > 0) {
+    if (!g1) load(0);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (g1) snapshot();
+    else transforms(0);
+    __syncthreads();
+    if (!g1) {
+      if (n_chunks > 1) load(1);
+      score(0);
+    }
+  }
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // X: chunk i + 1's inputs landed; chunk i's operands,
+                      // scores and the state snapshot ready
+    if (g1) outputs(i);
+    else if (i + 1 < n_chunks) transforms(i + 1);
+    __syncthreads();  // Y: raw inputs consumed; chunk i's outputs done
+    if (g1) {
+      carry(i);
+      snapshot();
+    } else {
+      if (i + 1 < n_chunks) score(i + 1);
+      if (i + 2 < n_chunks) load(i + 2);
+    }
+  }
+  cp_async_wait<0>();  // nothing in flight at exit
+
+  if (st_warp) {
+    float* so = state_out + (long long)bh * HD * HD + cb;
+#pragma unroll
+    for (int q = 0; q < kNT; ++q)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(so + (m0 + fg + 8 * hf) * HD + 8 * q +
+                                   2 * ft) =
+            make_float2(st[q][2 * hf], st[q][2 * hf + 1]);
+  }
 }
 
-template <typename T, int HD>
-int launch(const void* r, const void* k, const void* v, const float* logw,
-           const float* u, const float* state0, float* out, float* state_out,
-           int B, int S, int H, cudaStream_t stream) {
-  auto kern = wkv6_chunked<T, HD>;
-  const size_t smem = Smem<HD>::bytes;
+// Value-column slices per head: the fewest (each slice recomputes the
+// scores) that give every SM a block, at most hd / 8 (8 columns a block).
+// From B * H and the SM count only, never from data on the device.
+int slices_for(int hd, int B, int H) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int s = 1;
+  while (s < hd / 8 && (long long)B * H * s < sms) s *= 2;
+  return s;
+}
+
+struct Args {
+  const void *r, *k, *v;
+  const float *logw, *u, *state0;
+  float *out, *state_out;
+  int B, S, H;
+  cudaStream_t stream;
+  bool query;  // return the launch's dynamic shared memory, launch nothing
+};
+
+template <typename T, int HD, int CW>
+int launch(const Args& a) {
+  constexpr int smem = Layout<T, HD, CW>::bytes;
+  if (a.query) return smem;
+  auto kern = wkv6_chunked<T, HD, CW>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<B * H, 4 * HD, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), logw, u, state0, out, state_out, S, H);
+  const int vec = (reinterpret_cast<uintptr_t>(a.r) |
+                   reinterpret_cast<uintptr_t>(a.k) |
+                   reinterpret_cast<uintptr_t>(a.v) |
+                   reinterpret_cast<uintptr_t>(a.logw)) % 16 == 0;
+  kern<<<a.B * a.H * (HD / CW), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.r), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.logw, a.u, a.state0, a.out, a.state_out,
+      a.S, a.H, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const void* r, const void* k, const void* v,
-             const float* logw, const float* u, const float* state0,
-             float* out, float* state_out, int B, int S, int H,
-             cudaStream_t s) {
-  switch (hd) {
-    case 16:  // the reduced smoke configs
-      return launch<T, 16>(r, k, v, logw, u, state0, out, state_out, B, S, H,
-                           s);
-    case 64:  // rwkv6-1.6b
-      return launch<T, 64>(r, k, v, logw, u, state0, out, state_out, B, S, H,
-                           s);
-    default:
-      return (int)cudaErrorInvalidValue;
+template <typename T, int HD>
+int launch_slices(int s, const Args& a) {
+  switch (s) {
+    case 1: return launch<T, HD, HD>(a);
+    case 2: return launch<T, HD, HD / 2>(a);
+    case 4: if constexpr (HD / 4 >= 8) return launch<T, HD, HD / 4>(a); break;
+    case 8: if constexpr (HD / 8 >= 8) return launch<T, HD, HD / 8>(a); break;
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(int dtype, int hd, const Args& a) {
+  const int s = slices_for(hd, a.B, a.H);
+  if (dtype == kBFloat16 && hd == 64) return launch_slices<__nv_bfloat16, 64>(s, a);
+  if (dtype == kBFloat16 && hd == 16) return launch_slices<__nv_bfloat16, 16>(s, a);
+  if (dtype == kFloat32 && hd == 64) return launch_slices<float, 64>(s, a);
+  if (dtype == kFloat32 && hd == 16) return launch_slices<float, 16>(s, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // r/k/v [B, S, H, hd] of dtype (code as in common.cuh), logw [B, S, H, hd]
 // fp32, u [H, hd] fp32, state0 and state_out [B, H, hd, hd] fp32, out
-// [B, S, H, hd] fp32; all contiguous. Returns the cudaError_t of the launch
-// (0 on success).
+// [B, S, H, hd] fp32; all contiguous; hd 16 or 64. Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const float* logw, const float* u,
                         const float* state0, float* out, float* state_out,
                         int dtype, int hd, int B, int S, int H,
                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(hd, r, k, v, logw, u, state0, out,
-                                   state_out, B, S, H, s);
-  if (dtype == kFloat32)
-    return dispatch<float>(hd, r, k, v, logw, u, state0, out, state_out, B,
-                           S, H, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, hd,
+                  {r, k, v, logw, u, state0, out, state_out, B, S, H,
+                   static_cast<cudaStream_t>(stream), false});
+}
+
+// The value-column slices per head, and the dynamic shared memory in bytes
+// of the launch, that wkv6_fwd takes for (dtype, hd, B, H).
+extern "C" int wkv6_split(int hd, int B, int H) {
+  return slices_for(hd, B, H);
+}
+
+extern "C" int wkv6_smem_bytes(int dtype, int hd, int B, int H) {
+  return dispatch(dtype, hd,
+                  {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, B, 0, H, nullptr, true});
 }

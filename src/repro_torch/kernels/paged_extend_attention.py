@@ -29,6 +29,21 @@ def _kernel():
     return fn
 
 
+def plan(dtype: torch.dtype, head_dim: int, chunk: int, heads: int,
+         kv_heads: int, width: int, page: int) -> dict:
+    """How the kernel cuts a call of this shape: row blocks, key splits
+    (one cluster of blocks per row block), keys per split and the dynamic
+    shared memory, in bytes, of its launch."""
+    fn = build.load("paged_extend_attention").paged_extend_attention_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    if fn(DTYPES[dtype], head_dim, chunk, heads, kv_heads, width, page,
+          ctypes.addressof(out)):
+        raise ValueError(f"no paged extend kernel for {dtype} hd {head_dim}")
+    return dict(zip(("row_blocks", "splits", "split_len", "smem"), out))
+
+
 def paged_extend_attention(q, k_pool, v_pool, k_new, v_new, table, pos):
     """q: [B,C,H,hd]; pools [P,page,KVH,hd]; k_new/v_new [B,C,KVH,hd], all
     CUDA tensors of one dtype (bf16 or fp32, hd 64 or 128, last dim

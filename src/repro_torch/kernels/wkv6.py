@@ -32,6 +32,18 @@ def _kernel():
     return fn
 
 
+def plan(dtype: torch.dtype, head_dim: int, batch: int,
+         heads: int) -> dict:
+    """How the kernel cuts a call: value-column slices per head (blocks
+    per (b, h)) and the dynamic shared memory, in bytes, of its launch."""
+    lib = build.load("wkv6")
+    lib.wkv6_split.argtypes = [ctypes.c_int] * 3
+    lib.wkv6_smem_bytes.argtypes = [ctypes.c_int] * 4
+    return {"slices": lib.wkv6_split(head_dim, batch, heads),
+            "smem": lib.wkv6_smem_bytes(DTYPES[dtype], head_dim, batch,
+                                        heads)}
+
+
 def wkv6(r, k, v, logw, u, state0):
     """r/k/v: [B,S,H,hd] (bf16 or fp32, one dtype); logw: [B,S,H,hd] fp32,
     clamped to [-1.5, 0) by the model; u: [H,hd] fp32; state0:

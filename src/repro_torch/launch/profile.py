@@ -15,8 +15,8 @@ the paged KV cache at the default pool, as ``chip_smoke.py`` phase 4b
 does. Prints the warm metrics,
 the device's busy share in the profiled run (summed kernel time over wall
 time), the kernel launches per model call, the top kernels by device
-time, each hand-written kernel's device time and share, and the top
-operators by host time.
+time, each hand-written kernel's device time and share, the top
+operators by host time and the host's cudaStreamSynchronize calls.
 """
 from __future__ import annotations
 
@@ -117,6 +117,12 @@ def main(argv=None) -> int:
                     reverse=True)[:15]:
         print(f"  {e.self_cpu_time_total / 1e3:10.2f} {e.count:7d}  "
               f"{e.key[:90]}")
+    # the host's waits on the device, listed or not above: a wrapper that
+    # reads a device value adds one to every call
+    syncs = [e for e in events if e.key == "cudaStreamSynchronize"]
+    print(f"[host] cudaStreamSynchronize: "
+          f"{sum(e.count for e in syncs)} calls, "
+          f"{sum(e.self_cpu_time_total for e in syncs) / 1e3:.2f} ms")
     return 0
 
 

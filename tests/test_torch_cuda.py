@@ -28,6 +28,8 @@ from repro_torch.kernels.expert_matmul import expert_matmul
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_int8)
+from repro_torch.kernels import paged_extend_attention as PE
+from repro_torch.kernels import wkv6 as W6
 from repro_torch.kernels.paged_extend_attention import paged_extend_attention
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import layers as Lyr
@@ -229,7 +231,8 @@ def test_decode_int8_kernel_matches_plain(gen, dtype, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,hd", [(1, 64), (7, 64), (64, 64), (33, 128)])
+@pytest.mark.parametrize("C,hd", [(1, 64), (7, 64), (64, 64), (33, 128),
+                                  (256, 128)])
 def test_paged_extend_kernel_matches_plain(gen, dtype, C, hd):
     """Cached pages below pos, then the chunk's causal triangle; one row
     masked (all sentinel, pos 0) and one with pos past the table."""
@@ -242,6 +245,69 @@ def test_paged_extend_kernel_matches_plain(gen, dtype, C, hd):
     got = paged_extend_attention(q, kp, vp, kn, vn, table, pos)
     want = ref.paged_extend_attention_ref(q, kp, vp, kn, vn, table, pos)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,hd", [(1, 64), (16, 64), (33, 64), (5, 128)])
+def test_paged_extend_kernel_long_rows_take_several_splits(gen, dtype, C, hd):
+    """Rows whose pos is at or near the table's width (W * page): at these
+    C the bf16 kernel splits every row's keys over a cluster of blocks and
+    combines the partials."""
+    B, H, KVH, page, P, W = 4, 32, 8, 16, 300, 64
+    if dtype == torch.bfloat16:
+        assert PE.plan(dtype, hd, C, H, KVH, W, page)["splits"] > 1
+    q = _rnd(gen, (B, C, H, hd), dtype)
+    kp, vp = _pools(gen, P, page, KVH, hd, dtype)
+    kn, vn = (_rnd(gen, (B, C, KVH, hd), dtype) for _ in range(2))
+    table = _table(gen, B, W, P)
+    pos = torch.tensor([W * page, W * page - 1, W * page - 37, 700],
+                       dtype=torch.int32, device="cuda")
+    got = paged_extend_attention(q, kp, vp, kn, vn, table, pos)
+    want = ref.paged_extend_attention_ref(q, kp, vp, kn, vn, table, pos)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_extend_kernel_takes_unaligned_rows(gen, dtype):
+    """q/k_new/v_new as views one element into a fused buffer (row starts
+    off the 16-byte grid, odd strides) take the kernel's scalar-copy
+    instantiation, with the same result."""
+    B, C, H, KVH, hd, page, P, W = 3, 20, 32, 8, 64, 16, 200, 64
+    buf = _rnd(gen, (B, C, (H + 2 * KVH) * hd + 1), dtype)
+    q = buf[..., 1:1 + H * hd].view(B, C, H, hd)
+    kn = buf[..., 1 + H * hd:1 + (H + KVH) * hd].view(B, C, KVH, hd)
+    vn = buf[..., 1 + (H + KVH) * hd:].view(B, C, KVH, hd)
+    assert q.data_ptr() % 16 and q.stride(1) % 8
+    kp, vp = _pools(gen, P, page, KVH, hd, dtype)
+    table = _table(gen, B, W, P)
+    for pos in ([0, 1000, 33], [1024, 17, 512]):
+        pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        torch.testing.assert_close(
+            paged_extend_attention(q, kp, vp, kn, vn, table, pos).float(),
+            ref.paged_extend_attention_ref(q, kp, vp, kn, vn, table,
+                                           pos).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,hd", [(1, 64), (16, 64), (64, 64), (33, 128)])
+def test_paged_extend_kernel_rows_do_not_depend_on_the_batch(gen, dtype, C,
+                                                             hd):
+    """Row 2 alone (B=1) equals row 2 of a B=8 call bit for bit, and of a
+    second B=8 call where every other row's pos differs."""
+    B, H, KVH, page, P, W = 8, 32, 8, 16, 600, 64
+    q = _rnd(gen, (B, C, H, hd), dtype)
+    kp, vp = _pools(gen, P, page, KVH, hd, dtype)
+    kn, vn = (_rnd(gen, (B, C, KVH, hd), dtype) for _ in range(2))
+    table = _table(gen, B, W, P)
+    pos = torch.tensor([5, 77, 1000, 1024, 0, 300, 12, 640],
+                       dtype=torch.int32, device="cuda")
+    other = torch.tensor([900, 3, 1000, 0, 512, 1, 1024, 64],
+                         dtype=torch.int32, device="cuda")
+    one = paged_extend_attention(q[2:3], kp, vp, kn[2:3], vn[2:3],
+                                 table[2:3], pos[2:3])
+    for p in (pos, other):
+        whole = paged_extend_attention(q, kp, vp, kn, vn, table, p)
+        assert torch.equal(whole[2:3], one)
 
 
 @pytest.mark.parametrize("kind", ["paged", "int8", "paged_int8"])
@@ -326,6 +392,10 @@ def test_expert_matmul_rows_do_not_depend_on_the_bucket(gen, dtype, small,
     (2, 33, 3, 16, None),
     (1, 64, 2, 64, -1.5),       # the decay clamp over 64 tokens
     (1, 5, 2, 16, None),
+    (1, 512, 32, 64, None),     # one long prompt admitted alone
+    (2, 1, 32, 64, None),
+    (2, 31, 32, 64, None),
+    (2, 33, 32, 64, None),
 ])
 def test_wkv6_kernel_matches_plain(gen, dtype, B, S, H, hd, logw):
     r, k, v = (0.5 * _rnd(gen, (B, S, H, hd), dtype) for _ in range(3))
@@ -351,6 +421,23 @@ def test_wkv6_kernel_matches_plain(gen, dtype, B, S, H, hd, logw):
     torch.testing.assert_close(torch.cat([o1, o2], 1), o,
                                **TOL[torch.float32])
     torch.testing.assert_close(s2, s, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_rows_do_not_depend_on_the_batch(gen, dtype):
+    """Row 2 alone (B=1, the value columns split over 8 blocks a head)
+    equals row 2 of a B=8 call (one block a head) bit for bit."""
+    B, S, H, hd = 8, 100, 32, 64
+    r, k, v = (0.5 * _rnd(gen, (B, S, H, hd), dtype) for _ in range(3))
+    w = -torch.rand((B, S, H, hd), generator=gen, device="cuda") * 1.5
+    u = 0.3 * _rnd(gen, (H, hd), torch.float32)
+    s0 = 0.1 * _rnd(gen, (B, H, hd, hd), torch.float32)
+    assert W6.plan(dtype, hd, 1, H)["slices"] != W6.plan(dtype, hd, B,
+                                                         H)["slices"]
+    o, s = wkv6(r, k, v, w, u, s0)
+    o1, s1 = wkv6(*(t[2:3].contiguous() for t in (r, k, v, w)), u,
+                  s0[2:3].contiguous())
+    assert torch.equal(o[2:3], o1) and torch.equal(s[2:3], s1)
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-1.6b"])
