@@ -7,13 +7,14 @@ Phases (any failure exits non-zero before the result line):
   1. device: the card, its power limit, TF32 off;
   2. build: every CUDA kernel with nvcc, from src/repro_torch/kernels/csrc,
      one nvcc per source, started together; the registers, shared memory
-     and spills of the flash attention, expert GEMM, paged extend and WKV6
-     kernels;
+     and spills of the flash attention, expert GEMM, paged extend, WKV6
+     and decode (kernels 2, 3, 4, 4-int8: one body) kernels;
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes (the paged ones with all-sentinel rows and lengths past
      the table), with its time, the plain version's, one library call's
      where one exists (a yardstick the port never calls) and the least
-     time the card could take;
+     time the card could take; kernels 2 and 4 also with every row full,
+     with one row alone and at hd 128;
   4. serve: llama3.2-1b at its published width (random weights from a
      seed) behind two site engines, 16 requests; every request completes,
      the kernels' launch counts match the model calls, and one prompt's
@@ -137,7 +138,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (
         flash_attention, smem_bytes as flash_smem_bytes)
     from repro_torch.kernels.paged_decode_attention import (
-        paged_decode_attention, paged_decode_attention_int8)
+        paged_decode_attention, paged_decode_attention_int8,
+        plan as decode_plan)
     from repro_torch.kernels.paged_extend_attention import (
         paged_extend_attention, plan as extend_plan)
     from repro_torch.kernels.wkv6 import plan as wkv6_plan, wkv6
@@ -192,16 +194,44 @@ def main() -> int:
                 for dt in ("bfloat16", "float32") for hd, c in (
                     (64, 1), (64, 64), (64, 256), (128, 64))],
             "wkv6": [(f"{dt} B={b}", wkv6_plan(getattr(torch, dt), 64, b, 32))
-                     for dt in ("bfloat16", "float32") for b in (8, 1)]}
+                     for dt in ("bfloat16", "float32") for b in (8, 1)],
+            # the decode body's cut at the serving capacity (1024 keys: a
+            # dense cache of S=1024, a table of 64 pages of 16)
+            "decode_attention": [
+                (f"{dt} hd={hd} S=1024", decode_plan(getattr(torch, dt), hd,
+                                                     32, 8, 1, 1024))
+                for dt in ("bfloat16", "float32") for hd in (64, 128)],
+            "decode_attention_int8": [
+                (f"int8 hd={hd} S=1024", decode_plan(torch.int8, hd, 32, 8, 1,
+                                                     1024)) for hd in (64, 128)],
+            "paged_decode_attention": [
+                (f"{dt} hd={hd} W=64 page=16", decode_plan(
+                    getattr(torch, dt), hd, 32, 8, 64, 16))
+                for dt in ("bfloat16", "float32", "int8") for hd in (64, 128)]}
+    # decode_split_fwd's mangled arguments: q type, cache type, hd, paged
+    mangled = {"13__nv_bfloat16": "bf16", "f": "fp32", "a": "int8"}
+
+    def decode_args(m):
+        hit = re.fullmatch(r"(13__nv_bfloat16|f)(S2_|f|a)Li(\d+)ELb([01])E", m)
+        if not hit:
+            return m
+        q_t, c_t, hd_, paged = hit.groups()
+        return (f"{mangled[q_t]}, {mangled.get(c_t, mangled[q_t])}, {hd_}, "
+                f"{'paged' if paged == '1' else 'dense'}")
+
     for name in ("flash_attention", "expert_matmul", "paged_extend_attention",
-                 "wkv6"):
+                 "wkv6", "decode_attention", "decode_attention_int8",
+                 "paged_decode_attention"):
         fn, spill = None, ""
         for line in logs.get(name, "").splitlines():
             if "Compiling entry function" in line:   # mangled template
                 m = re.search(r"(flash_fwd_mma|flash_fwd|expert_gemm_mma|"
                               r"expert_gemm|paged_extend_fwd_mma|"
-                              r"paged_extend_fwd|wkv6_chunked)I(.*?)EEv", line)
-                fn = f"{m[1]}<{m[2]}>" if m else line.split("'")[1]
+                              r"paged_extend_fwd|wkv6_chunked|"
+                              r"decode_split_fwd)I(.*?)EEv", line)
+                fn = (None if not m else f"{m[1]}<{decode_args(m[2])}>"
+                      if m[1] == "decode_split_fwd" else f"{m[1]}<{m[2]}>")
+                fn = fn or line.split("'")[1]
             elif "spill stores" in line:
                 spill = line.strip()
             elif "Used" in line and fn:
@@ -368,6 +398,11 @@ def main() -> int:
                         f"{pos_full.tolist()} rows 1,3 sentinel")
 
     print("[kernels] times (bf16, CUDA events, median of 30, L2 flushed)")
+    # what this method reads for a kernel that does nothing: the floor
+    # under every time below
+    tiny = torch.zeros(1, device=dev)
+    print(f"  timing floor (one 1-element zero_ kernel, the same method): "
+          f"{time_ms(tiny.zero_, flush):.4f} ms")
     bf = torch.bfloat16
     extra_shapes = {}
     for S, hd in ((5, 64), (16, 64), (300, 64), (512, 64), (512, 128)):
@@ -477,6 +512,66 @@ def main() -> int:
         ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
         shape=f"bf16 q, int8 pools B=8 W={W} page={page} H={H} KVH={KVH} "
         f"hd={hd} lengths={lens_main.tolist()} + fresh token")
+
+    # kernels 2 and 4 at three more shapes, each checked against its plain
+    # version and timed beside its bound (kernel 2 beside SDPA too): every
+    # row at 1024 keys, one 1024-key row alone (a site with one live
+    # request), and phi3.5-moe's decode (hd 128). Their own generator, so
+    # every other input stays as it was
+    g_dec = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for label, B, hd_x, lens_x in (
+            ("every row at 1024 keys", 8, 64, [S_dec] * 8),
+            ("one 1024-key row", 1, 64, [S_dec]),
+            ("hd 128", 8, 128, lens_main.tolist())):
+        lx = torch.tensor(lens_x, dtype=torch.int32, device=dev)
+        qx = rnd(B, H, hd_x, dtype=bf, g=g_dec)
+        kx, vx = (rnd(B, S_dec, KVH, hd_x, dtype=bf, g=g_dec)
+                  for _ in range(2))
+        kpx, vpx = (rnd(P_pool + 1, page, KVH, hd_x, dtype=bf, g=g_dec)
+                    for _ in range(2))
+        tx = torch.randperm(P_pool, generator=g_dec, device=dev)[
+            :B * W].reshape(B, W).to(torch.int32)
+        keys_x = int(lx.clamp(max=S_dec).sum())
+        case = f"bf16 B={B} hd={hd_x} lengths={lens_x} ({label})"
+        compare("decode_attention", decode_attention(qx, kx, vx, lx),
+                ref.decode_attention_ref(qx, kx, vx, lx), "bfloat16",
+                f"{case}, S={S_dec}")
+        compare("paged_decode_attention",
+                paged_decode_attention(qx, kpx, vpx, tx, lx),
+                ref.paged_decode_attention_ref(qx, kpx, vpx, tx, lx),
+                "bfloat16", f"{case}, W={W} page={page}")
+        mask_x = (torch.arange(S_dec, device=dev)[None, :]
+                  < lx[:, None])[:, None, None, :]
+        krx, vrx = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                    for t in (kx, vx))
+        flops_x = 4.0 * H * hd_x * keys_x
+        for name, fn, plain_fn, lib_fn, nbytes in (
+                ("decode_attention",
+                 lambda: decode_attention(qx, kx, vx, lx),
+                 lambda: ref.decode_attention_ref(qx, kx, vx, lx),
+                 lambda: F.scaled_dot_product_attention(
+                     qx[:, :, None, :], krx, vrx, attn_mask=mask_x),
+                 2 * (2 * qx.numel() + 2 * keys_x * KVH * hd_x) + 4 * B),
+                ("paged_decode_attention",
+                 lambda: paged_decode_attention(qx, kpx, vpx, tx, lx),
+                 lambda: ref.paged_decode_attention_ref(qx, kpx, vpx, tx,
+                                                        lx), None,
+                 2 * 2 * qx.numel() + 2 * 2 * keys_x * KVH * hd_x + 4 * B
+                 + 4 * tx.numel())):
+            ms = time_ms(fn, flush)
+            plain = time_ms(plain_fn, flush)
+            lib = time_ms(lib_fn, flush) if lib_fn else None
+            b_ms, b_by = bound(nbytes, flops_x, BF16_FLOP_PER_S)
+            lib_txt = f", library {lib:.4f}" if lib else ""
+            print(f"  {name} {case}: kernel {ms:.4f} ms, plain {plain:.4f}"
+                  f"{lib_txt}, bound {b_ms:.5f} ({b_by}) -> "
+                  f"{b_ms / ms:.1%} of bound")
+            extra_shapes.setdefault(name, []).append(dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, shape=f"{case}, "
+                + (f"S={S_dec}" if name == "decode_attention"
+                   else f"W={W} page={page} pool={P_pool}+1")))
+        del qx, kx, vx, kpx, vpx, krx, vrx
 
     # kernel 5 at the tail chunks the serving path runs: 8 rows, half of
     # them masked (pos 0), the others mid-prompt

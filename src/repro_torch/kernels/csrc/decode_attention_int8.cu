@@ -24,7 +24,7 @@ extern "C" int decode_attention_int8_fwd(
     const void* vs, const void* lengths, const void* k_new,
     const void* v_new, void* o, int qdtype, int hd, int B, int S, int H,
     int KVH, const long long* strides, float scale, void* stream) {
-  return launch_int8(qdtype, hd, q, k, v, ks, vs, nullptr, lengths, k_new,
-                     v_new, o, B, H, KVH, 1, S, B, strides, scale,
-                     static_cast<cudaStream_t>(stream));
+  return launch_int8<false>(qdtype, hd, q, k, v, ks, vs, nullptr, lengths,
+                            k_new, v_new, o, B, H, KVH, 1, S, B, strides,
+                            scale, static_cast<cudaStream_t>(stream));
 }

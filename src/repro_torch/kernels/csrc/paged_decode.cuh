@@ -1,7 +1,11 @@
-// One-token GQA attention over a KV cache read through a block table, with
-// optional int8 rows and an optional fresh token; shared by
-// paged_decode_attention.cu (paged pools, fp or int8) and
-// decode_attention_int8.cu (dense int8 caches: one "page" per row).
+// One-token GQA attention over a KV cache, for Hopper (sm_90a): the one
+// body behind four entry points,
+//   decode_attention.cu        kernel 2, a dense bf16/fp32 cache;
+//   decode_attention_int8.cu   kernel 3, a dense int8 cache + fresh token;
+//   paged_decode_attention.cu  kernel 4, paged pools, fp or int8 (4-int8).
+// A dense cache is read as W = 1 page of S tokens per batch row, with no
+// table; the kPaged template flag tells the two apart (and keeps their
+// names apart in a profile).
 //
 // out[b, h] = softmax over the cached keys j < len(b) of
 //   q[b, h] . K(b, j, h // G) / sqrt(hd)   [and, if given, the fresh key]
@@ -15,30 +19,70 @@
 // what it reads lies past every live row's length. A row with nothing to
 // attend to gives 0.
 //
-// What bounds it on the H100: the bytes of K/V (and scales) it streams,
-// len * hd * 2 elements per (b, kvh); the products are 2 FLOP per element
+// What bounds it on the H100: the bytes of the live keys' K/V rows (and
+// scales), len * hd * 2 elements per (b, kvh), ~2.5 us at the serving
+// shape (8 rows of up to 1024 keys). The products are 2 FLOP per byte
 // read, far below the ~295 FLOP/byte where the tensor cores would become
-// the limit. What the design does about the bound:
-//  * one block per (b, kvh) and group of up to 4 query heads, so the G
-//    heads that share a KV head read its pages once;
-//  * every lane reads 16 contiguous bytes of a key row (8 bf16, 4 fp32 or
-//    16 int8 elements), kGroup lanes share one key, so a warp keeps
-//    32 / kGroup keys in flight; int8 rows move half the bytes of bf16;
-//  * the page loop lives inside the block (the TPU kernel's sequential
-//    page grid axis) and stops at len: pages past a row's length, and
-//    table columns past its reservation, are never read;
-//  * online-softmax state stays in registers per lane group, merged once
-//    at the end; the fresh token enters that merge as one more partial
-//    state, so an int8 path attends to it at full precision.
+// the limit, so they stay on the CUDA cores: mma would buy nothing against
+// the bytes. What held the first version (one block per row and KV head,
+// 64 blocks at the serving shape, each walking its keys 32 at a time, a
+// device-memory latency a round) was latency. The design:
+//  * flash-decoding: a row's keys are cut into fixed-length splits,
+//    kSplitKeys (128, 8 pages of 16), or, above kMaxSplits x 128 keys of
+//    capacity, capacity / kMaxSplits rounded up to 32 keys. The cut comes
+//    from the capacity (W * page) alone: never from the lengths (on the
+//    device) or from B. The splits of a (row, KV head, group of up to
+//    kHeads query heads) form one thread-block cluster, so the G heads of
+//    a KV head still share one read of its rows. One launch, no scratch
+//    memory, no atomics, no host read. At most 96 registers a thread, so
+//    kMinBlocks blocks fit an SM and the 64 clusters of 8 rows x 8 KV heads
+//    run in one wave;
+//  * one memory latency a split: a block stages the table entries its
+//    split can touch into shared memory (clamped), while its length and q
+//    load, and then issues the split's K rows, then its V rows (and the
+//    int8 scales) by 16- and 4-byte cp.async into one chunk of shared
+//    memory of at most kRingBudget bytes (a whole 128-key split at bf16 or
+//    int8 and hd 64, and int8 hd 128; longer splits stream chunk by chunk),
+//    so no copy waits on a table load. A split past its row's length copies
+//    nothing and leaves an empty partial (m = -1e30, l = 0);
+//  * the chunk in two passes, fp32 throughout: QK by lane groups (kGroup
+//    lanes share a key, each holding 8 elements of its row, 4 at fp32, and
+//    of the kHeads query rows), their partial dot products reduced and
+//    scattered over the group's lanes by a butterfly (log2(kGroup) + 1
+//    shuffles for all kHeads heads) into a score table; then a softmax of
+//    each head by one warp, continuing a running (m, l), with the scale
+//    folded into one FFMA before ex2; then PV with each warp summing a
+//    quarter of the keys into every lane's hd / 32 columns of all heads.
+//    QK and the softmax run while the V rows still arrive. The warps' sums
+//    add up in warp order into the block's partial;
+//  * the partials meet in the cluster's leader (split 0): the other blocks
+//    write theirs into its shared memory through distributed shared memory
+//    once every block of the cluster has started (phase 1 of a split-phase
+//    cluster barrier), arrive at phase 2 and leave; the leader waits for
+//    phase 2 and combines the partials in split order, the fresh token of
+//    the int8 forms (computed by the leader while its copies fly) as one
+//    more partial after the splits. With one split there is no cluster:
+//    the same combine reads the block's own partial.
+// So a row's bits depend on its own length, data, capacity and page, never
+// on B or on other rows; and, for capacities up to kMaxSplits x 128 keys
+// (the whole serving range), not on W either: a wider table only adds
+// empty partials, which add exact zeros.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace rt {
 namespace paged {
 
-constexpr int kWarps = 8;
-constexpr int kHeads = 4;  // query heads per block
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kHeads = 4;                 // query heads per block
+constexpr int kSplitKeys = 128;           // the shortest split
+constexpr int kMaxSplits = 8;             // the portable cluster size
+constexpr int kRingBudget = 32 * 1024;    // K/V bytes a chunk may take
+constexpr int kMinBlocks = 5;             // blocks an SM holds
 
 // Element strides, in elements of each tensor.
 struct Strides {
@@ -59,215 +103,596 @@ inline Strides strides_from(const long long* s) {
                  s[18]};
 }
 
-template <typename Q, typename T, int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_fwd(const Q* __restrict__ q, const T* __restrict__ k,
+// The lane layout and the shared-memory layout of one (cache type, hd).
+template <typename T, int HD>
+struct Cfg {
+  static constexpr bool kScaled = sizeof(T) == 1;    // int8 rows + scales
+  // QK: kGroup lanes share a key, each holding kPer elements of its row
+  // and of the kHeads query rows
+  static constexpr int kPer = sizeof(T) == 4 ? 4 : 8;
+  static constexpr int kGroup = HD / kPer;
+  static_assert(kGroup >= 8 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
+                "a key row spans 8, 16 or 32 lanes");
+  static constexpr int kKeysPerWarp = 32 / kGroup;
+  static constexpr int kKeysPerRound = kWarps * kKeysPerWarp;
+  // PV: a lane owns kDL columns of every head, a warp a quarter of the keys
+  static constexpr int kDL = HD / 32;
+  static constexpr int kRow = HD * (int)sizeof(T);   // bytes of a K or V row
+  static constexpr int kChunks = kRow / 16;          // 16-byte copies a row
+  // keys a chunk holds: a whole shortest split where kRingBudget allows
+  static constexpr int kChunk =
+      kRingBudget / (2 * kRow) < kSplitKeys ? kRingBudget / (2 * kRow)
+                                            : kSplitKeys;
+  // QK takes kSteps rounds at a time, PV kBatch keys at a time
+  static constexpr int kSteps =
+      kChunk / kKeysPerRound < 4 ? kChunk / kKeysPerRound : 4;
+  static constexpr int kBatch = kDL == 2 ? 8 : 4;
+  static_assert(kChunk % (kSteps * kKeysPerRound) == 0 &&
+                    (kChunk / kWarps) % kBatch == 0,
+                "QK steps and PV batches cover a chunk");
+  static constexpr int kKV = kChunk * kRow;          // bytes of a K or V chunk
+  static constexpr int kv = 0;                       // K chunk, then V chunk
+  static constexpr int scales = 2 * kKV;             // int8: K, V scales
+  static constexpr int p = scales + (kScaled ? 2 * kChunk * 4 : 0);
+  // a partial state: O [kHeads][HD], then m [kHeads], l [kHeads] (floats)
+  static constexpr int kPart = kHeads * (HD + 2);
+  static_assert(kWarps == kHeads, "softmax: one warp a head");
+  static_assert(kWarps * kHeads * HD * 4 <= kKV,
+                "the warps' PV sums fit the K chunk");
+  static constexpr int corr = p + kChunk * kHeads * 4;  // per-head factors
+  // partials: one per split (the leader's receive every split's; another
+  // block uses its own split's slot), then the fresh token's
+  static constexpr int slots = corr + 16;
+  static constexpr int tab = slots + (kMaxSplits + 1) * kPart * 4;  // ints
+};
+
+// How a call is cut: key splits (the cluster size) and their length, the
+// table entries a split can touch, the dynamic shared memory.
+struct Plan {
+  int splits, split_len, n_tab, smem;
+};
+
+template <typename T, int HD>
+Plan plan_for(int W, int page) {
+  constexpr int kTile = 32;  // a longer split rounds up to whole 32 keys
+  Plan p;
+  const long long cap = (long long)W * page;  // a row's keys at most
+  long long len = kSplitKeys;
+  if (cap > (long long)kMaxSplits * kSplitKeys) {
+    const long long per = (cap + kMaxSplits - 1) / kMaxSplits;
+    len = (per + kTile - 1) / kTile * kTile;
+  }
+  p.split_len = (int)len;
+  p.splits = (int)((cap + len - 1) / len);
+  const long long tab = (len + page - 1) / page + 1;  // pages a split touches
+  p.n_tab = (int)(tab < W ? tab : W);
+  p.smem = Cfg<T, HD>::tab + (p.n_tab * 4 + 15) / 16 * 16;
+  return p;
+}
+
+// kPer elements of a K row in shared memory, widened to fp32 (the int8
+// slice is 8 bytes)
+template <int N>
+__device__ __forceinline__ void row_slice(const int8_t* p, float* out) {
+  static_assert(N == 8, "int8 rows: 8 elements a lane");
+  const int2 t = *reinterpret_cast<const int2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&t);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = static_cast<float>(c[j]);
+}
+template <int N, typename T>
+__device__ __forceinline__ void row_slice(const T* p, float* out) {
+  load_vec<N>(p, out);
+}
+
+// N = 2 or 4 consecutive elements of a V row in shared memory, as fp32
+template <int N>
+__device__ __forceinline__ void col_slice(const float* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    out[0] = t.x, out[1] = t.y, out[2] = t.z, out[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    out[0] = t.x, out[1] = t.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void col_slice(const __nv_bfloat16* p,
+                                          float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x, out[2 * i + 1] = f.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void col_slice(const int8_t* p, float* out) {
+  if constexpr (N == 4) {
+    const int t = *reinterpret_cast<const int*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = static_cast<float>(c[i]);
+  } else {
+    const short t = *reinterpret_cast<const short*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&t);
+    out[0] = static_cast<float>(c[0]), out[1] = static_cast<float>(c[1]);
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+
+// the two halves of the cluster barrier (sm_90): arrive (relaxed: no
+// memory ordering; release: this thread's earlier writes, distributed
+// shared memory included, are visible to the threads that wait) and wait
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the scaled maximum subtracted before ex2; an all-empty state (mx =
+// -1e30) subtracts 0, so every weight it gives is 0
+__device__ __forceinline__ float base_of(float mx, float c) {
+  return mx == kNegInf ? 0.f : mx * c;
+}
+
+template <typename Q, typename T, int HD, bool kPaged>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ ks,
                  const float* __restrict__ vs, const int* __restrict__ table,
                  const int* __restrict__ lengths, const Q* __restrict__ k_new,
                  const Q* __restrict__ v_new, Q* __restrict__ o, int H,
                  int KVH, int W, int page, int num_pages, Strides st,
-                 float scale) {
-  constexpr int kPer = 16 / sizeof(T);      // elements of a row per lane
-  constexpr int kGroup = HD / kPer;         // lanes that share one key
-  static_assert(kGroup >= 1 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
-                "a key row spans a power-of-2 number of lanes");
-  constexpr int kKeysPerWarp = 32 / kGroup;
-  constexpr int kParts = kWarps + 1;        // the warps' states + fresh
-  __shared__ float sm_m[kParts][kHeads];
-  __shared__ float sm_l[kParts][kHeads];
-  __shared__ float sm_acc[kParts][kHeads][HD];
+                 int n_split, int split_len, float scale_log2) {
+  using C = Cfg<T, HD>;
+  constexpr int kPer = C::kPer, kGroup = C::kGroup, kDL = C::kDL;
+  constexpr int kChunk = C::kChunk;
+  extern __shared__ float4 smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw);
+  const T* Kc = reinterpret_cast<const T*>(smem + C::kv);
+  const T* Vc = reinterpret_cast<const T*>(smem + C::kv + C::kKV);
+  const float* KSc = reinterpret_cast<const float*>(smem + C::scales);
+  const float* VSc = KSc + kChunk;
+  float* Pr = reinterpret_cast<float*>(smem + C::p);   // [kChunk][kHeads]
+  float* Corr = reinterpret_cast<float*>(smem + C::corr);
+  float* Slots = reinterpret_cast<float*>(smem + C::slots);
+  int* tab = reinterpret_cast<int*>(smem + C::tab);
 
+  namespace cg = cooperative_groups;
+  const int split =
+      n_split > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  // phase 1 of the cluster barrier: this block has started (its shared
+  // memory may be written by the others once phase 1 completes)
+  if (n_split > 1) cluster_arrive_relaxed();
+  float* Part = Slots + split * C::kPart;                 // this split's
+  float* Fresh = Slots + kMaxSplits * C::kPart;           // the fresh token's
+  const int row = blockIdx.x / n_split;  // b * KVH + kvh
+  const int b = row / KVH, kvh = row % KVH;
   const int G = H / KVH;
-  const int b = blockIdx.x / KVH;
-  const int kvh = blockIdx.x % KVH;
   const int g0 = blockIdx.y * kHeads;
   const int ng = min(kHeads, G - g0);
-  const int len = min(max(lengths[b], 0), W * page);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int sub = lane / kGroup;   // which of the warp's keys
-  const int sl = lane % kGroup;    // which slice of the row
   const int h0 = kvh * G + g0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int sub = lane / kGroup;   // which of the warp's keys (QK)
+  const int sl = lane % kGroup;    // which slice of the row (QK)
+  const float c = scale_log2;
 
+  // The split's keys [k_begin, k_begin + split_len) of a capacity of
+  // W * page. Its length, its table entries and q load together.
+  const long long cap = (long long)W * page;
+  const int k_begin = split * split_len;
+  const int raw_len = lengths[b];
+  const int pg0 = k_begin / page;
+  if (kPaged && k_begin < cap) {
+    const long long last = min((long long)k_begin + split_len, cap) - 1;
+    const int n_pg = (int)(last / page) - pg0 + 1;
+    const int* trow = table + b * st.tab_b + pg0;
+    for (int i = tid; i < n_pg; i += kThreads)
+      tab[i] = min(max(trow[i], 0), num_pages - 1);
+  }
   float qr[kHeads][kPer];
 #pragma unroll
   for (int g = 0; g < kHeads; ++g) {
     if (g < ng) {
       load_vec<kPer>(q + b * st.q_b + (h0 + g) * st.q_h + sl * kPer, qr[g]);
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) qr[g][e] *= scale;
     } else {
 #pragma unroll
       for (int e = 0; e < kPer; ++e) qr[g][e] = 0.f;
     }
   }
+  const int len = (int)min((long long)max(raw_len, 0), cap);
+  const int k_end = min(k_begin + split_len, len);
+  const int n_keys = max(k_end - k_begin, 0);
+  const int n_chunks = (n_keys + kChunk - 1) / kChunk;
+  __syncthreads();  // the table slice is in shared memory
 
-  float m[kHeads], l[kHeads], acc[kHeads][kPer];
-#pragma unroll
-  for (int g = 0; g < kHeads; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) acc[g][e] = 0.f;
-  }
-
-  const int* trow = table ? table + b * st.tab_b : nullptr;
-  // base is uniform across the warp, so every lane reaches the shuffles
-  for (int base = warp * kKeysPerWarp; base < len;
-       base += kWarps * kKeysPerWarp) {
-    const int key = base + sub;
-    const bool valid = key < len;
-    float kv[kPer], vv[kPer];
-    float k_sc = 1.f, v_sc = 1.f;
-    if (valid) {
-      const int j = key / page;
-      const int t = key - j * page;
-      const long long phys =
-          trow ? (long long)min(max(trow[j], 0), num_pages - 1) : b;
-      load_vec<kPer>(k + phys * st.k_p + t * st.k_t + kvh * st.k_h + sl * kPer,
-                     kv);
-      load_vec<kPer>(v + phys * st.v_p + t * st.v_t + kvh * st.v_h + sl * kPer,
-                     vv);
-      if (ks != nullptr) {
-        k_sc = ks[phys * st.ks_p + t * st.ks_t + kvh * st.ks_h];
-        v_sc = vs[phys * st.vs_p + t * st.vs_t + kvh * st.vs_h];
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) kv[e] = vv[e] = 0.f;
+  // chunk ch of the split: 16-byte copies of its K rows, then of its V
+  // rows (zero-filled past k_end), each with the int8 scales, as two
+  // commit groups: QK and the softmax need only the first
+  const T* kb = k + kvh * st.k_h;
+  const T* vb = v + kvh * st.v_h;
+  auto locate = [&](int key, long long& phys, int& tok) {
+    phys = b;
+    tok = key;
+    if constexpr (kPaged) {
+      const int pg = key / page;
+      phys = tab[pg - pg0];
+      tok = key - pg * page;
     }
-    float s[kHeads];
+  };
+  auto load_chunk = [&](int ch) {
+    const int key0 = k_begin + ch * kChunk;
+    constexpr int kRowStep = kThreads / C::kChunks;  // rows a pass covers
+    static_assert(kRowStep * C::kChunks == kThreads && kChunk % kRowStep == 0,
+                  "every thread copies the same number of chunks");
+    const int c16 = tid % C::kChunks;
+    constexpr int kElems = 16 / (int)sizeof(T);  // elements a 16-byte copy
 #pragma unroll
-    for (int g = 0; g < kHeads; ++g) {
+    for (int half = 0; half < 2; ++half) {  // K, then V
+      const T* base = half ? vb : kb;
+      const long long sp = half ? st.v_p : st.k_p, stt = half ? st.v_t : st.k_t;
+      char* dst = smem + C::kv + half * C::kKV;
+#pragma unroll 4
+      for (int j = tid / C::kChunks; j < kChunk; j += kRowStep) {
+        const int key = key0 + j;
+        const bool ok = key < k_end;
+        const T* src = base;
+        if (ok) {
+          long long phys;
+          int tok;
+          locate(key, phys, tok);
+          src = base + phys * sp + tok * stt + c16 * kElems;
+        }
+        cp_async16(dst + j * C::kRow + c16 * 16, src, ok);
+      }
+      if constexpr (C::kScaled) {
+        const float* sbase = half ? vs : ks;
+        const long long ssp = half ? st.vs_p : st.ks_p;
+        const long long sst = half ? st.vs_t : st.ks_t;
+        const long long ssh = half ? st.vs_h : st.ks_h;
+        for (int j = tid; j < kChunk; j += kThreads) {
+          const int key = key0 + j;
+          const bool ok = key < k_end;
+          const float* src = sbase;
+          if (ok) {
+            long long phys;
+            int tok;
+            locate(key, phys, tok);
+            src = sbase + phys * ssp + tok * sst + kvh * ssh;
+          }
+          cp_async4(smem + C::scales + (half * kChunk + j) * 4, src, ok);
+        }
+      }
+      cp_async_commit();
+    }
+  };
+  if (n_chunks > 0) load_chunk(0);
+
+  // The fresh token as one more partial, in the leader (split 0), while
+  // the copies are in flight: m = its score, l = 1 (implied), O = its value.
+  const bool has_fresh = k_new != nullptr;
+  if (has_fresh && split == 0 && warp == 0) {
+    const Q* kn = k_new + b * st.kn_b + kvh * st.kn_h;
+    const Q* vn = v_new + b * st.vn_b + kvh * st.vn_h;
+    for (int g = 0; g < ng; ++g) {
+      const Q* qh = q + b * st.q_b + (h0 + g) * st.q_h;
       float x = 0.f;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) x += qr[g][e] * kv[e];
-#pragma unroll
-      for (int off = kGroup / 2; off > 0; off >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, off);
-      s[g] = x * k_sc;
-    }
-    if (valid) {
-#pragma unroll
-      for (int g = 0; g < kHeads; ++g) {
-        const float m_new = fmaxf(m[g], s[g]);
-        const float corr = expf(m[g] - m_new);
-        const float p = expf(s[g] - m_new);
-        const float pv = p * v_sc;
-        l[g] = l[g] * corr + p;
-        m[g] = m_new;
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) acc[g][e] = acc[g][e] * corr + pv * vv[e];
-      }
-    }
-  }
-
-  // Merge the warp's key groups (lanes sl, sl + kGroup, ...).
-#pragma unroll
-  for (int off = kGroup; off < 32; off <<= 1) {
-#pragma unroll
-    for (int g = 0; g < kHeads; ++g) {
-      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float mx = fmaxf(m[g], m_o);
-      const float a = expf(m[g] - mx), c = expf(m_o - mx);
-      l[g] = l[g] * a + l_o * c;
-      m[g] = mx;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-        acc[g][e] = acc[g][e] * a + acc_o * c;
-      }
-    }
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int g = 0; g < kHeads; ++g) {
-      if (sl == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) sm_acc[warp][g][sl * kPer + e] = acc[g][e];
-    }
-  }
-  // The fresh token as one more partial state: m = its score, l = 1,
-  // acc = its value (or an empty state when there is none).
-  if (warp == 0) {
-    const Q* kn = k_new ? k_new + b * st.kn_b + kvh * st.kn_h : nullptr;
-    const Q* vn = v_new ? v_new + b * st.vn_b + kvh * st.vn_h : nullptr;
-    for (int g = 0; g < kHeads; ++g) {
-      float x = 0.f;
-      if (kn != nullptr && g < ng)
-        for (int d = lane; d < HD; d += 32)
-          x += to_float(q[b * st.q_b + (h0 + g) * st.q_h + d]) * to_float(kn[d]);
-      x = warp_sum(x) * scale;
-      if (lane == 0) {
-        sm_m[kWarps][g] = kn != nullptr ? x : kNegInf;
-        sm_l[kWarps][g] = kn != nullptr ? 1.f : 0.f;
-      }
       for (int d = lane; d < HD; d += 32)
-        sm_acc[kWarps][g][d] = vn != nullptr ? to_float(vn[d]) : 0.f;
+        x = fmaf(to_float(qh[d]), to_float(kn[d]), x);
+      x = warp_sum(x);
+      if (lane == 0) Fresh[kHeads * HD + g] = x;
+      for (int d = lane; d < HD; d += 32) Fresh[g * HD + d] = to_float(vn[d]);
     }
+  }
+
+  // QK head (the butterfly below leaves head 2 * bit_a + bit_b with lane
+  // sl), the softmax state of head `warp` (in that warp's registers) and
+  // this lane's PV sums over its quarter of each chunk
+  const bool bit_a = sl & (kGroup / 2), bit_b = sl & (kGroup / 4);
+  const int qk_head = 2 * bit_a + bit_b;
+  float m_run = kNegInf, l_run = 0.f;
+  float acc[kHeads][kDL];
+#pragma unroll
+  for (int g = 0; g < kHeads; ++g)
+#pragma unroll
+    for (int d = 0; d < kDL; ++d) acc[g][d] = 0.f;
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int n_valid = min(kChunk, n_keys - ch * kChunk);
+    cp_async_wait<1>();
+    __syncthreads();  // the chunk's K rows are in shared memory
+
+    // scores of every valid key for the kHeads heads: each lane group's
+    // partial dot products, reduced and scattered over its lanes so that
+    // each lane ends with one head's score (log2(kGroup) + 1 shuffles);
+    // kSteps rounds at a time, as independent chains (rows past n_valid
+    // are zero-filled and their scores never read)
+    for (int j0 = 0; j0 < n_valid; j0 += C::kSteps * C::kKeysPerRound) {
+      float kv[C::kSteps][kPer];
+#pragma unroll
+      for (int r = 0; r < C::kSteps; ++r)
+        row_slice<kPer>(Kc + (j0 + r * C::kKeysPerRound +
+                              warp * C::kKeysPerWarp + sub) * HD + sl * kPer,
+                        kv[r]);
+#pragma unroll
+      for (int r = 0; r < C::kSteps; ++r) {
+        const int j = j0 + r * C::kKeysPerRound + warp * C::kKeysPerWarp + sub;
+        float x[kHeads];
+#pragma unroll
+        for (int g = 0; g < kHeads; ++g) {
+          x[g] = 0.f;
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) x[g] = fmaf(qr[g][e], kv[r][e], x[g]);
+        }
+        const float ya = (bit_a ? x[2] : x[0]) +
+            __shfl_xor_sync(0xffffffffu, bit_a ? x[0] : x[2], kGroup / 2);
+        const float yb = (bit_a ? x[3] : x[1]) +
+            __shfl_xor_sync(0xffffffffu, bit_a ? x[1] : x[3], kGroup / 2);
+        float z = (bit_b ? yb : ya) +
+            __shfl_xor_sync(0xffffffffu, bit_b ? ya : yb, kGroup / 4);
+#pragma unroll
+        for (int off = kGroup / 8; off > 0; off >>= 1)
+          z += __shfl_xor_sync(0xffffffffu, z, off);
+        if ((sl & (kGroup / 4 - 1)) == 0 && j < n_valid)
+          Pr[j * kHeads + qk_head] = C::kScaled ? z * KSc[j] : z;
+      }
+    }
+    __syncthreads();
+
+    // softmax of head `warp` over the chunk, continuing its running state;
+    // Pr becomes the probabilities, Corr the factor on the earlier sums
+    {
+      constexpr int kPerLane = kChunk / 32;
+      float sv[kPerLane], mx = m_run;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int j = lane + 32 * i;
+        sv[i] = j < n_valid ? Pr[j * kHeads + warp] : kNegInf;
+        mx = fmaxf(mx, sv[i]);
+      }
+      mx = warp_max(mx);
+      const float base = base_of(mx, c);
+      float lsum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const float p = ex2(fmaf(sv[i], c, -base));  // 0 past n_valid
+        lsum += p;
+        const int j = lane + 32 * i;
+        if (j < n_valid) Pr[j * kHeads + warp] = p;
+      }
+      const float corr = ex2(fmaf(m_run, c, -base));
+      l_run = fmaf(l_run, corr, warp_sum(lsum));
+      m_run = mx;
+      if (lane == 0) Corr[warp] = corr;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the V rows too
+
+    // PV: warp `warp` sums its quarter of the chunk's keys into this lane's
+    // kDL columns of every head
+    {
+      float cr[kHeads];
+#pragma unroll
+      for (int g = 0; g < kHeads; ++g) cr[g] = Corr[g];
+#pragma unroll
+      for (int g = 0; g < kHeads; ++g)
+#pragma unroll
+        for (int d = 0; d < kDL; ++d) acc[g][d] *= cr[g];
+      // kBatch keys at a time, their loads first; a key past n_valid (its
+      // row zero-filled, its probability stale) weighs exactly 0
+      constexpr int kQuarter = kChunk / kWarps;
+      const int j_end = min(warp * kQuarter + kQuarter, n_valid);
+      for (int j0 = warp * kQuarter; j0 < j_end; j0 += C::kBatch) {
+        float vv[C::kBatch][kDL];
+        float4 p4[C::kBatch];
+        float vsc[C::kBatch];
+#pragma unroll
+        for (int u = 0; u < C::kBatch; ++u) {
+          col_slice<kDL>(Vc + (j0 + u) * HD + lane * kDL, vv[u]);
+          p4[u] = *reinterpret_cast<const float4*>(Pr + (j0 + u) * kHeads);
+          vsc[u] = C::kScaled ? VSc[j0 + u] : 1.f;
+        }
+#pragma unroll
+        for (int u = 0; u < C::kBatch; ++u) {
+          const bool in = j0 + u < j_end;
+          const float pg[kHeads] = {in ? p4[u].x * vsc[u] : 0.f,
+                                    in ? p4[u].y * vsc[u] : 0.f,
+                                    in ? p4[u].z * vsc[u] : 0.f,
+                                    in ? p4[u].w * vsc[u] : 0.f};
+#pragma unroll
+          for (int g = 0; g < kHeads; ++g)
+#pragma unroll
+            for (int d = 0; d < kDL; ++d)
+              acc[g][d] = fmaf(pg[g], vv[u][d], acc[g][d]);
+        }
+      }
+    }
+    if (ch + 1 < n_chunks) {
+      __syncthreads();  // every warp is done with this chunk
+      load_chunk(ch + 1);
+    }
+  }
+
+  // The block's partial: the warps' PV sums added in warp order (through
+  // the K chunk's memory), m and l from the softmax warps.
+  // [kWarps][kHeads][HD]; the K chunk is free since the last QK's barrier
+  float* Red = reinterpret_cast<float*>(smem + C::kv);
+#pragma unroll
+  for (int g = 0; g < kHeads; ++g)
+#pragma unroll
+    for (int d = 0; d < kDL; ++d)
+      Red[(warp * kHeads + g) * HD + lane * kDL + d] = acc[g][d];
+  if (lane == 0) {
+    Part[kHeads * HD + warp] = m_run;
+    Part[kHeads * HD + kHeads + warp] = l_run;
   }
   __syncthreads();
+  for (int i = tid; i < ng * HD; i += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += Red[w * kHeads * HD + i];
+    Part[i] = a;
+  }
 
-  // Merge the parts; one thread per (head, dim).
-  for (int i = threadIdx.x; i < ng * HD; i += kWarps * 32) {
-    const int g = i / HD, d = i % HD;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kParts; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kParts; ++w) {
-      const float c = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * c;
-      a += sm_acc[w][g][d] * c;
+  // Every split's partial into the leader's slots: the others write
+  // theirs through distributed shared memory once every block has started,
+  // then arrive at phase 2 and leave; the leader waits for phase 2.
+  if (n_split > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    __syncthreads();    // this block's partial is complete
+    cluster_wait();     // phase 1: every block of the cluster has started
+    if (split > 0) {
+      float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(Part, 0));
+      const float4* src = reinterpret_cast<const float4*>(Part);
+      for (int i = tid; i < C::kPart / 4; i += kThreads) dst[i] = src[i];
     }
-    o[((long long)b * H + h0 + g) * HD + d] =
-        from_float<Q>(a / fmaxf(lsum, 1e-30f));
+    cluster_arrive();   // phase 2 (release): this split's partial is there
+    if (split > 0) return;
+    cluster_wait();     // the leader: every split's partial is here
+  } else {
+    __syncthreads();
+  }
+
+  // The leader combines the splits' partials (and the fresh token's) in
+  // split order, one thread per (head, column quad), every partial's m, l
+  // and columns loaded first.
+  constexpr int kQuads = HD / 4;
+  const int n_part = n_split + (has_fresh ? 1 : 0);
+  for (int it = tid; it < ng * kQuads; it += kThreads) {
+    const int g = it / kQuads, c4 = (it % kQuads) * 4;
+    float ms[kMaxSplits + 1], ls[kMaxSplits + 1];
+    float4 xs[kMaxSplits + 1];
+#pragma unroll
+    for (int sp = 0; sp <= kMaxSplits; ++sp) {
+      ms[sp] = kNegInf, ls[sp] = 0.f, xs[sp] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (sp < n_part) {  // split sp's partial, the fresh token's last
+        const float* P = Slots + (sp < n_split ? sp : kMaxSplits) * C::kPart;
+        ms[sp] = P[kHeads * HD + g];
+        ls[sp] = sp < n_split ? P[kHeads * HD + kHeads + g] : 1.f;
+        xs[sp] = *reinterpret_cast<const float4*>(P + g * HD + c4);
+      }
+    }
+    float mt = kNegInf;
+#pragma unroll
+    for (int sp = 0; sp <= kMaxSplits; ++sp) mt = fmaxf(mt, ms[sp]);
+    const float base = base_of(mt, c);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    float lsum = 0.f;
+#pragma unroll
+    for (int sp = 0; sp <= kMaxSplits; ++sp) {
+      if (sp >= n_part) break;
+      const float f = ex2(fmaf(ms[sp], c, -base));
+      lsum = fmaf(f, ls[sp], lsum);
+      a.x = fmaf(f, xs[sp].x, a.x);
+      a.y = fmaf(f, xs[sp].y, a.y);
+      a.z = fmaf(f, xs[sp].z, a.z);
+      a.w = fmaf(f, xs[sp].w, a.w);
+    }
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    store4(o + ((long long)b * H + h0 + g) * HD + c4,
+           make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
   }
 }
 
-// table == nullptr: a dense cache, batch row b is "page" b of W = 1 page
-// of ``page`` = S tokens. Returns the cudaError_t of the launch.
-template <typename Q, typename T, int HD>
+// table == nullptr (kPaged false): a dense cache, batch row b is "page" b
+// of W = 1 page of ``page`` = S tokens. Returns the cudaError_t of the
+// launch: a cut whose cluster or shared memory cannot launch is an error.
+template <typename Q, typename T, int HD, bool kPaged>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* table, const void* lengths,
            const void* k_new, const void* v_new, void* o, int B, int H,
            int KVH, int W, int page, int num_pages, const long long* st,
            float scale, cudaStream_t stream) {
+  const Plan p = plan_for<T, HD>(W, page);
+  auto kern = decode_split_fwd<Q, T, HD, kPaged>;
+  // past 48 KB of dynamic shared memory the kernel needs the attribute,
+  // set once per instantiation and device for the largest cut so far (two
+  // callers racing set it twice)
+  static int granted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (p.smem > 48 * 1024 && (dev >= 64 || granted[dev] < p.smem)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) granted[dev] = p.smem;
+  }
   const int G = H / KVH;
-  const dim3 grid(B * KVH, (G + kHeads - 1) / kHeads);
-  paged_decode_fwd<Q, T, HD><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const Q*>(q), static_cast<const T*>(k),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits * B * KVH, (G + kHeads - 1) / kHeads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;  // the splits of a row
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.splits > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const Q*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<const Q*>(k_new),
       static_cast<const Q*>(v_new), static_cast<Q*>(o), H, KVH, W, page,
-      num_pages, strides_from(st), scale);
+      num_pages, strides_from(st), p.splits, p.split_len,
+      scale * 1.4426950408889634f);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // The int8-cache instantiations, by the dtype code of q and hd.
-inline int launch_int8(int qdtype, int hd, const void* q, const void* k,
-                       const void* v, const void* ks, const void* vs,
-                       const void* table, const void* lengths,
-                       const void* k_new, const void* v_new, void* o, int B,
-                       int H, int KVH, int W, int page, int num_pages,
-                       const long long* st, float scale, cudaStream_t s) {
+template <bool kPaged>
+int launch_int8(int qdtype, int hd, const void* q, const void* k,
+                const void* v, const void* ks, const void* vs,
+                const void* table, const void* lengths, const void* k_new,
+                const void* v_new, void* o, int B, int H, int KVH, int W,
+                int page, int num_pages, const long long* st, float scale,
+                cudaStream_t s) {
 #define RT_INT8_CASE(QT, QCODE, HDV)                                         \
   if (qdtype == QCODE && hd == HDV)                                          \
-    return launch<QT, int8_t, HDV>(q, k, v, ks, vs, table, lengths, k_new,   \
-                                   v_new, o, B, H, KVH, W, page, num_pages,  \
-                                   st, scale, s);
+    return launch<QT, int8_t, HDV, kPaged>(q, k, v, ks, vs, table, lengths,  \
+                                           k_new, v_new, o, B, H, KVH, W,    \
+                                           page, num_pages, st, scale, s);
   RT_INT8_CASE(__nv_bfloat16, kBFloat16, 64)
   RT_INT8_CASE(__nv_bfloat16, kBFloat16, 128)
   RT_INT8_CASE(float, kFloat32, 64)
   RT_INT8_CASE(float, kFloat32, 128)
 #undef RT_INT8_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The cut of a call, by the cache's dtype code and hd (0, or
+// cudaErrorInvalidValue for one no entry point takes).
+inline int plan(int cdtype, int hd, int W, int page, Plan* out) {
+#define RT_PLAN_CASE(T, CODE, HDV)                                           \
+  if (cdtype == CODE && hd == HDV) {                                         \
+    *out = plan_for<T, HDV>(W, page);                                        \
+    return 0;                                                                \
+  }
+  RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 64)
+  RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 128)
+  RT_PLAN_CASE(float, kFloat32, 64)
+  RT_PLAN_CASE(float, kFloat32, 128)
+  RT_PLAN_CASE(int8_t, kInt8, 64)
+  RT_PLAN_CASE(int8_t, kInt8, 128)
+#undef RT_PLAN_CASE
   return (int)cudaErrorInvalidValue;
 }
 

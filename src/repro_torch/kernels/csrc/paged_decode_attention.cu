@@ -28,19 +28,37 @@ extern "C" int paged_decode_attention_fwd(
     const long long* strides, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cdtype == kInt8)
-    return launch_int8(qdtype, hd, q, k, v, ks, vs, table, lengths, k_new,
-                       v_new, o, B, H, KVH, W, page, num_pages, strides,
-                       scale, s);
+    return launch_int8<true>(qdtype, hd, q, k, v, ks, vs, table, lengths,
+                             k_new, v_new, o, B, H, KVH, W, page, num_pages,
+                             strides, scale, s);
   if (cdtype != qdtype) return (int)cudaErrorInvalidValue;
 #define RT_FP_CASE(T, CODE, HDV)                                              \
   if (qdtype == CODE && hd == HDV)                                            \
-    return launch<T, T, HDV>(q, k, v, nullptr, nullptr, table, lengths,       \
-                             k_new, v_new, o, B, H, KVH, W, page, num_pages,  \
-                             strides, scale, s);
+    return launch<T, T, HDV, true>(q, k, v, nullptr, nullptr, table, lengths, \
+                                   k_new, v_new, o, B, H, KVH, W, page,       \
+                                   num_pages, strides, scale, s);
   RT_FP_CASE(__nv_bfloat16, kBFloat16, 64)
   RT_FP_CASE(__nv_bfloat16, kBFloat16, 128)
   RT_FP_CASE(float, kFloat32, 64)
   RT_FP_CASE(float, kFloat32, 128)
 #undef RT_FP_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// How the decode kernels (this one, decode_attention_fwd and
+// decode_attention_int8_fwd; a dense cache of S tokens is W = 1, page = S)
+// cut a call: out[0..2] = key splits (the cluster size), keys per split,
+// dynamic shared memory in bytes. cdtype: the cache's dtype code. Returns
+// 0, or cudaErrorInvalidValue for a (cdtype, hd, H, KVH, W, page) no entry
+// point takes.
+extern "C" int paged_decode_attention_plan(int cdtype, int hd, int H,
+                                           int KVH, int W, int page,
+                                           int* out) {
+  Plan p;
+  if (KVH < 1 || H % KVH || W < 1 || page < 1)
+    return (int)cudaErrorInvalidValue;
+  const int e = plan(cdtype, hd, W, page, &p);
+  if (e) return e;
+  out[0] = p.splits, out[1] = p.split_len, out[2] = p.smem;
+  return 0;
 }

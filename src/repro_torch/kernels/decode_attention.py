@@ -2,7 +2,9 @@
 
 Port of the TPU kernel ``repro/kernels/decode_attention.py:decode_attention``
 (attention of one new token over a ragged dense KV cache; ``lengths``
-counts the token already inserted). The wrapper checks what the kernel
+counts the token already inserted). The kernel is the paged decode's body
+with each batch row as one page of S tokens; ``paged_decode_attention.plan``
+(width 1, page S) gives its cut. The wrapper checks what the kernel
 takes, allocates the output and launches on PyTorch's current stream;
 ``decode_attention.launches`` counts its launches. The plain version is
 ``ref.decode_attention_ref``; ``ops`` chooses between the two by the
@@ -18,6 +20,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+
+MAX_SPLITS = 8    # key splits of a row at most: one thread-block cluster
 
 
 @functools.cache
@@ -66,7 +70,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
             or not lengths.is_contiguous()):
         raise ValueError("lengths must be a contiguous int32 tensor on the "
                          "device of q")
-    if B * KVH > 2 ** 31 - 1:
+    if MAX_SPLITS * B * KVH > 2 ** 31 - 1:
         raise ValueError(f"B*KVH {B * KVH}")
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:

@@ -25,7 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import _aligned
+from repro_torch.kernels.decode_attention import MAX_SPLITS, _aligned
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
 INT8 = 2          # the C interface's dtype code of an int8 cache
@@ -40,6 +40,27 @@ def _kernel(lib: str, sym: str, n_ptrs: int, n_ints: int):
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def plan(dtype: torch.dtype, head_dim: int, heads: int, kv_heads: int,
+         width: int, page: int) -> dict:
+    """How the decode kernels cut a call over a cache of ``dtype`` (the
+    pools' or the dense cache's: bf16, fp32 or int8) and ``width`` pages
+    of ``page`` tokens (a dense cache of S tokens: width 1, page S): key
+    splits (one cluster of blocks per row, KV head and group of up to 4
+    query heads), keys per split and the dynamic shared memory, in bytes,
+    of its launch. The cut follows the capacity, never the lengths."""
+    fn = build.load("paged_decode_attention").paged_decode_attention_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    code = INT8 if dtype == torch.int8 else DTYPES.get(dtype, -1)
+    if fn(code, head_dim, heads, kv_heads, width, page,
+          ctypes.addressof(out)):
+        raise ValueError(f"no decode kernel for {dtype} hd {head_dim} "
+                         f"heads {heads}/{kv_heads} width {width} page "
+                         f"{page}")
+    return dict(zip(("splits", "split_len", "smem"), out))
 
 
 def _ptr(t):
@@ -101,7 +122,7 @@ def check_decode(name, q, k, v, k_scale, v_scale, lengths, k_new, v_new):
             or not lengths.is_contiguous()):
         raise ValueError(f"{name}: lengths must be a contiguous int32 "
                          "tensor on the device of q")
-    if B * KVH > 2 ** 31 - 1:
+    if MAX_SPLITS * B * KVH > 2 ** 31 - 1:
         raise ValueError(f"{name}: B*KVH {B * KVH}")
 
 

@@ -15,8 +15,11 @@ the paged KV cache at the default pool, as ``chip_smoke.py`` phase 4b
 does. Prints the warm metrics,
 the device's busy share in the profiled run (summed kernel time over wall
 time), the kernel launches per model call, the top kernels by device
-time, each hand-written kernel's device time and share, the top
-operators by host time and the host's cudaStreamSynchronize calls.
+time, each hand-written kernel's device time, launches and share (one
+row per instantiation, labelled with the TPU kernel it replaces: the
+dense and paged decode run one body, told apart by its template flag),
+the top operators by host time and the host's cudaStreamSynchronize
+calls.
 """
 from __future__ import annotations
 
@@ -35,9 +38,35 @@ SERVE = dict(num_requests=16, num_sites=2, max_batch=8, max_seq=1024,
              device="cuda", verbose=False)
 
 
-# the __global__ functions of kernels/csrc
-CSRC_KERNELS = ("flash_fwd", "decode_fwd", "paged_decode_fwd",
-                "paged_extend_fwd", "expert_gemm", "wkv6_chunked")
+# the __global__ functions of kernels/csrc, by the kernel number of the
+# TPU kernel each replaces
+CSRC_KERNELS = {"flash_fwd": "1", "flash_fwd_mma": "1",
+                "paged_extend_fwd": "5", "paged_extend_fwd_mma": "5",
+                "expert_gemm": "6", "expert_gemm_mma": "6",
+                "wkv6_chunked": "7"}
+
+
+def csrc_kernel(key: str):
+    """(label, name) of a profiler kernel row that is one of kernels/csrc,
+    else None. The name drops the return type and namespaces and keeps
+    the template arguments; the decode body's instantiations are kernel 2
+    (dense), 3 (dense int8), 4 (paged) or 4-int8 by its kPaged flag and
+    cache type."""
+    head = key.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    head = head.removeprefix("void ")
+    qual, _, targs = head.partition("<")
+    fn = qual.split("::")[-1]
+    name = fn + ("<" + targs if targs else "")
+    if fn == "decode_split_fwd":
+        args = [a.strip() for a in targs.rstrip(">").split(",")]
+        int8 = len(args) > 1 and args[1] == "signed char"
+        paged = args[-1] == "true"
+        label = ("4" if paged else "2") if not int8 else (
+            "4-int8" if paged else "3")
+        return f"kernel {label}", name
+    if fn in CSRC_KERNELS:
+        return f"kernel {CSRC_KERNELS[fn]}", name
+    return None
 
 
 def _device_us(e) -> float:
@@ -92,26 +121,30 @@ def main(argv=None) -> int:
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(_device_us(e) for e in kernels) / 1e6
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                "cuLaunchKernel"))
+    # every launch API, cudaLaunchKernel* and cuLaunchKernel*, with and
+    # without launch attributes (the hand-written kernels launch through
+    # cudaLaunchKernelEx, cuBLAS through cuLaunchKernelEx)
+    by_api = {e.key: e.count for e in events
+              if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    launches = sum(by_api.values())
     calls = sum(s["prefill_calls"] + s["decode_steps"]
                 for s in out["per_site"])
     print(f"[profiled] device busy {busy:.3f} s = {busy / wall:.1%} of "
           f"wall; {launches} kernel launches over {calls} model calls "
-          f"({launches / calls:.0f} per call)")
+          f"({launches / calls:.0f} per call): {by_api}")
     print("[device] top 15 by self device time: total ms, calls, name")
     for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
         print(f"  {_device_us(e) / 1e3:10.2f} {e.count:7d}  {e.key[:90]}")
     # each hand-written kernel's share of the device time, listed or not
     # above (the kernels of kernels/csrc, by function name)
     print("[device] hand-written kernels: total ms, calls, share of busy, "
-          "name")
+          "kernel, name")
     for e in sorted(kernels, key=_device_us, reverse=True):
-        name = e.key.removeprefix("void (anonymous namespace)::")
-        if name.startswith(CSRC_KERNELS):
+        hit = csrc_kernel(e.key)
+        if hit:
             print(f"  {_device_us(e) / 1e3:10.2f} {e.count:7d} "
-                  f"{_device_us(e) / 1e6 / busy:6.1%}  {name[:62]}")
+                  f"{_device_us(e) / 1e6 / busy:6.1%}  {hit[0]:15s} "
+                  f"{hit[1][:70]}")
     print("[host] top 15 by self CPU time: total ms, calls, name")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:15]:

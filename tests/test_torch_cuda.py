@@ -26,6 +26,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_int8 import decode_attention_int8
 from repro_torch.kernels.expert_matmul import expert_matmul
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import paged_decode_attention as PD
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_int8)
 from repro_torch.kernels import paged_extend_attention as PE
@@ -228,6 +229,125 @@ def test_decode_int8_kernel_matches_plain(gen, dtype, hd):
     got = decode_attention_int8(q, kc, vc, ks, vs, lens, k_new=kn, v_new=vn)
     want = ref.decode_attention_int8_ref(q, kc, vc, ks, vs, lens, kn, vn)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+DECODE_KINDS = ["dense", "dense_int8", "paged", "paged_int8"]
+
+
+def _decode_inputs(gen, kind, dtype, lengths, cap, hd=64, page=16):
+    """Inputs of one decode entry point, B = len(lengths), H=32, KVH=8:
+    dense caches of ``cap`` tokens, or pools behind a [B, cap // page]
+    table (one page per table slot, plus the trash page); the int8 kinds
+    carry fp32 scales and a fresh token of q's dtype."""
+    B, H, KVH = len(lengths), 32, 8
+    x = dict(q=_rnd(gen, (B, H, hd), dtype), table=None, ks=None, vs=None,
+             kn=None, vn=None,
+             lens=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    if kind.startswith("dense"):
+        shape = (B, cap, KVH, hd)
+    else:
+        W = cap // page
+        shape = (B * W + 1, page, KVH, hd)
+        x["table"] = _table(gen, B, W, B * W)
+    if kind.endswith("int8"):
+        x["k"], x["ks"] = Lyr.quantize_kv(_rnd(gen, shape, torch.float32))
+        x["v"], x["vs"] = Lyr.quantize_kv(_rnd(gen, shape, torch.float32))
+        x["kn"], x["vn"] = (_rnd(gen, (B, KVH, hd), dtype) for _ in range(2))
+    else:
+        x["k"], x["v"] = (_rnd(gen, shape, dtype) for _ in range(2))
+    return x
+
+
+def _decode(kind, x, rows=slice(None), width=None, plain=False):
+    """The kernel of ``kind`` (or its plain version) on batch rows
+    ``rows``, through the first ``width`` table columns if given."""
+    def pick(name):
+        t = x[name]
+        return None if t is None else t[rows]
+    q, lens, kn, vn = pick("q"), pick("lens"), pick("kn"), pick("vn")
+    if kind == "dense":
+        fn = ref.decode_attention_ref if plain else decode_attention
+        return fn(q, pick("k"), pick("v"), lens)
+    if kind == "dense_int8":
+        if plain:
+            return ref.decode_attention_int8_ref(q, pick("k"), pick("v"),
+                                                 pick("ks"), pick("vs"),
+                                                 lens, kn, vn)
+        return decode_attention_int8(q, pick("k"), pick("v"), pick("ks"),
+                                     pick("vs"), lens, k_new=kn, v_new=vn)
+    table = pick("table")[:, :width]
+    if plain:
+        return ref.paged_decode_attention_ref(
+            q, x["k"], x["v"], table, lens, k_scale=x["ks"],
+            v_scale=x["vs"], k_new=kn, v_new=vn)
+    if kind == "paged":
+        return paged_decode_attention(q, x["k"], x["v"], table, lens)
+    return paged_decode_attention_int8(q, x["k"], x["v"], x["ks"], x["vs"],
+                                       table, lens, k_new=kn, v_new=vn)
+
+
+def _decode_plan(kind, dtype, cap, hd=64, page=16):
+    cdtype = torch.int8 if kind.endswith("int8") else dtype
+    if kind.startswith("dense"):
+        return PD.plan(cdtype, hd, 32, 8, 1, cap)
+    return PD.plan(cdtype, hd, 32, 8, cap // page, page)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kernels_rows_do_not_depend_on_the_batch(gen, kind, dtype):
+    """Kernels 2, 3, 4 and 4-int8: row 2 alone (B=1) equals row 2 of a
+    B=8 call bit for bit, and of a second B=8 call where every other
+    row's length differs."""
+    x = _decode_inputs(gen, kind, dtype,
+                       [5, 77, 1000, 1024, 0, 300, 12, 640], cap=1024)
+    one = _decode(kind, x, rows=slice(2, 3))
+    for lens in ([5, 77, 1000, 1024, 0, 300, 12, 640],
+                 [900, 3, 1000, 0, 512, 1, 1024, 64]):
+        x["lens"] = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        assert torch.equal(_decode(kind, x)[2:3], one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["paged", "paged_int8"])
+def test_paged_decode_kernel_bits_do_not_depend_on_the_table_width(
+        gen, kind, dtype):
+    """A row of length 300 gives the same bits through a 32-column and a
+    64-column table (page 16): 4 and 8 splits of 128 keys."""
+    x = _decode_inputs(gen, kind, dtype, [300, 17, 512, 129], cap=1024)
+    plans = [_decode_plan(kind, dtype, w * 16) for w in (32, 64)]
+    assert [p["splits"] for p in plans] == [4, 8]
+    assert {p["split_len"] for p in plans} == {128}
+    assert torch.equal(_decode(kind, x, width=32), _decode(kind, x, width=64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_kernels_long_rows_take_several_splits(gen, kind, dtype, hd):
+    """At 1024 keys of capacity every kernel cuts a row into 8 clusters'
+    splits of 128 keys; rows near, at and past the capacity, and one split
+    boundary, match the plain version."""
+    assert _decode_plan(kind, dtype, 1024, hd)["splits"] == 8
+    x = _decode_inputs(gen, kind, dtype, [1024, 1023, 129, 2000], cap=1024,
+                       hd=hd)
+    torch.testing.assert_close(_decode(kind, x).float(),
+                               _decode(kind, x, plain=True).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kernels_above_eight_splits_of_128_keys(gen, kind, dtype):
+    """Capacity 4096 (dense S=4096; paged W=256 at page 16): 8 splits of
+    512 keys, each streamed through the ring in several rounds, match the
+    plain version."""
+    plan = _decode_plan(kind, dtype, 4096)
+    assert (plan["splits"], plan["split_len"]) == (8, 512)
+    x = _decode_inputs(gen, kind, dtype, [4096, 4000, 1234, 1], cap=4096)
+    torch.testing.assert_close(_decode(kind, x).float(),
+                               _decode(kind, x, plain=True).float(),
+                               **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
