@@ -33,7 +33,18 @@ Phases (any failure exits non-zero before the result line):
   6. ssm: rwkv6-1.6b whole, the same 16 requests; the WKV6 kernel
      (kernel 7) launches once per layer and admission call, and one
      prompt's logits match the plain path's at fp32, and at bf16 within
-     twice the plain path's own spread between two chunk sizes.
+     twice the plain path's own spread between two chunk sizes;
+  7. co-sim: Heron's fleet co-sim (``launch/cosim.py::run_cosim``: 4
+     sites, 150,000 users, 120 ticks, Heron planning) over llama3.2-1b
+     engines at its published width; 7a a partial grid trip over dense
+     caches (kernels 1, 2), 7b a site failure over paged caches (kernels
+     1, 4, 5), whose drained requests resume elsewhere. Each run's
+     ``E2EResult`` counters equal those of the same run on the CPU with a
+     1-layer fp32 model, no token is duplicated, every ledger balances
+     and the kernels launch once per layer and model call; 7c a 2-layer
+     fp32 model at full width, drained after 3 steps and resumed on an
+     engine with another seed, gives the uninterrupted run's streams,
+     dense and paged.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -127,8 +138,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    import numpy
+    import scipy
     import torch.nn.functional as F
-    from repro_torch.configs import get_config, llama32_1b
+    from repro_torch.configs import get_config, llama32_1b, reduced
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.decode_attention_int8 import (
@@ -143,12 +156,14 @@ def main() -> int:
     from repro_torch.kernels.paged_extend_attention import (
         paged_extend_attention, plan as extend_plan)
     from repro_torch.kernels.wkv6 import plan as wkv6_plan, wkv6
+    from repro_torch.launch.cosim import run_cosim
     from repro_torch.launch.serve import (demo_requests, full_width_config,
                                           serve_demo)
     from repro_torch.models import layers as Lyr
     from repro_torch.models import transformer as T
     from repro_torch.models.api import build as build_model
-    from repro_torch.serving.engine import insert_cache_pages
+    from repro_torch.serving.engine import (ServingEngine,
+                                            insert_cache_pages)
     kernel_fns = {k.__name__: k for k in (
         flash_attention, decode_attention, decode_attention_int8,
         paged_decode_attention, paged_decode_attention_int8,
@@ -162,7 +177,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[device] {smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | allow_tf32 matmul=False cudnn=False")
+          f"{torch.version.cuda} | numpy {numpy.__version__} scipy "
+          f"{scipy.__version__} | allow_tf32 matmul=False cudnn=False")
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -732,7 +748,10 @@ def main() -> int:
     # ----------------------------------------------------------- 4. serve
     cfg = llama32_1b
     L = cfg.num_layers
+    # uniform site weights, not Heron's: the same traffic as every earlier
+    # run of these phases
     serve_kw = dict(num_requests=16, num_sites=2, seed=SEED,
+                    site_weights=(1.0, 1.0),
                     prompt_len=(16, 701), new_tokens=(8, 33))
     torch.cuda.reset_peak_memory_stats(dev)
     reset(*kernel_fns.values())
@@ -1057,7 +1076,131 @@ def main() -> int:
             del cparams, got, want
             torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- 7. report
+    # ---------------------------------------------------------- 7. co-sim
+    # the fleet co-sim at full width on the card, each run beside its twin
+    # on the CPU (1 layer, fp32, the plain path): the engines run on the
+    # virtual clock with no end token, so the counters must be equal
+    def record(res):
+        d = res.to_json()
+        d.pop("planner")                    # solver wall times
+        return d
+
+    twin_cfg = reduced(llama32_1b, num_layers=1, dtype="float32")
+    cosim_runs = (("7a", dict(scenario="grid_trip")),
+                  ("7b", dict(scenario="site_failure", site=0, paged=True)))
+    for tag, kw in cosim_runs:
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(*kernel_fns.values())
+        run = run_cosim(cfg, device="cuda", seed=SEED, **kw)
+        cl = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        twin = run_cosim(twin_cfg, device="cpu", seed=SEED, **kw)
+        res, c = run.result, run.counts
+        got, want = record(res), record(twin.result)
+        ticks, wall = run.fleet.now, run.wall_seconds
+        kind = "paged" if kw.get("paged") else "dense"
+        print(f"[cosim] {tag} {res.name} {kind} {cfg.name} L={L} bf16 on "
+              f"the card: {json.dumps(got)}")
+        print(f"  engines {c['engines']}, prefills {c['prefills']}, extend "
+              f"chunks {c['extend_chunks']}, decode steps "
+              f"{c['decode_steps']}; {ticks:.0f} ticks, {wall:.3f} s wall "
+              f"({wall / ticks * 1e3:.2f} ms a tick, "
+              f"{c['engine_steps'] / wall:.1f} engine "
+              f"steps/s), Planner-L {sum(res.planner['solve_s']):.3f} s; "
+              f"hand-written kernel launches {cl} "
+              f"({sum(cl.values()) / ticks:.1f} a tick); peak "
+              f"memory {peak_gb:.2f} GB; CPU twin {twin.wall_seconds:.3f} s")
+        diff = {k: (got[k], want.get(k)) for k in got if got[k] != want.get(k)}
+        check(not diff, f"co-sim {tag}: counters differ from the CPU twin: "
+              f"{diff}")
+        check(c == twin.counts, f"co-sim {tag}: engine counts {c} != the "
+              f"CPU twin's {twin.counts}")
+        check(res.duplicated_tokens == 0,
+              f"co-sim {tag}: {res.duplicated_tokens} duplicated tokens")
+        check(res.completed == res.offered_requests > 0,
+              f"co-sim {tag}: completed {res.completed} of "
+              f"{res.offered_requests}")
+        live = [e for e in run.fleet.engines if e is not None]
+        for eng in live:
+            books = eng.reconcile()
+            check(books["balanced"], f"co-sim {tag}: ledger {books}")
+        if kw.get("paged"):
+            want_l = {"flash_attention": L * c["prefills"],
+                      "paged_decode_attention": L * c["decode_steps"],
+                      "paged_extend_attention": L * c["extend_chunks"]}
+            check(res.resumes > 0, f"co-sim {tag}: nothing resumed")
+            free = [(len(e._free_pages), e.num_pages) for e in live]
+            check(all(f == n for f, n in free),
+                  f"co-sim {tag}: pages not returned: {free}")
+        else:
+            want_l = {"flash_attention": L * c["prefills"],
+                      "decode_attention": L * c["decode_steps"]}
+        check(cl == want_l and all(want_l.values()),
+              f"co-sim {tag}: launches {cl} != {want_l}")
+        del run, twin
+        torch.cuda.empty_cache()
+
+    # 7c: resume through the kernels. A 2-layer fp32 model at full width,
+    # 8 requests (greedy and sampled) on 6 slots: drained after 3 steps and
+    # resumed on an engine with another seed, the streams are the
+    # uninterrupted serial run's
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    for paged in (False, True):
+        def engine(seed, mode="batched"):
+            return ServingEngine(model32, params32, max_batch=6,
+                                 max_seq=1024, seed=seed, admit_mode=mode,
+                                 paged=paged)
+
+        def requests():
+            reqs = [r for _, r in demo_requests(
+                cfg32, num_requests=8, num_sites=1, seed=SEED,
+                prompt_len=(16, 200), new_tokens=(8, 33))]
+            for r in reqs[1::2]:
+                r.temperature = 0.8
+            return reqs
+
+        with torch.no_grad():
+            ref_eng = engine(SEED, "serial")
+            for r in requests():
+                ref_eng.submit(r)
+            want = {r.rid: r.tokens for r in ref_eng.run().completed}
+            e1 = engine(SEED)
+            for r in requests():
+                e1.submit(r)
+            for _ in range(3):
+                e1.step()
+            snaps = e1.drain()
+            e2 = engine(SEED + 91)
+            for snap in snaps:
+                check(e2.resume(snap) is not None, "7c: resume refused")
+            got = {r.rid: r.tokens for r in e2.run().completed}
+        carried = sum(len(snap.tokens) for snap in snaps)
+        kind = "paged" if paged else "dense"
+        check(len(snaps) == 8 and e1.metrics.preemptions == 6,
+              f"7c {kind}: {len(snaps)} snapshots, "
+              f"{e1.metrics.preemptions} preempted")
+        check(e2.metrics.recovered_tokens == carried > 0,
+              f"7c {kind}: recovered {e2.metrics.recovered_tokens} of "
+              f"{carried} carried tokens")
+        check(got == want, f"7c {kind}: resumed streams differ from the "
+              f"uninterrupted run: rids "
+              f"{[k for k in want if got.get(k) != want[k]]}")
+        check(e1.reconcile()["balanced"] and e2.reconcile()["balanced"],
+              f"7c {kind}: ledgers do not balance")
+        print(f"[cosim] 7c {kind} {cfg32.num_layers}-layer fp32 at full "
+              f"width: 8 requests drained after 3 steps "
+              f"({e1.metrics.preemptions} live, {carried} tokens carried), "
+              f"resumed on seed "
+              f"{SEED + 91}: streams equal the uninterrupted serial run's "
+              f"({sum(len(t) for t in got.values())} tokens)")
+    del model32, params32
+    torch.cuda.empty_cache()
+    print(f"[cosim] card: {smi}")
+
+    # ---------------------------------------------------------- 8. report
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),
            "decode_attention": ("decode_attention.py:92", "decode_attention"),
            "decode_attention_int8": ("decode_attention.py:139",

@@ -1,12 +1,16 @@
 """Architecture registry of the port: the families ported so far (dense,
 moe, ssm), plus the reduced smoke configs. Later slices register the other
-families."""
+families. ``PAPER_MODEL`` is the paper's own model, which the co-sim's
+lookup table is built from; it is a configuration only, never served."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.llama31_70b import CONFIG as llama31_70b
 from repro_torch.configs.llama32_1b import CONFIG as llama32_1b
 from repro_torch.configs.phi35_moe_42b import CONFIG as phi35_moe_42b
 from repro_torch.configs.rwkv6_1b6 import CONFIG as rwkv6_1b6
+
+PAPER_MODEL: ModelConfig = llama31_70b
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [llama32_1b, phi35_moe_42b, rwkv6_1b6]}
@@ -22,4 +26,5 @@ def smoke_config(name: str) -> ModelConfig:
     return reduced(get_config(name))
 
 
-__all__ = ["ModelConfig", "ARCHS", "get_config", "smoke_config", "reduced"]
+__all__ = ["ModelConfig", "ARCHS", "PAPER_MODEL", "get_config",
+           "smoke_config", "reduced"]

@@ -33,9 +33,10 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import ARCHS
 from repro_torch.launch.serve import full_width_config, serve_demo
 
+# chip_smoke.py's serving traffic, uniform site weights included
 SERVE = dict(num_requests=16, num_sites=2, max_batch=8, max_seq=1024,
              seed=0, prompt_len=(16, 701), new_tokens=(8, 33),
-             device="cuda", verbose=False)
+             site_weights=(1.0, 1.0), device="cuda", verbose=False)
 
 
 # the __global__ functions of kernels/csrc, by the kernel number of the

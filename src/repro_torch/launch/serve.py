@@ -1,10 +1,10 @@
 """Serving entry point: one serving engine per site, requests spread by site weight.
 
 Port of ``repro/launch/serve.py``. The engines share one copy of the
-weights on the device. Heron's site weights come, in the reference, from
-``HeronRouter`` planning over the lookup table and the wind fleet; that
-control plane is not ported yet, so ``site_weights`` comes from the caller
-and defaults to uniform.
+weights on the device. Heron's site weights come, as in the reference,
+from ``HeronRouter`` planning one slot over a lookup table of the served
+model on H100 DGX hardware and the wind fleet's first slot of power
+(``heron_site_weights``); a caller may pass its own ``site_weights``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --sites 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
@@ -27,9 +27,20 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lookup import build_table
+from repro_torch.core.planner_l import SiteSpec
+from repro_torch.core.router import HeronRouter
+from repro_torch.data.wind import make_default_fleet
+from repro_torch.data.workload import make_trace
 from repro_torch.device import resolve_device
 from repro_torch.models.api import build
+from repro_torch.power.model import H100_DGX
 from repro_torch.serving.engine import Request, ServingEngine
+
+# the lookup table's grid: the paper grid's two H100 frequencies
+# (sim/testbed.py) over three loads
+LOAD_GRID = (0.25, 1.0, 4.0)
+FREQ_GRID = (1.2, 2.0)
 
 
 def full_width_config(arch: str, layers: Optional[int] = None
@@ -38,6 +49,31 @@ def full_width_config(arch: str, layers: Optional[int] = None
     published depth). A depth cut is the caller's, with its reason."""
     cfg = get_config(arch)
     return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+
+
+def heron_site_weights(cfg: ModelConfig, num_sites: int,
+                       seed: int = 0) -> np.ndarray:
+    """Heron's dispatch weight of each site, summed over the classes of
+    one planned slot: ``HeronRouter`` plans over ``cfg``'s lookup table on
+    H100 DGX hardware, sites of 64 GPUs and the wind fleet's first slot of
+    power, under a conversation trace's first-slot load. Uniform when the
+    plan places nothing."""
+    trace = make_trace("conversation", base_rps=1.0, seed=seed)
+    table = build_table(cfg, trace, H100_DGX, load_grid=LOAD_GRID,
+                        freq_grid=FREQ_GRID)
+    fleet = make_default_fleet(seed=seed)
+    sites = [SiteSpec(s.name, num_gpus=64) for s in fleet.sites[:num_sites]]
+    power_w = np.array([s.series_mw[0]
+                        for s in fleet.sites[:num_sites]]) * 1e6
+    load = trace.class_arrivals()[:, 0] / (15 * 60)
+    plan = HeronRouter(table=table, sites=sites).step_slot(power_w, load)
+    agg = np.zeros(num_sites)
+    for rows in plan.wrr_weights().values():
+        for s, _row, w in rows:
+            agg[s] += w
+    if agg.sum() <= 0:
+        agg[:] = 1.0
+    return agg / agg.sum()
 
 
 def demo_requests(cfg: ModelConfig, *, num_requests: int, num_sites: int,
@@ -75,6 +111,7 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
     ``EngineMetrics.summary()``, the site weights and each completed
     request's tokens by request id. ``cfg=None`` serves
     the llama3.2-1b smoke config; weights are random, drawn from ``seed``.
+    ``site_weights=None`` takes Heron's (``heron_site_weights``).
     ``paged``: every site serves from a paged KV cache of ``num_pages``
     pages (default the dense capacity) of ``page_size`` tokens (families
     without a paged layout, such as ssm, stay dense).
@@ -87,9 +124,8 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
                              max_seq=max_seq, seed=seed + i, paged=paged,
                              page_size=page_size, num_pages=num_pages)
                for i in range(num_sites)]
-    w = np.ones(num_sites) if site_weights is None else np.asarray(
-        site_weights, float)
-    w = w / w.sum()
+    w = (heron_site_weights(cfg, num_sites, seed) if site_weights is None
+         else np.asarray(site_weights, float) / np.sum(site_weights))
     reqs = demo_requests(cfg, num_requests=num_requests, num_sites=num_sites,
                          site_weights=w, seed=seed, prompt_len=prompt_len,
                          new_tokens=new_tokens)

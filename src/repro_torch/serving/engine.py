@@ -36,13 +36,43 @@ width, with the rows outside the chunk masked. Greedy streams equal the
 dense engine's (to rounding: the reference's paged path is bitwise the
 dense one, the port's paged kernels sum in another order).
 
-Async admission, preempt/drain/resume, brownout, deadlines and the queue
-watermark are not ported yet: asking for async or a watermark raises
+Request lifecycle (as in the reference)::
+
+    queued --admit--> live --finish--> completed
+       |                |  |
+       | (watermark /   |  +--deadline--> timed_out
+       |  oversize /    +--preempt--> snapshot --resume--> queued (again)
+       |  deadline)                        |
+       +--> rejected / timed_out           +--(budget spent)--> failed
+
+``preempt(slots)`` snapshots each in-flight request's transcript (prompt +
+generated tokens + the seed that keys its draws) into a
+``checkpoint.store.TranscriptSnapshot`` and frees the slot (and its
+pages); ``drain()`` does so for every live slot and the waiting queue (a
+site dying). ``resume(snapshot)`` queues the transcript again, on this or
+any engine serving the same model: admission prefills the prompt plus the
+carried tokens through the same bucket and chunk schedule, and sampling
+continues at token index ``len(tokens)`` under the carried seed. The draws
+are keyed as in the uninterrupted run, so greedy streams equal it wherever
+the replayed cache rounds as the decoded one did (at fp32; at bf16 the
+prefill and decode kernels round differently).
+
+``queue_watermark`` rejects a submission beyond that queue depth;
+``set_brownout(frac)`` sheds fresh admissions' ``max_new_tokens`` to
+``ceil(frac * requested)`` and scales the per-step admission budget by
+``frac``; ``deadline_s`` (absolute, engine clock) times out a queued or
+live request; ``not_before_s`` holds a request back (``retry_backoff``)
+without blocking the queue behind it. ``EngineMetrics`` keeps the ledger
+(preemptions, resumes, recovered / lost / shed tokens, timeouts), and
+``reconcile()`` checks that it balances.
+
+Async admission is not ported yet: ``admit_mode="async"`` raises
 ``NotImplementedError``. The int8 KV cache is reached, as in the
 reference, through the model's cache functions, not through the engine.
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -51,6 +81,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import TranscriptSnapshot
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.api import Model
@@ -58,13 +89,28 @@ from repro_torch.serving.sampling import draw_key, sample_batch
 from repro_torch.stats import percentile
 
 
+def retry_backoff(attempts: int, *, base: float = 0.05,
+                  cap: float = 2.0) -> float:
+    """Capped exponential backoff delay before retry ``attempts`` (1-based):
+    ``min(base * 2**(attempts-1), cap)``. Deterministic (no jitter) so
+    chaos runs replay exactly."""
+    return min(base * (2.0 ** max(attempts - 1, 0)), cap)
+
+
 @dataclass
 class Request:
     rid: int
     prompt: np.ndarray                  # [S] int32 token ids
-    max_new_tokens: int
+    max_new_tokens: int                 # TOTAL tokens (incl. resumed prefix)
     arrival_s: float = 0.0
     temperature: float = 0.0
+    # lifecycle
+    seed: Optional[int] = None          # sampling seed carried by a resumed
+    #                                     request (None: the engine's)
+    deadline_s: Optional[float] = None  # absolute deadline (engine clock)
+    not_before_s: float = 0.0           # backoff gate for (re-)admission
+    attempts: int = 0                   # admission/failover attempts so far
+    resumed_from: int = 0               # tokens carried in from a snapshot
     # filled by the engine
     tokens: list = field(default_factory=list)
     prefill_done_s: Optional[float] = None
@@ -145,10 +191,19 @@ def insert_cache_pages(pool_kv: dict, group_kv: dict,
 class EngineMetrics:
     completed: list
     rejected: list = field(default_factory=list)
+    timed_out: list = field(default_factory=list)
     steps: int = 0
     prefills: int = 0          # requests admitted (one prefill each, logically)
     prefill_calls: int = 0     # model calls spent on admission
-    submitted: int = 0
+    submitted: int = 0         # submissions (watermark rejections too)
+    preemptions: int = 0       # live slots snapshotted and freed
+    evicted: int = 0           # snapshots handed out (preempted + drained)
+    resumed: int = 0           # snapshots queued again on this engine
+    recovered_tokens: int = 0  # tokens carried into a resume (not re-sampled)
+    lost_tokens: int = 0       # generated tokens discarded (timeout/rejection)
+    duplicated_tokens: int = 0 # tokens re-emitted behind a delivery mark;
+    #                            must stay 0
+    shed_tokens: int = 0       # max_new_tokens cut under brownout
     decode_steps: int = 0      # decode calls (steps with >= 1 live row)
     extend_chunks: int = 0     # extend calls of the batched prompt tails
     admit_stall_steps: int = 0 # steps that admitted with no live decode row
@@ -162,8 +217,15 @@ class EngineMetrics:
         out = {"num_completed": len(self.completed), "steps": self.steps,
                "prefills": self.prefills, "prefill_calls": self.prefill_calls,
                "rejected": len(self.rejected),
+               "timed_out": len(self.timed_out),
                "submitted": self.submitted,
+               "preemptions": self.preemptions,
+               "resumed": self.resumed,
                "served_tokens": sum(len(r.tokens) for r in self.completed),
+               "recovered_tokens": self.recovered_tokens,
+               "lost_tokens": self.lost_tokens,
+               "duplicated_tokens": self.duplicated_tokens,
+               "shed_tokens": self.shed_tokens,
                "decode_steps": self.decode_steps,
                "extend_chunks": self.extend_chunks,
                "admit_stall_steps": self.admit_stall_steps,
@@ -181,9 +243,10 @@ class ServingEngine:
     ``params`` decide the device: the cache and every call live where the
     weights do. ``admit_mode``: "batched" (default) or "serial" (the
     reference). ``admit_token_budget``: max prompt tokens admitted per step
-    (None = unlimited), at least one request per step. ``paged``: a paged
-    KV cache of ``num_pages`` pages of ``page_size`` tokens (families
-    without a paged layout stay dense).
+    (None = unlimited), at least one request per step.
+    ``queue_watermark``: max waiting-queue depth before ``submit`` rejects
+    (None = unbounded). ``paged``: a paged KV cache of ``num_pages`` pages
+    of ``page_size`` tokens (families without a paged layout stay dense).
     """
 
     def __init__(self, model: Model, params, *, max_batch: int = 8,
@@ -197,8 +260,6 @@ class ServingEngine:
             raise NotImplementedError("admit_mode='async' is not ported yet")
         if admit_mode not in ("batched", "serial"):
             raise ValueError(f"admit_mode {admit_mode!r}")
-        if queue_watermark is not None:
-            raise NotImplementedError("queue_watermark is not ported yet")
         self.model = model
         self.cfg: ModelConfig = model.cfg
         self.params = params
@@ -208,8 +269,11 @@ class ServingEngine:
         self.eos = eos_token
         self.admit_mode = admit_mode
         self.admit_token_budget = admit_token_budget
+        self.queue_watermark = queue_watermark
         self.seed = seed
+        self.brownout = 1.0
         self._clock = clock or time.perf_counter
+        self._has_deadlines = False
         self.paged = bool(paged) and T.supports_paged_cache(self.cfg)
         if self.paged:
             if page_size < 1 or page_size & (page_size - 1):
@@ -247,10 +311,32 @@ class ServingEngine:
 
     # --------------------------------------------------------------- admit
     def submit(self, req: Request) -> bool:
-        """Queue a request."""
+        """Queue a request. Returns False (and records a rejection) when
+        the queue is at ``queue_watermark``."""
         self.metrics.submitted += 1
+        if (self.queue_watermark is not None
+                and len(self.waiting) >= self.queue_watermark):
+            req.finish_s = self._clock()
+            self.metrics.rejected.append(req)
+            return False
+        if req.deadline_s is not None:
+            self._has_deadlines = True
         self.waiting.append(req)
         return True
+
+    def _seed_of(self, req: Request) -> int:
+        """The seed that keys ``req``'s draws: the one it carries from a
+        snapshot, else this engine's."""
+        return self.seed if req.seed is None else req.seed
+
+    @staticmethod
+    def _effective_prompt(req: Request) -> np.ndarray:
+        """What admission prefills: the prompt plus every token generated
+        before a preemption, so the replay rebuilds the request's cache."""
+        prompt = np.asarray(req.prompt, np.int32)
+        if not req.tokens:
+            return prompt
+        return np.concatenate([prompt, np.asarray(req.tokens, np.int32)])
 
     def _finalize_admits(self, items: list, logits) -> None:
         """Sample first tokens for every request finished by one model call
@@ -262,7 +348,9 @@ class ServingEngine:
             return
         rows = torch.as_tensor([row for _, _, row in items],
                                device=logits.device)
-        keys = [draw_key(self.seed, req.rid, len(req.tokens))
+        # the token index is len(tokens): 0 for a fresh request, the
+        # resume point for a replayed transcript
+        keys = [draw_key(self._seed_of(req), req.rid, len(req.tokens))
                 for _, req, _ in items]
         temps = [req.temperature for _, req, _ in items]
         toks = sample_batch(logits[rows], keys, temps).cpu().numpy()
@@ -271,7 +359,10 @@ class ServingEngine:
         for j, (slot, req, _) in enumerate(items):
             tok = int(toks[j])
             req.tokens.append(tok)
-            req.prefill_done_s = now
+            if req.prefill_done_s is None:
+                # a resumed request keeps its first prefill time: TTFT is
+                # when the user first saw a token
+                req.prefill_done_s = now
             self.metrics.prefills += 1
             if len(req.tokens) >= req.max_new_tokens or tok == self.eos:
                 # the prompt's last logits gave the only requested token:
@@ -289,29 +380,56 @@ class ServingEngine:
                 torch.as_tensor(live_toks, dtype=torch.int32,
                                 device=self.device))
 
+    def _sweep_waiting_deadlines(self, now: float) -> None:
+        """Time out queued requests past their deadline, before admission
+        spends a prefill on them."""
+        keep: deque[Request] = deque()
+        for req in self.waiting:
+            if req.deadline_s is not None and now >= req.deadline_s:
+                req.finish_s = now
+                self.metrics.timed_out.append(req)
+                self.metrics.lost_tokens += len(req.tokens)
+            else:
+                keep.append(req)
+        self.waiting = keep
+
     def _admit(self) -> None:
         if not self.waiting:
             return
+        now = self._clock()
+        if self._has_deadlines:
+            self._sweep_waiting_deadlines(now)
         free = [i for i, r in enumerate(self.active) if r is None]
         admits: list[tuple[int, Request]] = []
+        held: list[Request] = []       # backoff-gated, in queue order
         spent = 0
         budget = self.admit_token_budget
+        if budget is not None and self.brownout < 1.0:
+            budget = max(1, int(budget * self.brownout))
         while self.waiting and free:
             req = self.waiting[0]
-            S = len(req.prompt)
-            need = self._pages_needed(req) if self.paged else 0
-            if req.max_new_tokens <= 0:
-                # nothing to generate: complete as-is, no slot, no prefill
+            if req.not_before_s > now:
+                # retry backoff: not eligible yet; the requests behind it
+                # are not held up
+                held.append(self.waiting.popleft())
+                continue
+            S = len(req.prompt) + len(req.tokens)    # the effective prompt
+            if req.max_new_tokens <= len(req.tokens):
+                # nothing (left) to generate: complete as-is, no slot, no
+                # prefill
                 self.waiting.popleft()
                 req.finish_s = self._clock()
                 self.metrics.completed.append(req)
                 continue
-            if (S == 0 or S + req.max_new_tokens - 1 > self.max_seq
+            need = self._pages_needed(req) if self.paged else 0
+            if (len(req.prompt) == 0
+                    or len(req.prompt) + req.max_new_tokens - 1 > self.max_seq
                     or need > self.num_pages):
                 # can never fit this engine's cache (or page pool): reject
                 # without a slot
                 self.waiting.popleft()
                 req.finish_s = self._clock()
+                self.metrics.lost_tokens += len(req.tokens)
                 self.metrics.rejected.append(req)
                 continue
             if self.paged and need > len(self._free_pages):
@@ -322,11 +440,22 @@ class ServingEngine:
             if admits and budget is not None and spent + S > budget:
                 break
             self.waiting.popleft()
+            if self.brownout < 1.0 and not req.tokens:
+                # brownout sheds a fresh request's tokens instead of
+                # dropping it; a resumed transcript keeps its contract
+                want = req.max_new_tokens
+                shed_to = max(1, int(math.ceil(want * self.brownout)))
+                if shed_to < want:
+                    self.metrics.shed_tokens += want - shed_to
+                    req.max_new_tokens = shed_to
             slot = free.pop(0)
             if self.paged:
-                self._alloc_pages(slot, need)
+                # after any shed: never more than the `need` cleared above
+                self._alloc_pages(slot, self._pages_needed(req))
             admits.append((slot, req))
             spent += S
+        if held:
+            self.waiting.extendleft(reversed(held))
         if not admits:
             return
         try:
@@ -341,23 +470,25 @@ class ServingEngine:
 
     def _rollback_admits(self, admits: list) -> None:
         """A failed admission round: every request not yet live, completed
-        or rejected goes back to the front of the queue with no tokens,
-        and its slot (and pages) are released."""
+        or rejected goes back to the front of the queue with only the
+        tokens it carried in, and its slot (and pages) are released."""
         requeue = []
         for slot, req in admits:
             settled = (self.active[slot] is req
                        or any(r is req for r in self.metrics.completed)
                        or any(r is req for r in self.metrics.rejected))
             if not settled:
-                req.tokens.clear()
-                req.prefill_done_s = None
+                del req.tokens[req.resumed_from:]
+                if req.resumed_from == 0:
+                    req.prefill_done_s = None
                 self.release_slot(slot)
                 requeue.append(req)
         self.waiting.extendleft(reversed(requeue))
 
     def _admit_serial(self, slot: int, req: Request) -> None:
-        """Reference path: pow2-prefix prefill + serial B=1 decode tail."""
-        full = np.asarray(req.prompt, np.int32)
+        """Reference path: pow2-prefix prefill + serial B=1 decode tail,
+        over the effective prompt."""
+        full = self._effective_prompt(req)
         S = len(full)
         bucket = 1 << (S.bit_length() - 1)
         logits, req_cache = self.model.prefill_fn(
@@ -388,10 +519,12 @@ class ServingEngine:
         self._finalize_admits([(slot, req, 0)], logits)
 
     def _admit_batched(self, admits: list) -> None:
-        """Grouped bucket prefills + shared descending-pow2 extend tails."""
+        """Grouped bucket prefills + shared descending-pow2 extend tails,
+        over the effective prompts (a resumed request rides the same
+        pipeline as a fresh one)."""
         groups: dict[int, list] = {}
         for slot, req in admits:
-            full = np.asarray(req.prompt, np.int32)
+            full = self._effective_prompt(req)
             bucket = 1 << (len(full).bit_length() - 1)
             groups.setdefault(bucket, []).append((slot, req, full))
         pend: dict[int, list] = {}          # slot -> [req, full, consumed]
@@ -469,7 +602,8 @@ class ServingEngine:
 
     def _pages_needed(self, req: Request) -> int:
         """Pages covering the whole contract: prompt + max_new_tokens - 1
-        cache positions (the last sampled token never writes KV)."""
+        cache positions (the last sampled token never writes KV; a resumed
+        request's carried tokens are part of max_new_tokens)."""
         total = len(req.prompt) + req.max_new_tokens - 1
         return -(-total // self.page_size)
 
@@ -527,9 +661,103 @@ class ServingEngine:
             self._tbl[slot, :] = self.num_pages
             self._slot_len[slot] = 0
 
+    # ----------------------------------------------------- preempt / resume
+    def preempt(self, slots: Optional[list] = None) -> list:
+        """Snapshot in-flight requests and free their slots (and pages).
+
+        ``slots=None`` preempts every live slot (a power drop). Each
+        snapshot carries the transcript and the seed that keys the
+        request's draws, so ``resume`` here or on any engine serving the
+        same model continues the same stream."""
+        if slots is None:
+            slots = [i for i, r in enumerate(self.active) if r is not None]
+        snaps = []
+        for slot in slots:
+            req = self.active[slot]
+            if req is None:
+                continue
+            snaps.append(TranscriptSnapshot.from_request(
+                req, seed=self._seed_of(req)))
+            self.metrics.preemptions += 1
+            self.metrics.evicted += 1
+            self.release_slot(slot)
+        return snaps
+
+    def drain(self) -> list:
+        """A site dying: preempt every live slot and hand out the waiting
+        queue too, all as snapshots for a failover layer to carry."""
+        snaps = self.preempt()
+        while self.waiting:
+            req = self.waiting.popleft()
+            snaps.append(TranscriptSnapshot.from_request(
+                req, seed=self._seed_of(req)))
+            self.metrics.evicted += 1
+        return snaps
+
+    def resume(self, snap: TranscriptSnapshot, *,
+               not_before_s: float = 0.0) -> Optional[Request]:
+        """Queue a preempted transcript again, with its seed and its first
+        ``prefill_done_s``. Returns the queued Request, or None when the
+        watermark rejected it (the caller keeps the snapshot)."""
+        req = Request(rid=snap.rid,
+                      prompt=np.asarray(snap.prompt, np.int32),
+                      max_new_tokens=snap.max_new_tokens,
+                      arrival_s=snap.arrival_s,
+                      temperature=snap.temperature,
+                      seed=snap.seed,
+                      deadline_s=snap.deadline_s,
+                      not_before_s=not_before_s,
+                      attempts=snap.attempts,
+                      resumed_from=len(snap.tokens),
+                      tokens=list(snap.tokens),
+                      prefill_done_s=snap.prefill_done_s)
+        if not self.submit(req):
+            return None
+        self.metrics.resumed += 1
+        self.metrics.recovered_tokens += len(snap.tokens)
+        return req
+
+    def set_brownout(self, frac: float) -> None:
+        """Enter (or leave, frac=1.0) brownout: fresh admissions shed
+        ``max_new_tokens`` to ``ceil(frac * requested)`` and the per-step
+        admission token budget scales by ``frac``."""
+        self.brownout = float(min(max(frac, 0.0), 1.0))
+
+    def reconcile(self) -> dict:
+        """The ledger: every submitted request is in exactly one of
+        completed / rejected / timed_out / waiting / active / evicted.
+        Returns the books and a ``balanced`` flag."""
+        m = self.metrics
+        books = {"submitted": m.submitted,
+                 "completed": len(m.completed),
+                 "rejected": len(m.rejected),
+                 "timed_out": len(m.timed_out),
+                 "waiting": len(self.waiting),
+                 "active": sum(r is not None for r in self.active),
+                 "evicted": m.evicted}
+        books["balanced"] = (
+            books["submitted"] == books["completed"] + books["rejected"]
+            + books["timed_out"] + books["waiting"] + books["active"]
+            + books["evicted"])
+        books["decode_utilization"] = {
+            "decode_steps": m.decode_steps,
+            "extend_chunks": m.extend_chunks,
+            "admit_stall_steps": m.admit_stall_steps,
+        }
+        return books
+
     # --------------------------------------------------------------- step
     def step(self) -> int:
         """Admit waiting requests, run one batched decode. Returns #active."""
+        if self._has_deadlines:
+            now = self._clock()
+            for i, r in enumerate(self.active):
+                if (r is not None and r.deadline_s is not None
+                        and now >= r.deadline_s):
+                    r.finish_s = now
+                    self.metrics.timed_out.append(r)
+                    self.metrics.lost_tokens += len(r.tokens)
+                    self.release_slot(i)
         pc_before = self.metrics.prefill_calls
         self._admit()
         live = [i for i, r in enumerate(self.active) if r is not None]
@@ -554,7 +782,7 @@ class ServingEngine:
         temps = [0.0] * self.max_batch
         for i in live:
             req = self.active[i]
-            keys[i] = draw_key(self.seed, req.rid, len(req.tokens))
+            keys[i] = draw_key(self._seed_of(req), req.rid, len(req.tokens))
             temps[i] = req.temperature
         toks = sample_batch(logits, keys, temps)
         toks_np = toks.cpu().numpy()

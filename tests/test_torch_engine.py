@@ -136,7 +136,7 @@ def test_admit_token_budget_bounds_per_step_work(setup):
 
 @pytest.mark.parametrize("kw", [dict(admit_mode="async"),
                                 dict(admit_mode="async", paged=True),
-                                dict(queue_watermark=4)])
+                                dict(admit_mode="async", queue_watermark=4)])
 def test_unported_modes_raise(setup, kw):
     cfg, model, params, _, _, _ = setup
     with pytest.raises(NotImplementedError):

@@ -6,12 +6,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import smoke_config
-from repro_torch.launch.serve import full_width_config, main, serve_demo
+from repro_torch.launch.serve import (FREQ_GRID, LOAD_GRID, full_width_config,
+                                      heron_site_weights, main, serve_demo)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -22,7 +24,47 @@ def test_serve_demo_completes_every_request():
     assert out["completed"] == out["submitted"] == 6
     assert sum(s["num_completed"] for s in out["per_site"]) == 6
     assert all(s["rejected"] == 0 for s in out["per_site"])
-    assert out["site_weights"] == [0.5, 0.5]
+    assert out["site_weights"] == heron_site_weights(
+        smoke_config("llama3.2-1b"), 2, seed=1).tolist()
+    uniform = serve_demo(device="cpu", num_requests=2, num_sites=2,
+                         max_batch=2, max_seq=64, site_weights=[3, 3],
+                         verbose=False)
+    assert uniform["site_weights"] == [0.5, 0.5]
+
+
+def test_heron_site_weights_match_the_reference_modules():
+    """The reference's ``serve_demo`` planning, on the reference's own
+    numpy modules with the H100 DGX profile and the port's grid: the same
+    site weights."""
+    from repro.configs import smoke_config as ref_smoke_config
+    from repro.core.lookup import build_table
+    from repro.core.planner_l import SiteSpec
+    from repro.core.router import HeronRouter
+    from repro.data.wind import make_default_fleet
+    from repro.data.workload import make_trace
+    from repro.power.model import H100_DGX
+
+    for num_sites, seed in ((2, 0), (3, 1)):
+        trace = make_trace("conversation", base_rps=1.0, seed=seed)
+        table = build_table(ref_smoke_config("llama3.2-1b"), trace,
+                            H100_DGX, load_grid=LOAD_GRID,
+                            freq_grid=FREQ_GRID)
+        fleet = make_default_fleet(seed=seed)
+        sites = [SiteSpec(s.name, num_gpus=64)
+                 for s in fleet.sites[:num_sites]]
+        power_w = np.array([s.series_mw[0]
+                            for s in fleet.sites[:num_sites]]) * 1e6
+        plan = HeronRouter(table=table, sites=sites).step_slot(
+            power_w, trace.class_arrivals()[:, 0] / (15 * 60))
+        want = np.zeros(num_sites)
+        for rows in plan.wrr_weights().values():
+            for s, _row, w in rows:
+                want[s] += w
+        want = want / want.sum()
+        got = heron_site_weights(smoke_config("llama3.2-1b"), num_sites,
+                                 seed)
+        np.testing.assert_array_equal(got, want)
+        assert got.max() < 1.0
 
 
 def test_serve_demo_paged_returns_every_page():
@@ -74,6 +116,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.models.moe, repro_torch.models.rwkv6\n"
         "import repro_torch.launch.profile, repro_torch.configs\n"
         "import repro_torch.models.transformer, repro_torch.serving.engine\n"
+        "import repro_torch.launch.cosim, repro_torch.sim.e2e\n"
+        "import repro_torch.core.router, repro_torch.checkpoint.store\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
