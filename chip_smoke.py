@@ -26,6 +26,12 @@ Phases (any failure exits non-zero before the result line):
   4c. int8: a prefilled batch quantized into a dense and a paged int8
      cache, one extend chunk and decode steps through kernels 3 and
      4-int8, logits against the plain path;
+  4d. async: the same 16 requests through async admission (prompt tails
+     interleaved with decode steps under the default token budget), dense
+     and paged; every request completes with the batched run's stream,
+     every page comes back, the kernels launch once per layer and model
+     call, and a 2-layer fp32 model at full width gives the batched
+     streams too;
   5. moe: phi3.5-moe at its published width, 8 of its 32 layers (the
      whole model does not fit one 80 GB card), the same 16 requests; the
      expert GEMM (kernel 6) launches three times per layer and model call,
@@ -44,7 +50,19 @@ Phases (any failure exits non-zero before the result line):
      and the kernels launch once per layer and model call; 7c a 2-layer
      fp32 model at full width, drained after 3 steps and resumed on an
      engine with another seed, gives the uninterrupted run's streams,
-     dense and paged.
+     dense and paged;
+  8. new families: qwen3-14b whole (qk-norm, 40 heads over 8 KV heads)
+     and seamless-m4t-medium whole (encoder-decoder: 12 + 12 layers, its
+     encoder over 160 zero frames, cross-attention in every decoder
+     layer), the same 16 requests, dense and paged; every request
+     completes, the kernels launch as the model calls count them (the
+     encoder's and the cross-attention's kernel 1 launches and the
+     cross-attention decode's kernel 2 launches included), and one
+     prompt's logits (with random frames for seamless) through prefill
+     and two decode steps match the plain path's.
+Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
+(G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
+mask) against their plain versions, with times and bounds.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -163,7 +181,8 @@ def main() -> int:
     from repro_torch.models import transformer as T
     from repro_torch.models.api import build as build_model
     from repro_torch.serving.engine import (ServingEngine,
-                                            insert_cache_pages)
+                                            insert_cache_pages,
+                                            insert_cache_rows)
     kernel_fns = {k.__name__: k for k in (
         flash_attention, decode_attention, decode_attention_int8,
         paged_decode_attention, paged_decode_attention_int8,
@@ -624,6 +643,150 @@ def main() -> int:
                                     []).append(entry)
     del q, kc, vc, kr, vr, mask, kp, vp, kp8, vp8, kc8, vc8
 
+    # kernels 1, 2, 4 and 5 at the shapes of the families phase 8 serves,
+    # each against its plain version at bf16 and fp32 and timed at bf16
+    # beside its bound: qwen3-14b's G = 5 (40 heads over 8 KV heads, hd
+    # 128); seamless-m4t-medium's G = 1 at hd 64 (16 heads): its encoder
+    # without the causal mask over Se = 160 frames, cross-attention of a
+    # 64-token chunk over the 160 encoder keys, and the cross-attention
+    # decode with every row at 160 keys; deepseek-7b's G = 1 at hd 128 (32
+    # heads). Their own generator, so every other input stays as it was
+    g_fam = torch.Generator(device=dev).manual_seed(SEED + 4)
+    print("[kernels] the new families' shapes (kernels 1, 2, 4, 5) vs their "
+          "plain versions; times at bf16")
+
+    def timed(name, case, fn, plain_fn, lib_fn, nbytes, flops):
+        ms = time_ms(fn, flush)
+        plain = time_ms(plain_fn, flush)
+        lib = time_ms(lib_fn, flush) if lib_fn else None
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        lib_txt = f", library {lib:.4f}" if lib else ""
+        print(f"  {name} {case}: kernel {ms:.4f} ms, plain {plain:.4f}"
+              f"{lib_txt}, bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of "
+              f"bound")
+        extra_shapes.setdefault(name, []).append(dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, shape=case))
+
+    def sdpa_kv(t, group):      # [B,S,KVH,hd] -> SDPA's [B,H,S,hd]
+        return t.repeat_interleave(group, dim=2).transpose(1, 2)
+
+    for label, B, Sq, Sk, Hx, KVHx, hdx, causal in (
+            ("qwen3-14b prefill", 4, 512, 512, 40, 8, 128, True),
+            ("seamless encoder", 8, 160, 160, 16, 16, 64, False),
+            ("seamless cross-attention chunk", 8, 64, 160, 16, 16, 64,
+             False)):
+        Gx = Hx // KVHx
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            qx = rnd(B, Sq, Hx, hdx, dtype=dt, g=g_fam)
+            kx, vx = (rnd(B, Sk, KVHx, hdx, dtype=dt, g=g_fam)
+                      for _ in range(2))
+            case = (f"{dtype} B={B} Sq={Sq} Sk={Sk} H={Hx} KVH={KVHx} "
+                    f"(G={Gx}) hd={hdx} "
+                    f"{'causal' if causal else 'non-causal'} ({label})")
+            compare("flash_attention",
+                    flash_attention(qx, kx, vx, causal=causal),
+                    ref.attention_ref(qx, kx, vx, causal=causal), dtype,
+                    case)
+            if dt is not bf:
+                continue
+            pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
+            krx, vrx = sdpa_kv(kx, Gx), sdpa_kv(vx, Gx)
+            qtx = qx.transpose(1, 2)
+            timed("flash_attention", case,
+                  lambda: flash_attention(qx, kx, vx, causal=causal),
+                  lambda: ref.attention_ref(qx, kx, vx, causal=causal),
+                  lambda: F.scaled_dot_product_attention(
+                      qtx, krx, vrx, is_causal=causal),
+                  2 * (2 * qx.numel() + kx.numel() + vx.numel()),
+                  4.0 * B * Hx * hdx * pairs)
+            del krx, vrx, qtx
+        del qx, kx, vx
+
+    lens_cross = torch.full((8,), 160, dtype=torch.int32, device=dev)
+    for label, S, Hx, KVHx, hdx, lx in (
+            ("seamless cross-attention decode", 160, 16, 16, 64, lens_cross),
+            ("qwen3-14b decode", S_dec, 40, 8, 128, lens_main),
+            ("deepseek-7b decode", S_dec, 32, 32, 128, lens_main)):
+        Gx = Hx // KVHx
+        keys_x = int(lx.clamp(max=S).sum())
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            qx = rnd(8, Hx, hdx, dtype=dt, g=g_fam)
+            kx, vx = (rnd(8, S, KVHx, hdx, dtype=dt, g=g_fam)
+                      for _ in range(2))
+            case = (f"{dtype} B=8 S={S} H={Hx} KVH={KVHx} (G={Gx}) hd={hdx} "
+                    f"lengths={lx.tolist()} ({label})")
+            compare("decode_attention", decode_attention(qx, kx, vx, lx),
+                    ref.decode_attention_ref(qx, kx, vx, lx), dtype, case)
+            if dt is not bf:
+                continue
+            mask_x = (torch.arange(S, device=dev)[None, :]
+                      < lx[:, None])[:, None, None, :]
+            krx, vrx = sdpa_kv(kx, Gx), sdpa_kv(vx, Gx)
+            timed("decode_attention", case,
+                  lambda: decode_attention(qx, kx, vx, lx),
+                  lambda: ref.decode_attention_ref(qx, kx, vx, lx),
+                  lambda: F.scaled_dot_product_attention(
+                      qx[:, :, None, :], krx, vrx, attn_mask=mask_x),
+                  2 * (2 * qx.numel() + 2 * keys_x * KVHx * hdx) + 4 * 8,
+                  4.0 * Hx * hdx * keys_x)
+            del krx, vrx
+        del qx, kx, vx
+
+    # kernels 4 and 5 at the serving table (64 pages of 16 over a pool of
+    # 512 + the trash page): decode at the ragged lengths, a 64-token
+    # extend chunk at the tails' offsets
+    for label, Hx, KVHx, hdx in (("qwen3-14b", 40, 8, 128),
+                                 ("deepseek-7b", 32, 32, 128),
+                                 ("seamless-m4t-medium", 16, 16, 64)):
+        Gx = Hx // KVHx
+        keys_pg = int(lens_main.clamp(max=W * page).sum())
+        cached = int(pos_tail.clamp(max=W * page).sum())
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            kpx, vpx = (rnd(P_pool + 1, page, KVHx, hdx, dtype=dt, g=g_fam)
+                        for _ in range(2))
+            tx = torch.randperm(P_pool, generator=g_fam, device=dev)[
+                :8 * W].reshape(8, W).to(torch.int32)
+            qx = rnd(8, Hx, hdx, dtype=dt, g=g_fam)
+            case = (f"{dtype} B=8 W={W} page={page} pool={P_pool}+1 H={Hx} "
+                    f"KVH={KVHx} (G={Gx}) hd={hdx}")
+            dcase = f"{case} lengths={lens_main.tolist()} ({label} decode)"
+            compare("paged_decode_attention",
+                    paged_decode_attention(qx, kpx, vpx, tx, lens_main),
+                    ref.paged_decode_attention_ref(qx, kpx, vpx, tx,
+                                                   lens_main), dtype, dcase)
+            qe = rnd(8, 64, Hx, hdx, dtype=dt, g=g_fam)
+            kn, vn = (rnd(8, 64, KVHx, hdx, dtype=dt, g=g_fam)
+                      for _ in range(2))
+            ecase = f"{case} C=64 pos={pos_tail.tolist()} ({label} extend)"
+            compare("paged_extend_attention",
+                    paged_extend_attention(qe, kpx, vpx, kn, vn, tx,
+                                           pos_tail),
+                    ref.paged_extend_attention_ref(qe, kpx, vpx, kn, vn, tx,
+                                                   pos_tail), dtype, ecase)
+            if dt is bf:
+                timed("paged_decode_attention", dcase,
+                      lambda: paged_decode_attention(qx, kpx, vpx, tx,
+                                                     lens_main),
+                      lambda: ref.paged_decode_attention_ref(
+                          qx, kpx, vpx, tx, lens_main), None,
+                      2 * 2 * qx.numel() + 2 * 2 * keys_pg * KVHx * hdx
+                      + 4 * 8 + 4 * tx.numel(), 4.0 * Hx * hdx * keys_pg)
+                timed("paged_extend_attention", ecase,
+                      lambda: paged_extend_attention(qe, kpx, vpx, kn, vn,
+                                                     tx, pos_tail),
+                      lambda: ref.paged_extend_attention_ref(
+                          qe, kpx, vpx, kn, vn, tx, pos_tail), None,
+                      2 * 2 * qe.numel() + 2 * 2 * kn.numel()
+                      + 2 * 2 * cached * KVHx * hdx + 4 * 8
+                      + 4 * tx.numel(),
+                      4.0 * Hx * hdx * (64 * cached + 8 * 64 * 65 / 2))
+            del kpx, vpx, qx, qe, kn, vn
+    torch.cuda.empty_cache()
+
     # kernel 6 at phi3.5-moe's shapes: 16 experts, D 4096, F 6400 (gate/up;
     # down swaps them), C = T tokens with fill from a seeded top-2 routing
     E6, D6, F6 = 16, 4096, 6400
@@ -850,6 +1013,8 @@ def main() -> int:
         served_p = sum(s["served_tokens"] for s in psites)
         check(served_p == served, f"paged {tag}: served {served_p} tokens")
         paged_runs[tag] = plaunch
+        if num_pages is None:
+            paged_tokens = pout["tokens"]
         print(f"[paged] {tag}: 16/16 requests, {served_p} tokens in "
               f"{pout['wall_seconds']:.3f} s "
               f"({served_p / pout['wall_seconds']:.1f} tok/s), pages free "
@@ -982,6 +1147,72 @@ def main() -> int:
             "paged_extend_attention"])
     del params, model, int8_caches, got, want
     torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 4d. async
+    # the same 16 requests through async admission at the default budget
+    # (max_seq = 1024 prompt tokens a step): prompt tails become extend
+    # chunks interleaved with decode steps, the pending rows masked out of
+    # the decode. Its streams equal the batched run's (phase 4 dense, 4b
+    # paged at the default pool) at bf16; the cut of the prompts into
+    # prefill batches and chunks differs, so at bf16 that holds only as
+    # far as the roundings agree: the 2-layer fp32 model at full width (as
+    # in 4b) holds async to batched where rounding cannot decide
+    for paged in (False, True):
+        kind = "paged" if paged else "dense"
+        reset(*kernel_fns.values())
+        aout = serve_demo(cfg, max_batch=8, max_seq=1024, device="cuda",
+                          paged=paged, admit_mode="async", **serve_kw)
+        al = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+        asites = aout["per_site"]
+        check(aout["completed"] == aout["submitted"] == 16,
+              f"async {kind}: served {aout['completed']}/{aout['submitted']}")
+        a_chunks = sum(s["extend_chunks"] for s in asites)
+        a_steps = sum(s["decode_steps"] for s in asites)
+        a_prefills = sum(s["prefill_calls"] for s in asites) - a_chunks
+        if paged:
+            want_l = {"flash_attention": L * a_prefills,
+                      "paged_extend_attention": L * a_chunks,
+                      "paged_decode_attention": L * a_steps}
+            check(aout["free_pages"] == aout["num_pages"],
+                  f"async paged: pages not returned: free "
+                  f"{aout['free_pages']} of {aout['num_pages']}")
+        else:
+            want_l = {"flash_attention": L * a_prefills,
+                      "decode_attention": L * a_steps}
+        check(al == want_l and all(want_l.values()),
+              f"async {kind}: launches {al} != {want_l}")
+        served_a = sum(s["served_tokens"] for s in asites)
+        check(served_a == served, f"async {kind}: served {served_a} tokens")
+        base = paged_tokens if paged else out["tokens"]
+        check(aout["tokens"] == base,
+              f"async {kind}: bf16 streams differ from the batched run's: "
+              f"rids {[k for k in base if aout['tokens'][k] != base[k]]}")
+        print(f"[async] {kind}: 16/16 requests, {served_a} tokens in "
+              f"{aout['wall_seconds']:.3f} s "
+              f"({served_a / aout['wall_seconds']:.1f} tok/s), streams equal "
+              f"to the batched run's; launches {al}")
+        for i, s in enumerate(asites):
+            print(f"  site {i}: prefill calls "
+                  f"{s['prefill_calls'] - s['extend_chunks']}, extend chunks "
+                  f"{s['extend_chunks']}, decode steps {s['decode_steps']}, "
+                  f"admission steps with no live row "
+                  f"{s['admit_stall_steps']}, TTFT mean "
+                  f"{s['mean_ttft'] * 1e3:.1f} / p99 "
+                  f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+                  f"{s['mean_tbt'] * 1e3:.2f} / p99 "
+                  f"{s['p99_tbt'] * 1e3:.2f} ms")
+    for paged in (False, True):
+        o = serve_demo(cfg32, max_batch=8, max_seq=1024, device="cuda",
+                       paged=paged, admit_mode="async", verbose=False,
+                       **serve_kw)
+        check(o["completed"] == 16, f"fp32 async paged={paged}: "
+              f"{o['completed']}")
+        check(o["tokens"] == streams[False],
+              f"fp32 2-layer async paged={paged}: streams differ from the "
+              f"batched dense run's")
+    print(f"[async] {cfg32.num_layers}-layer fp32 at full width: async "
+          f"streams, dense and paged, equal the batched run's over 16 "
+          f"requests ({sum(len(t) for t in streams[False].values())} tokens)")
 
     # ------------------------------------------------- 5-6. moe and ssm
     # the same traffic at each arch's full width: phi3.5-moe at 8 of its 32
@@ -1200,7 +1431,157 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[cosim] card: {smi}")
 
-    # ---------------------------------------------------------- 8. report
+    # --------------------------------------------------- 8. new families
+    # qwen3-14b whole (40 layers, d 5120, 40 heads over 8 KV heads, hd 128,
+    # qk-norm: 14.8 B parameters, 29.5 GB in bf16) and seamless-m4t-medium
+    # whole (12 encoder + 12 decoder layers, d 1024, 16 heads, hd 64), the
+    # same 16 requests over dense and paged caches. Launches: a prefill
+    # call runs kernel 1 in every self-attention layer, and for seamless in
+    # every encoder layer and every cross-attention layer too; an extend
+    # chunk runs kernel 5 when paged (a dense extend is plain PyTorch) and,
+    # for seamless, kernel 1 in every cross-attention layer; a decode step
+    # runs kernel 2 (dense) or 4 (paged) per layer, and for seamless
+    # kernel 2 again per cross-attention layer, every row at 160 keys
+    for arch in ("qwen3-14b", "seamless-m4t-medium"):
+        fcfg = full_width_config(arch)
+        Lf, encdec = fcfg.num_layers, fcfg.family == "encdec"
+        freqs = demo_requests(fcfg, **serve_kw)
+        for paged in (False, True):
+            kind = "paged" if paged else "dense"
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset(*kernel_fns.values())
+            fout = serve_demo(fcfg, max_batch=8, max_seq=1024, device="cuda",
+                              paged=paged, **serve_kw)
+            fl = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            fsites = fout["per_site"]
+            check(fout["completed"] == fout["submitted"] == 16,
+                  f"{arch} {kind}: served {fout['completed']}/"
+                  f"{fout['submitted']}")
+            chunks = sum(s["extend_chunks"] for s in fsites)
+            steps = sum(s["decode_steps"] for s in fsites)
+            prefills = sum(s["prefill_calls"] for s in fsites) - chunks
+            want_l = {"flash_attention": Lf * prefills}
+            if paged:
+                want_l["paged_extend_attention"] = Lf * chunks
+                want_l["paged_decode_attention"] = Lf * steps
+            else:
+                want_l["decode_attention"] = Lf * steps
+            if encdec:
+                want_l["flash_attention"] += ((fcfg.encoder_layers + Lf)
+                                              * prefills + Lf * chunks)
+                want_l["decode_attention"] = (want_l.get("decode_attention", 0)
+                                              + Lf * steps)
+            check(fl == want_l and all(want_l.values()),
+                  f"{arch} {kind}: launches {fl} != {want_l} ({prefills} "
+                  f"prefill calls, {chunks} extend chunks, {steps} decode "
+                  f"steps)")
+            if paged:
+                check(fout["free_pages"] == fout["num_pages"],
+                      f"{arch} paged: pages not returned: free "
+                      f"{fout['free_pages']} of {fout['num_pages']}")
+            served_f = sum(s["served_tokens"] for s in fsites)
+            check(served_f == sum(r.max_new_tokens for _, r in freqs),
+                  f"{arch} {kind}: served {served_f} tokens")
+            print(f"[{fcfg.family}] {arch} {kind} L={Lf}"
+                  f"{f'+{fcfg.encoder_layers}' if encdec else ''} "
+                  f"d={fcfg.d_model} H={fcfg.num_heads} "
+                  f"KVH={fcfg.num_kv_heads} V={fcfg.vocab_size} bf16: 16/16 "
+                  f"requests, {served_f} tokens in "
+                  f"{fout['wall_seconds']:.3f} s "
+                  f"({served_f / fout['wall_seconds']:.1f} tok/s), peak "
+                  f"memory {peak_gb:.2f} GB; launches {fl}")
+            for i, s in enumerate(fsites):
+                print(f"  site {i}: prefill calls "
+                      f"{s['prefill_calls'] - s['extend_chunks']}, extend "
+                      f"chunks {s['extend_chunks']}, decode steps "
+                      f"{s['decode_steps']}, TTFT mean "
+                      f"{s['mean_ttft'] * 1e3:.1f} / p99 "
+                      f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+                      f"{s['mean_tbt'] * 1e3:.2f} / p99 "
+                      f"{s['p99_tbt'] * 1e3:.2f} ms")
+
+        # request 0 through its admission and two greedy decode steps (the
+        # kernel path's tokens fed to both paths), kernel path vs plain
+        # path, over a dense cache (one prefill) and a paged one (a prefill
+        # of the prompt's largest power of 2 below its length, the rest as
+        # descending power-of-2 extend chunks, as the engine admits it, on
+        # a shuffled table); seamless with random frames, so that its
+        # encoder and cross-attention carry values
+        fparams = build_model(fcfg).init_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        prompt = torch.as_tensor(freqs[0][1].prompt[None, :], device=dev)
+        inputs = {"tokens": prompt}
+        if encdec:
+            inputs["frames"] = rnd(1, fcfg.num_prefix_embeddings,
+                                   fcfg.d_model, dtype=bf)
+        S0 = prompt.shape[1]
+        bucket = 1 << ((S0 - 1).bit_length() - 1)
+        ftable = torch.randperm(64, generator=gen, device=dev)[None].to(
+            torch.int32)
+
+        def admit(m, kind):
+            if kind == "dense":
+                logits, pre = m.prefill_fn(fparams, inputs)
+                cache = T.make_decode_cache(fcfg, 1, 1024, dev)
+                insert_cache_rows(cache, pre, numpy.zeros(1, numpy.int32))
+                return logits, cache, 0
+            logits, pre = m.prefill_fn(
+                fparams, {**inputs, "tokens": prompt[:, :bucket]})
+            cache = T.make_paged_decode_cache(fcfg, 1, 1024, dev,
+                                              num_pages=64)
+            cache["table"] = ftable.clone()
+            insert_cache_pages(cache["kv"], pre["kv"],
+                               ftable[:, :-(-bucket // 16)].long())
+            for n, t in cache.get("enc_kv", {}).items():
+                t.copy_(pre["enc_kv"][n])
+            cache["pos"] = pre["pos"].clone()
+            done, chunks = bucket, 0
+            while done < S0:
+                C = 1 << ((S0 - done).bit_length() - 1)
+                logits, cache = m.extend_fn(
+                    fparams, {"tokens": prompt[:, done:done + C]}, cache)
+                done, chunks = done + C, chunks + 1
+            return logits, cache, chunks
+
+        runs = {}
+        with torch.no_grad():
+            for kind in ("dense", "paged"):
+                for plain in (False, True):
+                    m = build_model(fcfg, reference=plain)
+                    logits, cache, fchunks = admit(m, kind)
+                    seq = [logits]
+                    for i in range(2):
+                        tok = (runs[kind, False][i].argmax(-1) if plain
+                               else logits.argmax(-1)).to(torch.int32)
+                        logits, cache = m.decode_fn(fparams, {"token": tok},
+                                                    cache)
+                        seq.append(logits)
+                    runs[kind, plain] = seq
+                    del cache
+        torch.cuda.synchronize()
+        for kind in ("dense", "paged"):
+            got, want = runs[kind, False], runs[kind, True]
+            check(all(a.shape == (1, fcfg.vocab_size)
+                      and bool(torch.isfinite(a).all()) for a in got),
+                  f"{arch} {kind}: logits shape or non-finite")
+            errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, want)]
+            check(max(errs) <= LOGIT_BOUND, f"{arch} {kind}: logits differ "
+                  f"by {max(errs):.3g} > {LOGIT_BOUND}")
+            admitted = ("prefill" if kind == "dense" else
+                        f"prefill of {bucket} + {fchunks} extend chunks")
+            print(f"[{fcfg.family}] {arch} {kind} request 0 (prompt {S0} "
+                  f"tokens{', random frames' if encdec else ''}): "
+                  f"{admitted} and 2 decode steps, kernel path vs plain path "
+                  f"max |logit diff| per call "
+                  f"{[round(e, 4) for e in errs]} (bound {LOGIT_BOUND}), "
+                  f"argmax {[int(a.argmax()) for a in got]} vs "
+                  f"{[int(b.argmax()) for b in want]}")
+        del fparams, runs, got, want, logits
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- report
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),
            "decode_attention": ("decode_attention.py:92", "decode_attention"),
            "decode_attention_int8": ("decode_attention.py:139",

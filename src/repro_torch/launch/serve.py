@@ -10,6 +10,8 @@ model on H100 DGX hardware and the wind fleet's first slot of power
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch seamless-m4t-medium --admit-mode async --admit-budget 16
 
 The command line serves an arch's reduced smoke config (``--layers``
 overrides its depth); ``full_width_config`` gives the published width
@@ -105,6 +107,8 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
                prompt_len: tuple = (4, 24), new_tokens: tuple = (2, 10),
                paged: bool = False, page_size: int = 16,
                num_pages: Optional[int] = None,
+               admit_mode: str = "batched",
+               admit_token_budget: Optional[int] = None,
                verbose: bool = True) -> dict:
     """Serve ``num_requests`` over ``num_sites`` engines and return the
     summary: completed/submitted counts, wall time, each site's
@@ -114,7 +118,8 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
     ``site_weights=None`` takes Heron's (``heron_site_weights``).
     ``paged``: every site serves from a paged KV cache of ``num_pages``
     pages (default the dense capacity) of ``page_size`` tokens (families
-    without a paged layout, such as ssm, stay dense).
+    without a paged layout, such as ssm, stay dense). ``admit_mode`` and
+    ``admit_token_budget`` go to every engine (``ServingEngine``).
     """
     cfg = cfg or smoke_config("llama3.2-1b")
     dev = resolve_device(device)
@@ -122,7 +127,9 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
     engines = [ServingEngine(model, params, max_batch=max_batch,
                              max_seq=max_seq, seed=seed + i, paged=paged,
-                             page_size=page_size, num_pages=num_pages)
+                             page_size=page_size, num_pages=num_pages,
+                             admit_mode=admit_mode,
+                             admit_token_budget=admit_token_budget)
                for i in range(num_sites)]
     w = (heron_site_weights(cfg, num_sites, seed) if site_weights is None
          else np.asarray(site_weights, float) / np.sum(site_weights))
@@ -161,8 +168,9 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
+def build_parser(description: str = __doc__) -> argparse.ArgumentParser:
+    """The serving command line, shared by ``launch.serve_multisite``."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS),
                     help="architecture whose smoke config is served")
     ap.add_argument("--layers", type=int, default=None,
@@ -177,16 +185,28 @@ def main(argv=None) -> int:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pages per site (default: the dense capacity)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--admit-mode", choices=("batched", "serial", "async"),
+                    default="batched", help="the engines' admission path")
+    ap.add_argument("--admit-budget", type=int, default=None,
+                    help="max prompt tokens admitted per engine step")
+    return ap
+
+
+def serve_from_args(args: argparse.Namespace) -> dict:
+    """``serve_demo`` on the smoke config the parsed flags name."""
     cfg = smoke_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    out = serve_demo(cfg, num_requests=args.requests, num_sites=args.sites,
-                     max_batch=args.max_batch, device=args.device,
-                     paged=args.paged, page_size=args.page_size,
-                     num_pages=args.num_pages)
-    return 0 if out["completed"] == out["submitted"] else 1
+    return serve_demo(cfg, num_requests=args.requests, num_sites=args.sites,
+                      max_batch=args.max_batch, device=args.device,
+                      paged=args.paged, page_size=args.page_size,
+                      num_pages=args.num_pages, admit_mode=args.admit_mode,
+                      admit_token_budget=args.admit_budget)
 
+
+def main(argv=None) -> int:
+    out = serve_from_args(build_parser().parse_args(argv))
+    return 0 if out["completed"] == out["submitted"] else 1
 
 if __name__ == "__main__":
     raise SystemExit(main())

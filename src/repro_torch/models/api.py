@@ -3,7 +3,8 @@
 ``build(cfg)`` returns a bundle exposing::
 
     init_params(generator)            -> params (on generator.device)
-    prefill_fn(params, inputs)        -> (logits, cache)
+    prefill_fn(params, inputs)        -> (logits, cache)   (+ "frames"
+                                                            for encdec)
     extend_fn(params, inputs, cache)  -> (logits, cache)   cache in place
     decode_fn(params, inputs, cache)  -> (logits, cache)   cache in place
 
@@ -23,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import WKV6_CHUNK
 from repro_torch.models import transformer as T
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "encdec")
 
 
 @dataclass(frozen=True)
@@ -37,10 +38,10 @@ class Model:
 
 def build(cfg: ModelConfig, *, reference: bool = False,
           wkv_chunk: int = WKV6_CHUNK) -> Model:
-    if cfg.family not in FAMILIES or cfg.qk_norm or cfg.use_mla:
+    if cfg.family not in FAMILIES or cfg.use_mla:
         raise NotImplementedError(
             f"{cfg.name}: only the {', '.join(FAMILIES)} families (GQA "
-            "attention, no MLA or qk-norm) are ported so far")
+            "attention, no MLA) are ported so far")
     return Model(
         cfg=cfg,
         init_params=functools.partial(T.init_params, cfg),

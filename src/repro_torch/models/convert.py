@@ -4,10 +4,13 @@ The one place that knows both layouts: the reference keeps ``x @ W`` with
 ``W`` shaped ``[in, out]`` and stacks the layers' weights as ``[L, ...]``;
 the port keeps PyTorch's ``[out, in]`` and one dict per layer, except in
 the MoE block, whose leaves keep the reference's layout (``models.moe``).
-RWKV6 vectors (``mu_*``, ``decay_base``, ``bonus_u``, norm scales) keep
-their shapes. Leaves the reference keeps in fp32 (the MoE router,
-``decay_base``, ``bonus_u``) stay fp32. Caches keep the reference's
-layout, but for the paged pools' trash page.
+RWKV6 vectors (``mu_*``, ``decay_base``, ``bonus_u``, norm scales) and
+the qk-norm scales ``q_norm``/``k_norm`` keep their shapes. Leaves the
+reference keeps in fp32 (the MoE router, ``decay_base``, ``bonus_u``) stay
+fp32. An encdec tree's ``encoder`` and ``cross`` stacks become per-layer
+dicts (the cross-attention one inside each decoder layer). Caches keep the
+reference's layout, but for the paged pools' trash page and ``enc_kv``,
+a (k, v) pair there and a ``{"k", "v"}`` dict here.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.models.rwkv6 import FP32_LEAVES, MATRICES
 from repro_torch.models.transformer import torch_dtype
 
 _ATTN = ("wq", "wk", "wv", "wo")
+_QK_NORM = ("q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
 
 
@@ -54,30 +58,46 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
             out["shared"] = {k: t(m["shared"][k][i]) for k in _MLP}
         return out
 
-    p["layers"] = []
-    for i in range(cfg.num_layers):
-        layer = {"ln1": t(lay["ln1"][i]), "ln2": t(lay["ln2"][i]),
-                 "attn": {k: linear(lay["attn"][k][i]) for k in _ATTN}}
-        if "moe" in lay:
-            layer["moe"] = moe(lay["moe"], i)
+    def attn(a, i):
+        out = {k: linear(a[k][i]) for k in _ATTN}
+        out.update({k: t(a[k][i]) for k in _QK_NORM if k in a})
+        return out
+
+    def layer(stack, i):
+        out = {"ln1": t(stack["ln1"][i]), "ln2": t(stack["ln2"][i]),
+               "attn": attn(stack["attn"], i)}
+        if "moe" in stack:
+            out["moe"] = moe(stack["moe"], i)
         else:
-            layer["mlp"] = {k: linear(lay["mlp"][k][i]) for k in _MLP}
-        p["layers"].append(layer)
+            out["mlp"] = {k: linear(stack["mlp"][k][i]) for k in _MLP}
+        return out
+
+    p["layers"] = [layer(lay, i) for i in range(cfg.num_layers)]
+    if cfg.family == "encdec":
+        enc, cross = tree["encoder"], tree["cross"]
+        for i, lp in enumerate(p["layers"]):
+            lp["cross"] = {"ln": t(cross["ln"][i]),
+                           "attn": attn(cross["attn"], i)}
+        p["encoder"] = {"layers": [layer(enc, i)
+                                   for i in range(cfg.encoder_layers)],
+                        "final_norm": t(enc["final_norm"])}
+        p["frontend_proj"] = linear(tree["frontend_proj"])
     return p
 
 
 def cache_from_numpy(tree: dict, device) -> dict:
     """The reference's decode cache, already converted to numpy arrays, in
     the port's layout on ``device``: dense, int8 (``k_scale``/``v_scale``),
-    paged (``table``) or an ssm family's recurrent ``state``. The leaves
-    keep their shapes and dtypes, except that each paged pool gains the
-    trash page (zeros) after its P pages, whose id P is the reference's
-    sentinel; the ``span`` marker is dropped."""
+    paged (``table``) or an ssm family's recurrent ``state``, and an
+    encdec cache's ``enc_kv``. The leaves keep their shapes and dtypes,
+    except that each paged pool gains the trash page (zeros) after its P
+    pages, whose id P is the reference's sentinel; the ``span`` marker is
+    dropped."""
     paged = "table" in tree
 
-    def t(a):
+    def t(a, pool=paged):
         a = np.asarray(a)
-        if paged:                      # [L, P, page, ...] -> [L, P+1, ...]
+        if pool:                       # [L, P, page, ...] -> [L, P+1, ...]
             a = np.concatenate([a, np.zeros_like(a[:, :1])], axis=1)
         if a.dtype.name == "bfloat16":      # numpy has no bf16 of its own
             return torch.from_numpy(a.astype(np.float32)).to(
@@ -91,4 +111,7 @@ def cache_from_numpy(tree: dict, device) -> dict:
     if paged:
         out["table"] = torch.tensor(np.asarray(tree["table"], np.int32),
                                     device=device)
+    if "enc_kv" in tree:
+        out["enc_kv"] = {n: t(a, pool=False)
+                         for n, a in zip(("k", "v"), tree["enc_kv"])}
     return out

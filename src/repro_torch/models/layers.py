@@ -1,18 +1,22 @@
 """Dense transformer building blocks (plain PyTorch tensor functions).
 
 Port of the dense parts of ``repro/models/layers.py``, with its paged
-(block-table) and int8 KV caches. Weights follow PyTorch's ``nn.Linear``
-layout, ``[out, in]`` applied with ``F.linear``; ``models.convert`` maps
-the reference's ``[in, out]`` layout onto it. Norms and RoPE compute in
+(block-table) and int8 KV caches, qk-norm and the encoder-decoder's
+cross-attention. Weights follow PyTorch's ``nn.Linear`` layout, ``[out,
+in]`` applied with ``F.linear``; ``models.convert`` maps the reference's
+``[in, out]`` layout onto it. Norms (qk-norm included) and RoPE compute in
 fp32 and cast back.
 
 Attention goes through ``kernels.ops``: on the card prefill runs the flash
-kernel, decode the decode kernels (dense, int8, paged fp or paged int8)
-and a paged extend the paged extend kernel; on the CPU their plain
-versions. ``reference=True`` sends every call to the plain versions on any
-device, which is the oracle path ``chip_smoke.py`` compares the card's
-logits with. Dense and int8 extends are plain PyTorch everywhere, as the
-reference leaves them to XLA. Caches are updated in place.
+kernel (causal, or bidirectional for an encoder), decode the decode
+kernels (dense, int8, paged fp or paged int8) and a paged extend the paged
+extend kernel; cross-attention runs the flash kernel without the mask in
+prefill and extend, and the dense decode kernel over every encoder key in
+decode. On the CPU they run their plain versions. ``reference=True``
+sends every call to the plain versions on any device, which is the oracle
+path ``chip_smoke.py`` compares the card's logits with. Dense and int8
+extends are plain PyTorch everywhere, as the reference leaves them to XLA.
+Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -126,9 +130,10 @@ def _cache_insert_chunk(cache, new, pos, rows=None):
     cache[bidx, tgt] = torch.where(keep, new.to(cache.dtype), cache[bidx, tgt])
 
 
-def _cache_insert(cache, new, pos):
-    """cache: [B,S,...]; new: [B,...]; pos: [B] — one token per row."""
-    _cache_insert_chunk(cache, new[:, None], pos)
+def _cache_insert(cache, new, pos, rows=None):
+    """cache: [B,S,...]; new: [B,...]; pos: [B] — one token per row (rows
+    with ``rows[b]`` False write nothing)."""
+    _cache_insert_chunk(cache, new[:, None], pos, rows)
 
 
 # --------------------------------------------------- paged (block-table) KV
@@ -164,9 +169,9 @@ def _paged_cache_insert_chunk(pool, new, table, pos, rows=None):
     pool[phys, cols % page] = new.to(pool.dtype)
 
 
-def _paged_cache_insert(pool, new, table, pos):
+def _paged_cache_insert(pool, new, table, pos, rows=None):
     """One token [B,...] per row: ``_paged_cache_insert_chunk`` with C=1."""
-    _paged_cache_insert_chunk(pool, new[:, None], table, pos)
+    _paged_cache_insert_chunk(pool, new[:, None], table, pos, rows)
 
 
 def quantize_kv(x):
@@ -194,13 +199,16 @@ def _insert_int8(cache, k, v, insert):
 
 
 def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
-                    cache=None, pos=None, rows=None, table=None,
-                    reference: bool = False):
-    """Projections + RoPE + attention (+ cache update), dense GQA.
+                    causal: bool = True, cache=None, pos=None, rows=None,
+                    table=None, reference: bool = False):
+    """Projections (+ qk-norm) + RoPE + attention (+ cache update), GQA.
 
-    Returns (out, kv). ``mode="prefill"``: causal attention over ``x``
-    itself through the flash kernel; ``kv`` is the layer's (k, v)
-    [B,S,KVH,hd] for the caller's cache. The other modes continue from
+    Returns (out, kv). ``mode="prefill"``: attention over ``x`` itself
+    through the flash kernel, causal unless ``causal`` is False (an
+    encoder's, which as in the reference takes no RoPE); ``kv`` is the
+    layer's (k, v) [B,S,KVH,hd] for the caller's cache. With
+    ``cfg.qk_norm`` q and k are RMS-normalised per head (``q_norm``,
+    ``k_norm`` [hd]) before RoPE. The other modes continue from
     ``cache``, this layer's leaves: {"k", "v"} [B,S,KVH,hd], plus
     {"k_scale", "v_scale"} [B,S,KVH] when int8; with a block ``table``
     [B,W] they are page pools [P+1,page,KVH,...] instead. They continue at
@@ -210,7 +218,8 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
     ``"decode"`` (one token): fp caches insert it, then attend over
     ``pos + 1`` tokens; int8 caches attend over the ``pos`` cached tokens
     dequantized plus the new token at full precision, then insert it
-    quantized (as the reference does).
+    quantized (as the reference does). Rows with ``rows[b]`` False, if
+    given, write nothing; their output is the caller's to drop.
     ``"extend"`` (a chunk of any length): attention over the cached prefix
     and the chunk, then insert, only into the rows that ``rows`` [B] bool
     selects, if given. Rows left out of a paged extend attend to no cached
@@ -222,17 +231,19 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
     q = F.linear(x, p["wq"]).view(B, Sq, H, hd)
     k = F.linear(x, p["wk"]).view(B, Sq, KVH, hd)
     v = F.linear(x, p["wv"]).view(B, Sq, KVH, hd)
-    cos, sin = rope_table(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if causal or cfg.family != "encdec":
+        cos, sin = rope_table(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     int8 = cache is not None and "k_scale" in cache
 
     kv = None
     if mode == "prefill":
-        if reference:
-            o = ref.attention_ref(q, k, v, causal=True)
-        else:
-            o = ops.flash_attention(q, k, v, causal=True)
+        attend = ref.attention_ref if reference else ops.flash_attention
+        o = attend(q, k, v, causal=causal)
         kv = (k, v)
     elif mode == "decode" and table is not None:
         k0, v0 = k[:, 0], v[:, 0]
@@ -243,10 +254,10 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
                        k_scale=cache["k_scale"], v_scale=cache["v_scale"],
                        k_new=k0, v_new=v0)
             _insert_int8(cache, k0, v0, lambda c, val: _paged_cache_insert(
-                c, val, table, pos))
+                c, val, table, pos, rows))
         else:
-            _paged_cache_insert(cache["k"], k0, table, pos)
-            _paged_cache_insert(cache["v"], v0, table, pos)
+            _paged_cache_insert(cache["k"], k0, table, pos, rows)
+            _paged_cache_insert(cache["v"], v0, table, pos, rows)
             o = attend(q[:, 0], cache["k"], cache["v"], table, pos + 1)
         o = o[:, None]
     elif mode == "decode":
@@ -257,11 +268,11 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
             o = attend(q[:, 0], cache["k"], cache["v"], cache["k_scale"],
                        cache["v_scale"], pos, k_new=k0, v_new=v0)
             _insert_int8(cache, k0, v0,
-                         lambda c, val: _cache_insert(c, val, pos))
+                         lambda c, val: _cache_insert(c, val, pos, rows))
         else:
             kc, vc = cache["k"], cache["v"]
-            _cache_insert(kc, k0, pos)
-            _cache_insert(vc, v0, pos)
+            _cache_insert(kc, k0, pos, rows)
+            _cache_insert(vc, v0, pos, rows)
             attend = (ref.decode_attention_ref if reference
                       else ops.decode_attention)
             o = attend(q[:, 0], kc, vc, pos + 1)
@@ -297,3 +308,26 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
     else:
         raise ValueError(f"attention mode {mode!r}")
     return F.linear(o.reshape(B, Sq, H * hd), p["wo"]), kv
+
+
+def cross_attention(cfg, p, x, enc_k, enc_v, *, mode: str = "prefill",
+                    enc_len=None, reference: bool = False):
+    """The decoder's queries over the encoder's K/V ``enc_k``/``enc_v``
+    [B,Se,KVH,hd] (the cache's ``enc_kv``), unmasked and with no RoPE on
+    either side, as the reference's ``cross_kv`` path. ``mode="decode"``:
+    one query a row through the dense decode kernel with every row at
+    ``enc_len`` [B] int32 (= Se) keys; prefill and extend: the flash
+    kernel without the causal mask, Sq queries over Se keys."""
+    hd = cfg.resolved_head_dim
+    B, Sq, _ = x.shape
+    q = F.linear(x, p["wq"]).view(B, Sq, cfg.num_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    if mode == "decode":
+        attend = (ref.decode_attention_ref if reference
+                  else ops.decode_attention)
+        o = attend(q[:, 0], enc_k, enc_v, enc_len)[:, None]
+    else:
+        attend = ref.attention_ref if reference else ops.flash_attention
+        o = attend(q, enc_k, enc_v, causal=False)
+    return F.linear(o.reshape(B, Sq, cfg.num_heads * hd), p["wo"])

@@ -1,12 +1,16 @@
-"""Decoder-only models: parameters, prefill, extend and decode.
+"""Models: parameters, prefill, extend and decode.
 
-Port of the ``"dense"``, ``"moe"`` and ``"ssm"`` (RWKV6) families of
-``repro/models/transformer.py``. The layer stack is a Python loop over a
-list of per-layer parameter dicts (the reference scans a stacked
-``[L, ...]`` tree). Parameters live on the device of the
-``torch.Generator`` that draws them. A moe layer has ``"moe"``
-(``models.moe``) in place of ``"mlp"``; an ssm layer is an RWKV6 block
-(``models.rwkv6``).
+Port of the ``"dense"`` (with or without qk-norm), ``"moe"``, ``"ssm"``
+(RWKV6) and ``"encdec"`` families of ``repro/models/transformer.py``. The
+layer stack is a Python loop over a list of per-layer parameter dicts (the
+reference scans a stacked ``[L, ...]`` tree). Parameters live on the
+device of the ``torch.Generator`` that draws them. A moe layer has
+``"moe"`` (``models.moe``) in place of ``"mlp"``; an ssm layer is an RWKV6
+block (``models.rwkv6``). An encdec model adds ``"encoder"`` (its own
+layers, bidirectional, and a final norm), ``"frontend_proj"`` [d, d] (the
+audio frontend stub's projection of the ``frames`` input) and, in each
+decoder layer, ``"cross"`` (a norm and an attention block over the
+encoder's output).
 
 Cache layouts, as in the reference: dense ``{"kv": {"k": [L,B,S,KVH,hd],
 "v": ...}, "pos": [B] int32}``; int8 adds ``"k_scale"``/``"v_scale"``
@@ -17,7 +21,10 @@ reference's ``span`` leaf (the logical ``max_seq``, used there to pad the
 softmax sum to the dense width) has no counterpart: paged and dense agree
 to rounding here, not bit for bit. The ssm family's cache is its recurrent
 state, ``{"state": {"wkv": [L,B,H,hd,hd], "tm": [L,B,D], "cm": [L,B,D]}
-(fp32), "pos": [B]}``, with no sequence axis. ``extend_fn`` and
+(fp32), "pos": [B]}``, with no sequence axis. An encdec cache adds
+``"enc_kv": {"k", "v"}`` [L,B,Se,KVH,hd], the cross-attention's K/V of
+the encoder output, dense per row in every layout and never quantized
+(the reference keeps it as a (k, v) pair). ``extend_fn`` and
 ``decode_fn`` update the cache in place and return it.
 """
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import WKV6_CHUNK
@@ -48,7 +56,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     dt = torch_dtype(cfg.dtype)
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
     H, KVH = cfg.num_heads, cfg.num_kv_heads
-    ones = lambda: torch.ones((d,), dtype=dt, device=gen.device)
+    ones = lambda n=d: torch.ones((n,), dtype=dt, device=gen.device)
     p = {"embed": {"embed": _dense(gen, cfg.vocab_size, d, dt)}}
     if not cfg.tie_embeddings:
         p["embed"]["lm_head"] = _dense(gen, cfg.vocab_size, d, dt)
@@ -57,22 +65,38 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                        for _ in range(cfg.num_layers)]
         p["final_norm"] = ones()
         return p
+
+    def attn():
+        a = {"wq": _dense(gen, H * hd, d, dt),
+             "wk": _dense(gen, KVH * hd, d, dt),
+             "wv": _dense(gen, KVH * hd, d, dt),
+             "wo": _dense(gen, d, H * hd, dt)}
+        if cfg.qk_norm:
+            a["q_norm"], a["k_norm"] = ones(hd), ones(hd)
+        return a
+
+    def mlp():
+        return {"w_gate": _dense(gen, f, d, dt), "w_up": _dense(gen, f, d, dt),
+                "w_down": _dense(gen, d, f, dt)}
+
     layers = []
     for _ in range(cfg.num_layers):
-        layer = {"ln1": ones(), "ln2": ones(),
-                 "attn": {"wq": _dense(gen, H * hd, d, dt),
-                          "wk": _dense(gen, KVH * hd, d, dt),
-                          "wv": _dense(gen, KVH * hd, d, dt),
-                          "wo": _dense(gen, d, H * hd, dt)}}
+        layer = {"ln1": ones(), "ln2": ones(), "attn": attn()}
         if cfg.is_moe:
             layer["moe"] = MOE.moe_params(cfg, gen, dt)
         else:
-            layer["mlp"] = {"w_gate": _dense(gen, f, d, dt),
-                            "w_up": _dense(gen, f, d, dt),
-                            "w_down": _dense(gen, d, f, dt)}
+            layer["mlp"] = mlp()
+        if cfg.family == "encdec":
+            layer["cross"] = {"ln": ones(), "attn": attn()}
         layers.append(layer)
     p["layers"] = layers
     p["final_norm"] = ones()
+    if cfg.family == "encdec":
+        p["encoder"] = {
+            "layers": [{"ln1": ones(), "ln2": ones(), "attn": attn(),
+                        "mlp": mlp()} for _ in range(cfg.encoder_layers)],
+            "final_norm": ones()}
+        p["frontend_proj"] = _dense(gen, d, d, dt)
     return p
 
 
@@ -80,13 +104,24 @@ def _device(params) -> torch.device:
     return params["final_norm"].device
 
 
-def _layer(cfg, p, x, positions, *, mode="prefill", cache=None, pos=None,
-           rows=None, table=None, reference=False):
+def _layer(cfg, p, x, positions, *, mode="prefill", causal=True,
+           cache=None, pos=None, rows=None, table=None, enc=None,
+           reference=False):
+    """One layer: self-attention, then (an encdec decoder layer, ``enc``
+    = (k, v, lengths) of its ``enc_kv``) cross-attention, then the MLP or
+    the MoE block."""
     h = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
     o, kv = Lyr.attention_block(cfg, p["attn"], h, positions=positions,
-                                mode=mode, cache=cache, pos=pos, rows=rows,
-                                table=table, reference=reference)
+                                mode=mode, causal=causal, cache=cache,
+                                pos=pos, rows=rows, table=table,
+                                reference=reference)
     x = x + o
+    if "cross" in p:
+        h = Lyr.rmsnorm(p["cross"]["ln"], x, cfg.norm_eps)
+        k, v, enc_len = enc
+        x = x + Lyr.cross_attention(cfg, p["cross"]["attn"], h, k, v,
+                                    mode=mode, enc_len=enc_len,
+                                    reference=reference)
     h = Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
         o, _aux = MOE.moe_block(cfg, p["moe"], h, reference=reference)
@@ -111,6 +146,33 @@ def _rwkv_forward(cfg, params, x, state: dict, *, rows=None, **scan):
     return x
 
 
+def _encode(cfg, params, frames, reference):
+    """The encoder over the frontend stub's ``frames`` [B,Se,d]: its
+    bidirectional layers (no RoPE) and final norm, then every decoder
+    layer's cross-attention K/V of the output, ``{"k", "v"}``
+    [L,B,Se,KVH,hd]."""
+    dev, dt = _device(params), params["frontend_proj"].dtype
+    x = F.linear(torch.as_tensor(frames, device=dev).to(dt),
+                 params["frontend_proj"])
+    positions = torch.arange(x.shape[1], device=dev)
+    for p in params["encoder"]["layers"]:
+        x, _ = _layer(cfg, p, x, positions, causal=False,
+                      reference=reference)
+    x = Lyr.rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+    B, Se = x.shape[:2]
+    shape = (B, Se, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {n: torch.stack([F.linear(x, p["cross"]["attn"][w]).view(shape)
+                            for p in params["layers"]])
+            for n, w in (("k", "wk"), ("v", "wv"))}
+
+
+def _enc_layer(cache: dict, i: int, enc_len=None):
+    """Layer ``i``'s (k, v, lengths) of an encdec cache's ``enc_kv``, or
+    None for the other families."""
+    enc = cache.get("enc_kv")
+    return None if enc is None else (enc["k"][i], enc["v"][i], enc_len)
+
+
 def _head(cfg, params, x):
     """Last-token logits [B, V]."""
     x = Lyr.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
@@ -120,8 +182,9 @@ def _head(cfg, params, x):
 def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
                reference: bool = False, wkv_chunk: int = WKV6_CHUNK):
     """Run the whole prompt [B, S]; return (last-token logits, a cache of
-    exactly S positions with ``pos == S``). ``wkv_chunk``: the ssm plain
-    path's chunk (``reference``)."""
+    exactly S positions with ``pos == S``). An encdec model also takes
+    ``inputs["frames"]`` [B,Se,d] and returns their ``enc_kv``.
+    ``wkv_chunk``: the ssm plain path's chunk (``reference``)."""
     dev = _device(params)
     tokens = torch.as_tensor(inputs["tokens"], device=dev)
     B, S = tokens.shape
@@ -136,11 +199,14 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
     L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     k_all = torch.empty((L, B, S, KVH, hd), dtype=x.dtype, device=dev)
     v_all = torch.empty_like(k_all)
+    cache = {"kv": {"k": k_all, "v": v_all}, "pos": pos}
+    if cfg.family == "encdec":
+        cache["enc_kv"] = _encode(cfg, params, inputs["frames"], reference)
     for i, p in enumerate(params["layers"]):
-        x, (k, v) = _layer(cfg, p, x, positions, reference=reference)
+        x, (k, v) = _layer(cfg, p, x, positions, enc=_enc_layer(cache, i),
+                           reference=reference)
         k_all[i], v_all[i] = k, v
-    return _head(cfg, params, x), {"kv": {"k": k_all, "v": v_all},
-                                   "pos": pos}
+    return _head(cfg, params, x), cache
 
 
 def _layer_cache(kv: dict, i: int) -> dict:
@@ -172,32 +238,40 @@ def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
         for i, p in enumerate(params["layers"]):
             x, _ = _layer(cfg, p, x, positions, mode="extend",
                           cache=_layer_cache(kv, i), pos=pos, rows=rows,
-                          table=table, reference=reference)
+                          table=table, enc=_enc_layer(cache, i),
+                          reference=reference)
     step = C if rows is None else rows.to(torch.int32) * C
     cache["pos"] = pos + step
     return _head(cfg, params, x), cache
 
 
 def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
-              reference: bool = False):
+              rows=None, reference: bool = False):
     """One decode step: token [B] against the cache (dense, int8 or paged;
     a paged cache's table may be narrowed to the pages the live rows
-    need). Returns (logits [B, V], the cache, updated in place with
-    ``pos += 1``)."""
+    need). ``rows`` [B] bool (default all) picks the rows whose cache and
+    ``pos`` move, as in ``extend_fn``. Returns (logits [B, V], the cache,
+    updated in place with ``pos += 1``)."""
     dev = _device(params)
     token = torch.as_tensor(inputs["token"], device=dev)
     pos = cache["pos"]
     x = Lyr.embed(params["embed"], token[:, None])
     if cfg.family == "ssm":
-        x = _rwkv_forward(cfg, params, x, cache["state"], step=True,
-                          reference=reference)
+        x = _rwkv_forward(cfg, params, x, cache["state"], rows=rows,
+                          step=True, reference=reference)
     else:
         kv, table = cache["kv"], cache.get("table")
+        enc_len = None
+        if "enc_kv" in cache:     # every row attends all Se encoder keys
+            enc_len = torch.full((token.shape[0],),
+                                 cache["enc_kv"]["k"].shape[2],
+                                 dtype=torch.int32, device=dev)
         for i, p in enumerate(params["layers"]):
             x, _ = _layer(cfg, p, x, pos[:, None], mode="decode",
-                          cache=_layer_cache(kv, i), pos=pos, table=table,
+                          cache=_layer_cache(kv, i), pos=pos, rows=rows,
+                          table=table, enc=_enc_layer(cache, i, enc_len),
                           reference=reference)
-    cache["pos"] = pos + 1
+    cache["pos"] = pos + (1 if rows is None else rows.to(torch.int32))
     return _head(cfg, params, x), cache
 
 
@@ -216,6 +290,18 @@ def _kv_leaves(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def _with_enc_kv(cfg: ModelConfig, cache: dict, batch: int, dtype,
+                 device) -> dict:
+    """An encdec cache gains zeroed ``enc_kv`` [L,batch,Se,KVH,hd], dense
+    per row whatever the self-attention's layout, in ``dtype`` (the
+    model's when that is int8: the encoder's K/V are never quantized)."""
+    if cfg.family == "encdec":
+        dtype = cfg.dtype if str(dtype) == "int8" else dtype
+        lead = (cfg.num_layers, batch, cfg.num_prefix_embeddings)
+        cache["enc_kv"] = _kv_leaves(cfg, lead, dtype, device)
+    return cache
+
+
 def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                       dtype=None) -> dict:
     """Zeroed decode cache for ``batch`` rows of ``max_seq`` tokens;
@@ -225,22 +311,27 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
         return {"state": RWKV.rwkv6_state_init(cfg, batch, device),
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
+    dtype = dtype or cfg.dtype
     lead = (cfg.num_layers, batch, max_seq)
-    return {"kv": _kv_leaves(cfg, lead, dtype or cfg.dtype, device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    return _with_enc_kv(cfg, {
+        "kv": _kv_leaves(cfg, lead, dtype, device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device)},
+        batch, dtype, device)
 
 
 def quantize_decode_cache(cache: dict) -> dict:
     """An fp decode cache (dense or paged) -> a new int8 one with
-    per-(token, KV head) scales; ``pos`` and the table are shared."""
+    per-(token, KV head) scales; ``pos``, the table and an encdec cache's
+    ``enc_kv`` are shared."""
     k, ks = Lyr.quantize_kv(cache["kv"]["k"])
     v, vs = Lyr.quantize_kv(cache["kv"]["v"])
     return {**cache, "kv": {"k": k, "k_scale": ks, "v": v, "v_scale": vs}}
 
 
 def supports_paged_cache(cfg: ModelConfig) -> bool:
-    """Paged KV applies to the GQA attention families; MLA latents and the
-    recurrent families keep O(1) state per token and stay dense."""
+    """Paged KV applies to the GQA attention families (an encdec model's
+    self-attention; its ``enc_kv`` stays dense per row); MLA latents and
+    the recurrent families keep O(1) state per token and stay dense."""
     return cfg.family not in ("ssm", "hybrid") and not cfg.use_mla
 
 
@@ -261,8 +352,11 @@ def make_paged_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                          "has no paged layout: use make_decode_cache")
     maxP = max_seq // page_size
     P = num_pages if num_pages is not None else batch * maxP
+    dtype = dtype or cfg.dtype
     lead = (cfg.num_layers, P + 1, page_size)
-    return {"kv": _kv_leaves(cfg, lead, dtype or cfg.dtype, device),
-            "table": torch.full((batch, maxP), P, dtype=torch.int32,
-                                device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    return _with_enc_kv(cfg, {
+        "kv": _kv_leaves(cfg, lead, dtype, device),
+        "table": torch.full((batch, maxP), P, dtype=torch.int32,
+                            device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device)},
+        batch, dtype, device)

@@ -1,6 +1,6 @@
 """Site-local serving engine: KV-cache slots + continuous batching.
 
-Port of the dense, batched and serial paths of ``repro/serving/engine.py``:
+Port of ``repro/serving/engine.py``:
 
   * a fixed pool of ``max_batch`` cache slots over one dense cache
     ``[L, max_batch, max_seq, KVH, hd]`` (or, for the recurrent ssm
@@ -17,7 +17,13 @@ Port of the dense, batched and serial paths of ``repro/serving/engine.py``:
   * ``admit_mode="serial"`` keeps the one-request-at-a-time reference: a
     bucket prefill and a B=1 decode per tail token. Batched and serial give
     the same token streams;
+  * ``admit_mode="async"`` splits admission across steps and interleaves
+    it with decode (below);
   * per-request TTFT / TBT / E2E metrics.
+
+An encdec model's prefills take zero ``frames`` [B, Se, d] (the audio
+frontend stub); the encoder's K/V (``enc_kv``) follow a row through every
+insert, and the frames do not count against ``max_seq``.
 
 The schedule of buckets and chunks is the reference's, so ``prefill_calls``
 and the greedy streams match it. Every token draw is keyed by (engine seed,
@@ -66,9 +72,30 @@ without blocking the queue behind it. ``EngineMetrics`` keeps the ledger
 (preemptions, resumes, recovered / lost / shed tokens, timeouts), and
 ``reconcile()`` checks that it balances.
 
-Async admission is not ported yet: ``admit_mode="async"`` raises
-``NotImplementedError``. The int8 KV cache is reached, as in the
-reference, through the model's cache functions, not through the engine.
+Async admission (``admit_mode="async"``, as in the reference): batched
+admission runs a whole wave to completion before the step's decode, so a
+burst stalls the live rows for the whole wave. Async splits it:
+
+  1. a pending set (``_pend``: slot -> [request, effective prompt,
+     tokens consumed]) carries each admitted prompt whose tail is not yet
+     in the cache across steps; its slot (and pages) are reserved while
+     the tail fills chunk by chunk;
+  2. a token-budget arbiter (``admit_token_budget``, default ``max_seq``
+     tokens a step, scaled by brownout) spends each step's budget on, in
+     order: one guaranteed descending power-of-2 extend chunk for the
+     pending tails (so they never starve), bucket prefills of new
+     requests, then what is left on more tail chunks;
+  3. the step's decode runs over the live rows only: pending and free rows
+     are masked (``decode_fn(rows=...)``): their ``pos`` does not move and
+     their K/V are not written (dense) or go to the trash page (paged),
+     where the reference copies the whole cache and selects old against
+     new, or points the masked rows' table rows at the sentinel.
+
+It launches no other kernel than batched admission does, and gives the
+same token streams. A pending request is live for ``preempt``/``drain``
+(its snapshot replays from the prompt), for the deadline sweep and for
+``reconcile``. The int8 KV cache is reached, as in the reference, through
+the model's cache functions, not through the engine.
 """
 from __future__ import annotations
 
@@ -135,7 +162,8 @@ class Request:
         return (self.finish_s - self.prefill_done_s) / max(len(self.tokens) - 1, 1)
 
 
-CACHE_PARTS = ("kv", "state")   # attention KV leaves, recurrent state
+# attention KV leaves, recurrent state, an encdec model's encoder K/V
+CACHE_PARTS = ("kv", "state", "enc_kv")
 
 
 def cache_leaves(cache: dict):
@@ -241,9 +269,11 @@ class ServingEngine:
     """Continuous-batching engine over one model replica.
 
     ``params`` decide the device: the cache and every call live where the
-    weights do. ``admit_mode``: "batched" (default) or "serial" (the
-    reference). ``admit_token_budget``: max prompt tokens admitted per step
-    (None = unlimited), at least one request per step.
+    weights do. ``admit_mode``: "batched" (default), "serial" (the
+    reference) or "async" (admission interleaved with decode).
+    ``admit_token_budget``: max prompt tokens admitted per step (None =
+    unlimited for batched and serial, ``max_seq`` for async), at least one
+    request per step.
     ``queue_watermark``: max waiting-queue depth before ``submit`` rejects
     (None = unbounded). ``paged``: a paged KV cache of ``num_pages`` pages
     of ``page_size`` tokens (families without a paged layout stay dense).
@@ -256,9 +286,7 @@ class ServingEngine:
                  queue_watermark: Optional[int] = None,
                  paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None):
-        if admit_mode == "async":
-            raise NotImplementedError("admit_mode='async' is not ported yet")
-        if admit_mode not in ("batched", "serial"):
+        if admit_mode not in ("batched", "serial", "async"):
             raise ValueError(f"admit_mode {admit_mode!r}")
         self.model = model
         self.cfg: ModelConfig = model.cfg
@@ -306,6 +334,9 @@ class ServingEngine:
         self.new_counts = [0] * max_batch
         self.waiting: deque[Request] = deque()
         self.metrics = EngineMetrics(completed=[])
+        # async: admitted prompts whose tails are not yet in the cache,
+        # slot -> [req, effective prompt, tokens consumed]
+        self._pend: dict[int, list] = {}
         # B=1 cache of the serial-mode prompt tails, built at first use
         self._b1_cache = None
 
@@ -393,19 +424,24 @@ class ServingEngine:
                 keep.append(req)
         self.waiting = keep
 
-    def _admit(self) -> None:
-        if not self.waiting:
-            return
-        now = self._clock()
-        if self._has_deadlines:
-            self._sweep_waiting_deadlines(now)
-        free = [i for i, r in enumerate(self.active) if r is None]
-        admits: list[tuple[int, Request]] = []
-        held: list[Request] = []       # backoff-gated, in queue order
-        spent = 0
-        budget = self.admit_token_budget
+    def _step_budget(self, budget: Optional[int]) -> Optional[int]:
+        """This step's admission budget: ``budget`` (None: unlimited),
+        scaled by brownout."""
         if budget is not None and self.brownout < 1.0:
             budget = max(1, int(budget * self.brownout))
+        return budget
+
+    def _take_admits(self, now: float, budget: Optional[int], spent: int,
+                     *, charge_bucket: bool) -> tuple[list, int]:
+        """Walk the queue and give each request admission can take this
+        step a free slot (and its pages): [(slot, req)] and the tokens
+        spent. A request is charged its effective prompt, or only its
+        bucket when ``charge_bucket`` (async: the tail is the arbiter's),
+        against ``budget`` on top of ``spent`` (None: no limit); the first
+        of a step that has spent nothing is taken whatever its charge."""
+        free = self._free_slots()
+        admits: list[tuple[int, Request]] = []
+        held: list[Request] = []       # backoff-gated, in queue order
         while self.waiting and free:
             req = self.waiting[0]
             if req.not_before_s > now:
@@ -437,7 +473,9 @@ class ServingEngine:
                 # and give their pages back; nothing is evicted
                 self.metrics.page_waits += 1
                 break
-            if admits and budget is not None and spent + S > budget:
+            cost = 1 << (S.bit_length() - 1) if charge_bucket else S
+            if ((admits or spent) and budget is not None
+                    and spent + cost > budget):
                 break
             self.waiting.popleft()
             if self.brownout < 1.0 and not req.tokens:
@@ -453,9 +491,20 @@ class ServingEngine:
                 # after any shed: never more than the `need` cleared above
                 self._alloc_pages(slot, self._pages_needed(req))
             admits.append((slot, req))
-            spent += S
+            spent += cost
         if held:
             self.waiting.extendleft(reversed(held))
+        return admits, spent
+
+    def _admit(self) -> None:
+        if not self.waiting:
+            return
+        now = self._clock()
+        if self._has_deadlines:
+            self._sweep_waiting_deadlines(now)
+        admits, _ = self._take_admits(
+            now, self._step_budget(self.admit_token_budget), 0,
+            charge_bucket=False)
         if not admits:
             return
         try:
@@ -468,13 +517,19 @@ class ServingEngine:
             self._rollback_admits(admits)
             raise
 
+    def _free_slots(self) -> list:
+        """Slots neither live nor holding a pending async admission."""
+        return [i for i, r in enumerate(self.active)
+                if r is None and i not in self._pend]
+
     def _rollback_admits(self, admits: list) -> None:
-        """A failed admission round: every request not yet live, completed
-        or rejected goes back to the front of the queue with only the
-        tokens it carried in, and its slot (and pages) are released."""
+        """A failed admission round: every request not yet live, pending,
+        completed or rejected goes back to the front of the queue with only
+        the tokens it carried in, and its slot (and pages) are released."""
         requeue = []
         for slot, req in admits:
             settled = (self.active[slot] is req
+                       or (slot in self._pend and self._pend[slot][0] is req)
                        or any(r is req for r in self.metrics.completed)
                        or any(r is req for r in self.metrics.rejected))
             if not settled:
@@ -492,7 +547,7 @@ class ServingEngine:
         S = len(full)
         bucket = 1 << (S.bit_length() - 1)
         logits, req_cache = self.model.prefill_fn(
-            self.params, {"tokens": torch.as_tensor(full[None, :bucket])})
+            self.params, self._prefill_inputs(full[None, :bucket]))
         self.metrics.prefill_calls += 1
         if bucket < S:
             # decode(prefill of a prefix) is the exact sequential
@@ -518,16 +573,29 @@ class ServingEngine:
             self._slot_len[slot] = int(req_cache["pos"][0])
         self._finalize_admits([(slot, req, 0)], logits)
 
-    def _admit_batched(self, admits: list) -> None:
-        """Grouped bucket prefills + shared descending-pow2 extend tails,
-        over the effective prompts (a resumed request rides the same
-        pipeline as a fresh one)."""
+    def _prefill_inputs(self, toks: np.ndarray) -> dict:
+        """A prefill call's inputs for prompt rows ``toks`` [B, S]: an
+        encdec model also takes its frontend stub's frames, zeros
+        [B, Se, d]."""
+        inputs = {"tokens": torch.as_tensor(toks)}
+        if self.cfg.family == "encdec":
+            inputs["frames"] = torch.zeros(
+                (toks.shape[0], self.cfg.num_prefix_embeddings,
+                 self.cfg.d_model), dtype=T.torch_dtype(self.cfg.dtype),
+                device=self.device)
+        return inputs
+
+    def _prefill_groups(self, admits: list, pend: dict) -> None:
+        """Bucket-group prefills of an admission wave, over the effective
+        prompts (a resumed request rides the same pipeline as a fresh
+        one): one ``prefill_fn`` call per bucket, its batch padded to a
+        power of 2. Prompts that fill their bucket finish at once; the
+        others go into ``pend`` (slot -> [req, full, consumed])."""
         groups: dict[int, list] = {}
         for slot, req in admits:
             full = self._effective_prompt(req)
             bucket = 1 << (len(full).bit_length() - 1)
             groups.setdefault(bucket, []).append((slot, req, full))
-        pend: dict[int, list] = {}          # slot -> [req, full, consumed]
         for bucket in sorted(groups, reverse=True):
             group = groups[bucket]
             kp = 1 << (len(group) - 1).bit_length()   # pow2-padded batch
@@ -538,7 +606,7 @@ class ServingEngine:
                 toks[r] = full[:bucket]
                 slots[r] = slot
             logits, gcache = self.model.prefill_fn(
-                self.params, {"tokens": torch.as_tensor(toks)})
+                self.params, self._prefill_inputs(toks))
             self.metrics.prefill_calls += 1
             self._insert_group_cache(gcache, slots)
             if self.paged:
@@ -551,6 +619,12 @@ class ServingEngine:
                 else:
                     pend[slot] = [req, full, bucket]
             self._finalize_admits(fins, logits)
+
+    def _admit_batched(self, admits: list) -> None:
+        """Grouped bucket prefills + shared descending-pow2 extend tails,
+        all within this step."""
+        pend: dict[int, list] = {}          # slot -> [req, full, consumed]
+        self._prefill_groups(admits, pend)
         while pend:
             # chunk = the largest remaining binary digit across pending
             # rows; every row with that bit set advances this round
@@ -575,6 +649,64 @@ class ServingEngine:
                 else:
                     pend[slot][2] = cons
             self._finalize_admits(fins, logits)
+
+    # --------------------------------------------------------------- async
+    def _arbiter(self, budget: int, *, force: bool = False) -> int:
+        """Spend up to ``budget`` prompt tokens advancing the pending tails
+        in descending power-of-2 chunks (each chunk the largest power of 2
+        within both the longest remaining tail and the budget left; every
+        pending row with at least that much left rides it). ``force``
+        grants one 1-token chunk on a spent budget, so tails never starve
+        behind a stream of arrivals. Returns the tokens spent."""
+        spent = 0
+        while self._pend:
+            remaining = budget - spent
+            if remaining < 1:
+                if not (force and spent == 0):
+                    break
+                remaining = 1
+            max_rem = max(len(full) - cons
+                          for _req, full, cons in self._pend.values())
+            C = 1 << (min(max_rem, remaining).bit_length() - 1)
+            toks = np.zeros((self.max_batch, C), np.int32)
+            mask = np.zeros((self.max_batch,), bool)
+            takers = []
+            for slot, (_req, full, cons) in self._pend.items():
+                if len(full) - cons >= C:
+                    toks[slot] = full[cons:cons + C]
+                    mask[slot] = True
+                    takers.append(slot)
+            logits = self._dispatch_extend(toks, mask, takers, C)
+            fins = []
+            for slot in takers:
+                entry = self._pend[slot]
+                entry[2] += C
+                if entry[2] == len(entry[1]):
+                    del self._pend[slot]
+                    fins.append((slot, entry[0], slot))
+            self._finalize_admits(fins, logits)
+            spent += C * len(takers)
+        return spent
+
+    def _admit_async(self) -> int:
+        """One bounded slice of admission work: a guaranteed arbiter chunk
+        for the pending tails, bucket prefills of new requests with the
+        budget left (their tails join ``_pend``), then what is still left
+        on more tail chunks. Returns the prompt tokens spent."""
+        now = self._clock()
+        if self._has_deadlines:
+            self._sweep_waiting_deadlines(now)
+        budget = self._step_budget(self.admit_token_budget or self.max_seq)
+        spent = self._arbiter(budget, force=True)
+        admits, spent = self._take_admits(now, budget, spent,
+                                          charge_bucket=True)
+        if admits:
+            try:
+                self._prefill_groups(admits, self._pend)
+            except Exception:
+                self._rollback_admits(admits)
+                raise
+        return spent + self._arbiter(budget - spent)
 
     def _dispatch_extend(self, toks, mask, takers: list, C: int):
         """One masked extend chunk over the whole engine batch: rows
@@ -640,7 +772,8 @@ class ServingEngine:
                 pm[r] = self._tbl[s, :npr]
         insert_cache_pages(self.cache["kv"], gcache["kv"],
                            torch.as_tensor(pm, device=self.device))
-        insert_cache_rows({"kv": {}, "pos": self.cache["pos"]}, gcache, slots)
+        # pos, and an encdec model's enc_kv, by row
+        insert_cache_rows({**self.cache, "kv": {}}, gcache, slots)
 
     # --------------------------------------------------------------- slots
     def release_slot(self, slot: int) -> None:
@@ -654,6 +787,7 @@ class ServingEngine:
                 f"slot {slot} out of range [0, {self.max_batch})")
         self.active[slot] = None
         self.new_counts[slot] = 0
+        self._pend.pop(slot, None)
         self.cache["pos"][slot] = 0
         if self.paged and self.slot_pages[slot]:
             self._free_pages.extend(self.slot_pages[slot])
@@ -665,15 +799,20 @@ class ServingEngine:
     def preempt(self, slots: Optional[list] = None) -> list:
         """Snapshot in-flight requests and free their slots (and pages).
 
-        ``slots=None`` preempts every live slot (a power drop). Each
-        snapshot carries the transcript and the seed that keys the
-        request's draws, so ``resume`` here or on any engine serving the
-        same model continues the same stream."""
+        ``slots=None`` preempts every live slot and every pending async
+        admission (a power drop). Each snapshot carries the transcript and
+        the seed that keys the request's draws, so ``resume`` here or on
+        any engine serving the same model continues the same stream. A
+        pending admission's partly filled cache is dropped: its resume
+        replays it from the prompt."""
         if slots is None:
-            slots = [i for i, r in enumerate(self.active) if r is not None]
+            slots = ([i for i, r in enumerate(self.active) if r is not None]
+                     + list(self._pend))
         snaps = []
         for slot in slots:
             req = self.active[slot]
+            if req is None and slot in self._pend:
+                req = self._pend[slot][0]
             if req is None:
                 continue
             snaps.append(TranscriptSnapshot.from_request(
@@ -725,15 +864,16 @@ class ServingEngine:
 
     def reconcile(self) -> dict:
         """The ledger: every submitted request is in exactly one of
-        completed / rejected / timed_out / waiting / active / evicted.
-        Returns the books and a ``balanced`` flag."""
+        completed / rejected / timed_out / waiting / active (live or
+        pending) / evicted. Returns the books and a ``balanced`` flag."""
         m = self.metrics
         books = {"submitted": m.submitted,
                  "completed": len(m.completed),
                  "rejected": len(m.rejected),
                  "timed_out": len(m.timed_out),
                  "waiting": len(self.waiting),
-                 "active": sum(r is not None for r in self.active),
+                 "active": (sum(r is not None for r in self.active)
+                            + len(self._pend)),
                  "evicted": m.evicted}
         books["balanced"] = (
             books["submitted"] == books["completed"] + books["rejected"]
@@ -751,32 +891,44 @@ class ServingEngine:
         """Admit waiting requests, run one batched decode. Returns #active."""
         if self._has_deadlines:
             now = self._clock()
-            for i, r in enumerate(self.active):
-                if (r is not None and r.deadline_s is not None
-                        and now >= r.deadline_s):
+            rows = [(i, r) for i, r in enumerate(self.active) if r is not None]
+            rows += [(i, entry[0]) for i, entry in self._pend.items()]
+            for i, r in rows:
+                if r.deadline_s is not None and now >= r.deadline_s:
                     r.finish_s = now
                     self.metrics.timed_out.append(r)
                     self.metrics.lost_tokens += len(r.tokens)
-                    self.release_slot(i)
+                    self.release_slot(i)       # drops a pending entry too
         pc_before = self.metrics.prefill_calls
-        self._admit()
+        if self.admit_mode == "async":
+            self._admit_async()
+        else:
+            self._admit()
         live = [i for i, r in enumerate(self.active) if r is not None]
         if not live:
             if self.metrics.prefill_calls > pc_before:
                 self.metrics.admit_stall_steps += 1
             return 0
-        # every row decodes, free ones too (their results are dropped and
-        # their cache writes are dropped in the layer: past max_seq, or
-        # into the trash page through a sentinel table row)
+        # batched and serial: every row decodes, free ones too (their
+        # results are dropped and their cache writes are dropped in the
+        # layer: past max_seq, or into the trash page through a sentinel
+        # table row). Async: only the live rows move; a pending row's
+        # half-filled cache must not
+        rows = None
+        if self.admit_mode == "async":
+            mask = np.zeros((self.max_batch,), bool)
+            mask[live] = True
+            rows = torch.as_tensor(mask, device=self.device)
         if self.paged:
             cache = self._call_cache(self._decode_width(live))
             logits, cache = self.model.decode_fn(
-                self.params, {"token": self.last_token}, cache)
+                self.params, {"token": self.last_token}, cache, rows=rows)
             self.cache["pos"] = cache["pos"]
             self._slot_len[live] += 1
         else:
             logits, self.cache = self.model.decode_fn(
-                self.params, {"token": self.last_token}, self.cache)
+                self.params, {"token": self.last_token}, self.cache,
+                rows=rows)
         self.metrics.decode_steps += 1
         keys = [0] * self.max_batch
         temps = [0.0] * self.max_batch
@@ -804,6 +956,6 @@ class ServingEngine:
         """Drain all waiting + active requests."""
         for _ in range(max_steps):
             n = self.step()
-            if n == 0 and not self.waiting:
+            if n == 0 and not self.waiting and not self._pend:
                 break
         return self.metrics

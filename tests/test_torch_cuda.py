@@ -20,7 +20,8 @@ from __future__ import annotations
 import pytest
 import torch
 
-from repro_torch.configs import llama32_1b, phi35_moe_42b, reduced, rwkv6_1b6
+from repro_torch.configs import (get_config, llama32_1b, phi35_moe_42b,
+                                 reduced, rwkv6_1b6)
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_int8 import decode_attention_int8
@@ -67,6 +68,10 @@ def _rnd(gen, shape, dtype):
     (4, 512, 512, 32, 8, 128, True, 0),   # phi3.5-moe's heads
     (2, 200, 200, 32, 8, 64, True, 70),   # Sq % 64 != 0, prefix past a tile
     (1, 150, 150, 32, 8, 128, True, 100),
+    (4, 512, 512, 40, 8, 128, True, 0),   # qwen3-14b: G = 5
+    (8, 160, 160, 16, 16, 64, False, 0),  # seamless encoder: G = 1
+    (8, 64, 160, 16, 16, 64, False, 0),   # seamless cross-attention chunk
+    (2, 1, 160, 16, 16, 64, False, 0),    # a 1-token cross-attention chunk
 ])
 def test_flash_kernel_matches_plain(gen, dtype, B, Sq, Sk, H, KVH, hd,
                                     causal, prefix):
@@ -122,6 +127,9 @@ def test_flash_kernel_rows_do_not_depend_on_the_batch(gen, dtype, hd, prefix):
     (4, 1024, 32, 8, 128, (1, 333, 1024, 1031)),
     (2, 64, 8, 1, 64, (64, 5)),           # G = 8: two blocks per KV head
     (3, 50, 6, 2, 64, (0, 49, 50)),       # G = 3; length 0 gives 0
+    (8, 160, 16, 16, 64, (160,) * 8),     # seamless cross-attention decode
+    (4, 1024, 40, 8, 128, (1, 333, 1024, 1031)),   # qwen3-14b: G = 5
+    (4, 1024, 32, 32, 128, (1, 333, 1024, 1031)),  # deepseek-7b: G = 1
 ])
 def test_decode_kernel_matches_plain(gen, dtype, B, S, H, KVH, hd, lengths):
     q = _rnd(gen, (B, H, hd), dtype)
@@ -178,12 +186,13 @@ def _table(gen, B, W, P, sentinel_rows=()):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
-def test_paged_decode_kernel_matches_plain(gen, dtype, hd):
+@pytest.mark.parametrize("hd,H,KVH", [(64, 32, 8), (128, 32, 8),
+                                      (128, 40, 8), (128, 32, 32)])
+def test_paged_decode_kernel_matches_plain(gen, dtype, hd, H, KVH):
     """Rows of every kind: short, page-aligned, past the table's width, and
     all sentinel with a length (a free slot), which reads the trash page
-    on both sides."""
-    B, H, KVH, page, P, W = 6, 32, 8, 16, 512, 64
+    on both sides; at G = 4, 5 (qwen3-14b) and 1 (deepseek-7b)."""
+    B, page, P, W = 6, 16, 512, 64
     q = _rnd(gen, (B, H, hd), dtype)
     kp, vp = _pools(gen, P, page, KVH, hd, dtype)
     table = _table(gen, B, W, P, sentinel_rows=(4,))
@@ -351,12 +360,16 @@ def test_decode_kernels_above_eight_splits_of_128_keys(gen, kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,hd", [(1, 64), (7, 64), (64, 64), (33, 128),
-                                  (256, 128)])
-def test_paged_extend_kernel_matches_plain(gen, dtype, C, hd):
+@pytest.mark.parametrize("C,hd,H,KVH", [
+    (1, 64, 32, 8), (7, 64, 32, 8), (64, 64, 32, 8), (33, 128, 32, 8),
+    (256, 128, 32, 8),
+    (1, 128, 40, 8), (64, 128, 40, 8),      # qwen3-14b: G = 5
+    (1, 128, 32, 32), (64, 128, 32, 32),    # deepseek-7b: G = 1
+])
+def test_paged_extend_kernel_matches_plain(gen, dtype, C, hd, H, KVH):
     """Cached pages below pos, then the chunk's causal triangle; one row
     masked (all sentinel, pos 0) and one with pos past the table."""
-    B, H, KVH, page, P, W = 4, 32, 8, 16, 256, 64
+    B, page, P, W = 4, 16, 256, 64
     q = _rnd(gen, (B, C, H, hd), dtype)
     kp, vp = _pools(gen, P, page, KVH, hd, dtype)
     kn, vn = (_rnd(gen, (B, C, KVH, hd), dtype) for _ in range(2))
@@ -580,3 +593,67 @@ def test_moe_and_rwkv6_kernel_paths_match_plain_path(gen, arch):
         out[reference] = (lp, le, ld)
     for a, b in zip(out[False], out[True]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_new_families_kernel_paths_match_plain_path(gen, arch, paged):
+    """prefill, extend and decode at fp32 through the kernels vs the plain
+    versions: qk-norm at G = 5 (qwen3-14b, 10 heads over 2), and the
+    encoder (kernel 1 unmasked over 160 random frames), cross-attention
+    chunks (kernel 1, Sq != Sk) and cross-attention decode (kernel 2 at 160
+    keys a row) of seamless-m4t-medium, at hd 64."""
+    over = {"qwen3-14b": dict(num_heads=10, num_kv_heads=2),
+            "seamless-m4t-medium": dict(num_prefix_embeddings=160)}[arch]
+    cfg = reduced(get_config(arch), d_model=256, head_dim=64,
+                  dtype="float32", **over)
+    params = build(cfg).init_params(gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 45), generator=gen,
+                         device="cuda").to(torch.int32)
+    frames = _rnd(gen, (2, 160, cfg.d_model), torch.float32)
+    out = {}
+    for reference in (False, True):
+        m = build(cfg, reference=reference)
+        lp, pre = m.prefill_fn(params, {"tokens": toks[:, :32],
+                                        "frames": frames})
+        if paged:
+            cache = T.make_paged_decode_cache(cfg, 2, 64, "cuda",
+                                              page_size=16)
+            cache["table"] = torch.tensor([[3, 0, 6, 1], [5, 2, 7, 4]],
+                                          dtype=torch.int32, device="cuda")
+        else:
+            cache = T.make_decode_cache(cfg, 2, 64, "cuda")
+        if "enc_kv" in pre:
+            for n in ("k", "v"):
+                cache["enc_kv"][n].copy_(pre["enc_kv"][n])
+        le, cache = m.extend_fn(params, {"tokens": toks[:, :40]}, cache)
+        ld, _ = m.decode_fn(params, {"token": toks[:, 40]}, cache)
+        out[reference] = (lp, le, ld)
+    for a, b in zip(out[False], out[True]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_async_engine_on_the_card_gives_the_batched_streams(gen, paged):
+    """Async admission through the kernels (pending rows masked out of the
+    decode) gives the batched engine's streams at fp32, sampled rows
+    included."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(llama32_1b, num_kv_heads=2, head_dim=64, dtype="float32")
+    params = build(cfg).init_params(gen)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device="cuda").cpu().numpy()
+               for n in (8, 45, 5, 30, 17, 9)]
+    streams = {}
+    for mode in ("batched", "async"):
+        eng = ServingEngine(build(cfg), params, max_batch=4, max_seq=64,
+                            admit_mode=mode, admit_token_budget=8,
+                            paged=paged)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6,
+                               temperature=0.7 * (i % 2)))
+        m = eng.run()
+        assert eng.reconcile()["balanced"]
+        streams[mode] = {r.rid: r.tokens for r in m.completed}
+    assert len(streams["async"]) == 6
+    assert streams["async"] == streams["batched"]

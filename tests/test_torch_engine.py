@@ -138,9 +138,16 @@ def test_admit_token_budget_bounds_per_step_work(setup):
                                 dict(admit_mode="async", paged=True),
                                 dict(admit_mode="async", queue_watermark=4)])
 def test_unported_modes_raise(setup, kw):
-    cfg, model, params, _, _, _ = setup
-    with pytest.raises(NotImplementedError):
-        ServingEngine(model, params, **kw)
+    """Async engines (dense, paged, under a queue watermark) serve the JAX
+    engine's greedy streams; only an admission mode neither package has
+    raises."""
+    cfg, model, params, prompts, jstreams, _ = setup
+    streams, s = _run(ServingEngine(model, params, max_batch=4, max_seq=64,
+                                    **kw), _reqs(prompts))
+    assert s["num_completed"] + s["rejected"] == len(LENGTHS)
+    assert streams == {rid: jstreams[rid] for rid in streams}
+    with pytest.raises(ValueError):
+        ServingEngine(model, params, **{**kw, "admit_mode": "eager"})
 
 
 def test_sample_rows_independent_of_batch():

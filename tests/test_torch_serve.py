@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import smoke_config
+from repro_torch.launch import serve_multisite
 from repro_torch.launch.serve import (FREQ_GRID, LOAD_GRID, full_width_config,
                                       heron_site_weights, main, serve_demo)
 
@@ -75,16 +76,40 @@ def test_serve_demo_paged_returns_every_page():
     assert out["free_pages"] == out["num_pages"] == [4, 4]
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-1.6b",
+                                  "qwen3-14b", "seamless-m4t-medium"])
 def test_serve_demo_new_families(arch):
-    """The smoke configs of the moe and ssm families through the entry
-    point; the command line's ``--arch``/``--layers`` reach it."""
+    """The smoke configs of the moe, ssm, qk-norm dense and encdec
+    families through the entry point; the command line's
+    ``--arch``/``--layers`` reach it."""
     out = serve_demo(smoke_config(arch), device="cpu", num_requests=6,
                      num_sites=2, max_batch=2, max_seq=64, seed=1,
                      verbose=False)
     assert out["completed"] == out["submitted"] == 6
     assert main(["--device", "cpu", "--arch", arch, "--layers", "1",
                  "--requests", "3", "--max-batch", "2"]) == 0
+
+
+@pytest.mark.parametrize("mode", ["batched", "serial", "async"])
+def test_serve_multisite_completes_every_request(mode, capsys):
+    """The reference example's run on the port: every request of the burst
+    completes, each site's p99 TTFT is at least its p50."""
+    assert serve_multisite.main(["--device", "cpu", "--requests", "8",
+                                 "--admit-mode", mode,
+                                 "--admit-budget", "16"]) == 0
+    assert "8/8 requests served" in capsys.readouterr().out
+
+
+def test_serve_demo_async_returns_every_page():
+    out = serve_demo(device="cpu", num_requests=6, num_sites=2, max_batch=2,
+                     max_seq=64, seed=1, paged=True, num_pages=4,
+                     admit_mode="async", admit_token_budget=8,
+                     verbose=False)
+    assert out["completed"] == out["submitted"] == 6
+    assert out["free_pages"] == out["num_pages"] == [4, 4]
+    sync = serve_demo(device="cpu", num_requests=6, num_sites=2,
+                      max_batch=2, max_seq=64, seed=1, verbose=False)
+    assert out["tokens"] == sync["tokens"]
 
 
 def test_full_width_config_takes_depth_from_caller():
@@ -118,6 +143,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.models.transformer, repro_torch.serving.engine\n"
         "import repro_torch.launch.cosim, repro_torch.sim.e2e\n"
         "import repro_torch.core.router, repro_torch.checkpoint.store\n"
+        "import repro_torch.launch.serve_multisite\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
