@@ -59,10 +59,23 @@ Phases (any failure exits non-zero before the result line):
      encoder's and the cross-attention's kernel 1 launches and the
      cross-attention decode's kernel 2 launches included), and one
      prompt's logits (with random frames for seamless) through prefill
-     and two decode steps match the plain path's.
+     and two decode steps match the plain path's;
+  9. vlm: paligemma-3b whole (18 layers, 8 heads over one KV head, hd
+     256), each prompt behind 256 zero patches that take cache positions,
+     the same 16 requests, dense and paged, batched and async; every
+     request completes or is rejected as the engine's rule gives from the
+     lengths and the prefix, the kernels launch once per layer and model
+     call, every page comes back, one prompt's logits (random patches)
+     through a prefill, extend chunks and two decode steps match the plain
+     path's, dense and paged; a 2-layer fp32 model at full width gives
+     equal streams dense and paged, batched and async; int8 caches at hd
+     256 go through kernels 3 and 4-int8.
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
-mask) against their plain versions, with times and bounds.
+mask), and kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV
+head, kernel 1 with a 256-position bidirectional prefix), against their
+plain versions, with times and bounds; phase 2 lists the hd-256
+instantiations beside the others.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -217,17 +230,19 @@ def main() -> int:
     # dynamic shared memory its launch asks for from the library
     smem = {"flash_attention": [
                 (f"{dt} hd={hd}", flash_smem_bytes(getattr(torch, dt), hd))
-                for dt in ("bfloat16", "float32") for hd in (64, 128)],
+                for dt in ("bfloat16", "float32") for hd in (64, 128, 256)],
             "expert_matmul": [
                 (f"bfloat16 C{op}16", expert_smem_bytes(torch.bfloat16, c))
                 for op, c in (("<=", 16), (">", 17))],
-            # kernel 5 at the paged serving table (64 pages of 16), kernel 7
-            # at rwkv6-1.6b's heads: the launch's cut beside its bytes
+            # kernel 5 at the paged serving table (64 pages of 16; hd 256
+            # at paligemma-3b's 8 heads over 1), kernel 7 at rwkv6-1.6b's
+            # heads: the launch's cut beside its bytes
             "paged_extend_attention": [
                 (f"{dt} hd={hd} C={c}", extend_plan(getattr(torch, dt), hd, c,
-                                                    32, 8, 64, 16))
-                for dt in ("bfloat16", "float32") for hd, c in (
-                    (64, 1), (64, 64), (64, 256), (128, 64))],
+                                                    h, kvh, 64, 16))
+                for dt in ("bfloat16", "float32") for hd, c, h, kvh in (
+                    (64, 1, 32, 8), (64, 64, 32, 8), (64, 256, 32, 8),
+                    (128, 64, 32, 8), (256, 1, 8, 1), (256, 64, 8, 1))],
             "wkv6": [(f"{dt} B={b}", wkv6_plan(getattr(torch, dt), 64, b, 32))
                      for dt in ("bfloat16", "float32") for b in (8, 1)],
             # the decode body's cut at the serving capacity (1024 keys: a
@@ -235,14 +250,16 @@ def main() -> int:
             "decode_attention": [
                 (f"{dt} hd={hd} S=1024", decode_plan(getattr(torch, dt), hd,
                                                      32, 8, 1, 1024))
-                for dt in ("bfloat16", "float32") for hd in (64, 128)],
+                for dt in ("bfloat16", "float32") for hd in (64, 128, 256)],
             "decode_attention_int8": [
                 (f"int8 hd={hd} S=1024", decode_plan(torch.int8, hd, 32, 8, 1,
-                                                     1024)) for hd in (64, 128)],
+                                                     1024))
+                for hd in (64, 128, 256)],
             "paged_decode_attention": [
                 (f"{dt} hd={hd} W=64 page=16", decode_plan(
                     getattr(torch, dt), hd, 32, 8, 64, 16))
-                for dt in ("bfloat16", "float32", "int8") for hd in (64, 128)]}
+                for dt in ("bfloat16", "float32", "int8")
+                for hd in (64, 128, 256)]}
     # decode_split_fwd's mangled arguments: q type, cache type, hd, paged
     mangled = {"13__nv_bfloat16": "bf16", "f": "fp32", "a": "int8"}
 
@@ -785,6 +802,156 @@ def main() -> int:
                       + 4 * tx.numel(),
                       4.0 * Hx * hdx * (64 * cached + 8 * 64 * 65 / 2))
             del kpx, vpx, qx, qe, kn, vn
+    torch.cuda.empty_cache()
+
+    # kernels 1-5 at paligemma-3b's serving shapes (phase 9): hd 256, 8
+    # query heads over one KV head (G = 8); kernel 1 with the 256 patch
+    # positions as its bidirectional prefix before a 256- or 512-token
+    # bucket; kernels 2, 3, 4 and 4-int8 at the decode shapes above (row 5
+    # of the paged table all sentinel, lengths past the table), the int8
+    # ones with the fresh token; kernel 5 a 1-, 16- and 64-token chunk
+    # behind the prefix (the masked rows at pos 0). Each against its plain
+    # version at bf16 and fp32, timed at bf16 (kernels 1 and 2 beside
+    # SDPA). Their own generator, so every other input stays as it was
+    g_vlm = torch.Generator(device=dev).manual_seed(SEED + 5)
+    Hv, KVHv, hdv, Pv = 8, 1, 256, 256
+    print("[kernels] paligemma-3b's shapes (hd 256, G = 8 over one KV "
+          "head; kernels 1-5) vs their plain versions; times at bf16")
+    for B, S in ((4, Pv + 256), (1, Pv + 512)):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            qx = rnd(B, S, Hv, hdv, dtype=dt, g=g_vlm)
+            kx, vx = (rnd(B, S, KVHv, hdv, dtype=dt, g=g_vlm)
+                      for _ in range(2))
+            case = (f"{dtype} B={B} Sq=Sk={S} H={Hv} KVH={KVHv} (G=8) "
+                    f"hd={hdv} causal prefix={Pv} (paligemma-3b prefill)")
+            compare("flash_attention",
+                    flash_attention(qx, kx, vx, prefix_len=Pv),
+                    ref.attention_ref(qx, kx, vx, prefix_len=Pv), dtype,
+                    case)
+            if dt is bf and B == 4:
+                ar = torch.arange(S, device=dev)
+                pmask = (ar[:, None] >= ar[None, :]) | (ar[None, :] < Pv)
+                krx, vrx = sdpa_kv(kx, Hv // KVHv), sdpa_kv(vx, Hv // KVHv)
+                qtx = qx.transpose(1, 2)
+                timed("flash_attention", case,
+                      lambda: flash_attention(qx, kx, vx, prefix_len=Pv),
+                      lambda: ref.attention_ref(qx, kx, vx, prefix_len=Pv),
+                      lambda: F.scaled_dot_product_attention(
+                          qtx, krx, vrx, attn_mask=pmask),
+                      2 * (2 * qx.numel() + kx.numel() + vx.numel()),
+                      4.0 * B * Hv * hdv * sum(max(i + 1, Pv)
+                                               for i in range(S)))
+                del krx, vrx, qtx
+            del qx, kx, vx
+    keys_v = int(lens_main.clamp(max=S_dec).sum())
+    keys_pv = int(lens_main.clamp(max=W * page).sum())
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        qx = rnd(8, Hv, hdv, dtype=dt, g=g_vlm)
+        kx, vx = (rnd(8, S_dec, KVHv, hdv, dtype=dt, g=g_vlm)
+                  for _ in range(2))
+        kn, vn = (rnd(8, KVHv, hdv, dtype=dt, g=g_vlm) for _ in range(2))
+        kq, ksq = Lyr.quantize_kv(kx.float())
+        vq, vsq = Lyr.quantize_kv(vx.float())
+        kpx, vpx = (rnd(P_pool + 1, page, KVHv, hdv, dtype=dt, g=g_vlm)
+                    for _ in range(2))
+        kp8, ks8 = Lyr.quantize_kv(kpx.float())
+        vp8, vs8 = Lyr.quantize_kv(vpx.float())
+        tx = torch.randperm(P_pool, generator=g_vlm, device=dev)[
+            :8 * W].reshape(8, W).to(torch.int32)
+        ts = tx.clone()
+        ts[5] = P_pool                      # a free slot's row
+        case = (f"{dtype} B=8 H={Hv} KVH={KVHv} (G=8) hd={hdv} lengths="
+                f"{lens_main.tolist()}")
+        dcase, pcase = (f"{case} S={S_dec} (paligemma-3b decode)",
+                        f"{case} W={W} page={page} pool={P_pool}+1 "
+                        f"(paligemma-3b paged decode)")
+        compare("decode_attention", decode_attention(qx, kx, vx, lens_main),
+                ref.decode_attention_ref(qx, kx, vx, lens_main), dtype,
+                dcase)
+        compare("decode_attention_int8",
+                decode_attention_int8(qx, kq, vq, ksq, vsq, lens_main,
+                                      k_new=kn, v_new=vn),
+                ref.decode_attention_int8_ref(qx, kq, vq, ksq, vsq,
+                                              lens_main, kn, vn), dtype,
+                f"{dcase} int8 +fresh")
+        compare("paged_decode_attention",
+                paged_decode_attention(qx, kpx, vpx, ts, lens_main),
+                ref.paged_decode_attention_ref(qx, kpx, vpx, ts, lens_main),
+                dtype, f"{pcase} row 5 sentinel")
+        compare("paged_decode_attention_int8",
+                paged_decode_attention_int8(qx, kp8, vp8, ks8, vs8, ts,
+                                            lens_main, k_new=kn, v_new=vn),
+                ref.paged_decode_attention_ref(
+                    qx, kp8, vp8, ts, lens_main, k_scale=ks8, v_scale=vs8,
+                    k_new=kn, v_new=vn),
+                dtype, f"{pcase} int8 +fresh row 5 sentinel")
+        pos_v = torch.tensor([Pv + 256, 0, Pv + 512, 0, Pv + 128, 0,
+                              Pv + 64, 0], dtype=torch.int32, device=dev)
+        cached_v = int(pos_v.clamp(max=W * page).sum())
+        ext = []
+        for C in (1, 16, 64):
+            qe = rnd(8, C, Hv, hdv, dtype=dt, g=g_vlm)
+            ke, ve = (rnd(8, C, KVHv, hdv, dtype=dt, g=g_vlm)
+                      for _ in range(2))
+            ecase = (f"{dtype} B=8 C={C} W={W} page={page} H={Hv} "
+                     f"KVH={KVHv} (G=8) hd={hdv} pos={pos_v.tolist()} "
+                     f"(paligemma-3b extend)")
+            compare("paged_extend_attention",
+                    paged_extend_attention(qe, kpx, vpx, ke, ve, tx, pos_v),
+                    ref.paged_extend_attention_ref(qe, kpx, vpx, ke, ve, tx,
+                                                   pos_v), dtype, ecase)
+            ext.append((C, ecase, qe, ke, ve))
+        if dt is not bf:
+            continue
+        mask_v = (torch.arange(S_dec, device=dev)[None, :]
+                  < lens_main[:, None])[:, None, None, :]
+        krx, vrx = sdpa_kv(kx, Hv // KVHv), sdpa_kv(vx, Hv // KVHv)
+        flops_v = 4.0 * Hv * hdv * keys_v
+        timed("decode_attention", dcase,
+              lambda: decode_attention(qx, kx, vx, lens_main),
+              lambda: ref.decode_attention_ref(qx, kx, vx, lens_main),
+              lambda: F.scaled_dot_product_attention(
+                  qx[:, :, None, :], krx, vrx, attn_mask=mask_v),
+              2 * (2 * qx.numel() + 2 * keys_v * KVHv * hdv) + 4 * 8,
+              flops_v)
+        fresh = 2 * 2 * kn.numel()
+        timed("decode_attention_int8", f"{dcase} int8 +fresh",
+              lambda: decode_attention_int8(qx, kq, vq, ksq, vsq, lens_main,
+                                            k_new=kn, v_new=vn),
+              lambda: ref.decode_attention_int8_ref(qx, kq, vq, ksq, vsq,
+                                                    lens_main, kn, vn), None,
+              2 * 2 * qx.numel() + 2 * keys_v * KVHv * (hdv + 4) + fresh
+              + 4 * 8, 4.0 * Hv * hdv * (keys_v + 8))
+        timed("paged_decode_attention", pcase,
+              lambda: paged_decode_attention(qx, kpx, vpx, tx, lens_main),
+              lambda: ref.paged_decode_attention_ref(qx, kpx, vpx, tx,
+                                                     lens_main), None,
+              2 * 2 * qx.numel() + 2 * 2 * keys_pv * KVHv * hdv + 4 * 8
+              + 4 * tx.numel(), 4.0 * Hv * hdv * keys_pv)
+        timed("paged_decode_attention_int8", f"{pcase} int8 +fresh",
+              lambda: paged_decode_attention_int8(
+                  qx, kp8, vp8, ks8, vs8, tx, lens_main, k_new=kn, v_new=vn),
+              lambda: ref.paged_decode_attention_ref(
+                  qx, kp8, vp8, tx, lens_main, k_scale=ks8, v_scale=vs8,
+                  k_new=kn, v_new=vn), None,
+              2 * 2 * qx.numel() + 2 * keys_pv * KVHv * (hdv + 4) + fresh
+              + 4 * 8 + 4 * tx.numel(), 4.0 * Hv * hdv * (keys_pv + 8))
+        for C, ecase, qe, ke, ve in ext:
+            cut = extend_plan(bf, hdv, C, Hv, KVHv, W, page)
+            timed("paged_extend_attention",
+                  f"{ecase} ({cut['splits']} splits of {cut['split_len']} "
+                  f"keys)",
+                  lambda: paged_extend_attention(qe, kpx, vpx, ke, ve, tx,
+                                                 pos_v),
+                  lambda: ref.paged_extend_attention_ref(
+                      qe, kpx, vpx, ke, ve, tx, pos_v), None,
+                  2 * 2 * qe.numel() + 2 * 2 * ke.numel()
+                  + 2 * 2 * cached_v * KVHv * hdv + 4 * 8 + 4 * tx.numel(),
+                  4.0 * Hv * hdv * (C * cached_v + 8 * C * (C + 1) / 2))
+        del krx, vrx
+    del qx, kx, vx, kq, vq, kpx, vpx, kp8, vp8, ext, qe, ke, ve
     torch.cuda.empty_cache()
 
     # kernel 6 at phi3.5-moe's shapes: 16 experts, D 4096, F 6400 (gate/up;
@@ -1580,6 +1747,242 @@ def main() -> int:
                   f"{[int(b.argmax()) for b in want]}")
         del fparams, runs, got, want, logits
         torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 9. vlm
+    # paligemma-3b whole (18 layers, d 2048, 8 heads over one KV head, hd
+    # 256, d_ff 16384, V 257216, tied embeddings: 2.51 B parameters, 5.0 GB
+    # in bf16), the same 16 requests, each prompt behind 256 zero patches
+    # (the vision stub), dense and paged, batched and async. The patches
+    # take cache positions: a request whose patches + prompt +
+    # max_new_tokens - 1 pass max_seq is rejected. Launches: a prefill call
+    # runs kernel 1 in every layer (the 256 patch keys seen by every
+    # query), a paged extend chunk kernel 5 (a dense one is plain PyTorch),
+    # a decode step kernel 2 (dense) or 4 (paged)
+    vcfg = full_width_config("paligemma-3b")
+    Lv, Pv = vcfg.num_layers, vcfg.num_prefix_embeddings
+    vreqs = [r for _, r in demo_requests(vcfg, **serve_kw)]
+    v_rej = {r.rid for r in vreqs
+             if Pv + len(r.prompt) + r.max_new_tokens - 1 > 1024}
+    v_tokens = sum(r.max_new_tokens for r in vreqs if r.rid not in v_rej)
+    print(f"[vlm] {vcfg.name}: {Pv} patches + prompts of "
+          f"{min(len(r.prompt) for r in vreqs)}-"
+          f"{max(len(r.prompt) for r in vreqs)} tokens, longest contract "
+          f"{max(Pv + len(r.prompt) + r.max_new_tokens - 1 for r in vreqs)}"
+          f" positions of max_seq 1024: {len(v_rej)} to reject")
+    v_streams = {}
+    for mode in ("batched", "async"):
+        for paged in (False, True):
+            kind = f"{mode} {'paged' if paged else 'dense'}"
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset(*kernel_fns.values())
+            vout = serve_demo(vcfg, max_batch=8, max_seq=1024, device="cuda",
+                              paged=paged, admit_mode=mode, **serve_kw)
+            vl = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            vsites = vout["per_site"]
+            rejected = sum(s["rejected"] for s in vsites)
+            check(vout["completed"] == 16 - len(v_rej)
+                  and rejected == len(v_rej)
+                  and set(vout["tokens"]) == {r.rid for r in vreqs} - v_rej,
+                  f"vlm {kind}: completed {vout['completed']}, rejected "
+                  f"{rejected}; the rule rejects {sorted(v_rej)}")
+            chunks = sum(s["extend_chunks"] for s in vsites)
+            steps = sum(s["decode_steps"] for s in vsites)
+            prefills = sum(s["prefill_calls"] for s in vsites) - chunks
+            want_l = {"flash_attention": Lv * prefills}
+            if paged:
+                want_l["paged_extend_attention"] = Lv * chunks
+                want_l["paged_decode_attention"] = Lv * steps
+                check(vout["free_pages"] == vout["num_pages"],
+                      f"vlm {kind}: pages not returned: free "
+                      f"{vout['free_pages']} of {vout['num_pages']}")
+            else:
+                want_l["decode_attention"] = Lv * steps
+            check(vl == want_l and all(want_l.values()),
+                  f"vlm {kind}: launches {vl} != {want_l} ({prefills} "
+                  f"prefill calls, {chunks} extend chunks, {steps} decode "
+                  f"steps)")
+            served_v = sum(s["served_tokens"] for s in vsites)
+            check(served_v == v_tokens, f"vlm {kind}: served {served_v} "
+                  f"tokens, not {v_tokens}")
+            v_streams[mode, paged] = vout["tokens"]
+            base = v_streams["batched", False]
+            same = sum(vout["tokens"][k] == base[k] for k in base)
+            print(f"[vlm] {vcfg.name} {kind} L={Lv} d={vcfg.d_model} "
+                  f"H={vcfg.num_heads} KVH={vcfg.num_kv_heads} "
+                  f"hd={vcfg.head_dim} V={vcfg.vocab_size} bf16: "
+                  f"{vout['completed']}/16 requests ({rejected} rejected), "
+                  f"{served_v} tokens in {vout['wall_seconds']:.3f} s "
+                  f"({served_v / vout['wall_seconds']:.1f} tok/s), "
+                  f"{prefills + chunks + steps} model calls, peak memory "
+                  f"{peak_gb:.2f} GB; launches {vl}; streams equal to the "
+                  f"batched dense run's: {same} of {len(base)}")
+            for i, s in enumerate(vsites):
+                print(f"  site {i}: prefill calls "
+                      f"{s['prefill_calls'] - s['extend_chunks']}, "
+                      f"extend chunks {s['extend_chunks']}, decode steps "
+                      f"{s['decode_steps']}, TTFT mean "
+                      f"{s['mean_ttft'] * 1e3:.1f} / p99 "
+                      f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+                      f"{s['mean_tbt'] * 1e3:.2f} / p99 "
+                      f"{s['p99_tbt'] * 1e3:.2f} ms")
+    torch.cuda.empty_cache()
+
+    # request 0 with random patches through a prefill of its largest power
+    # of 2 below its length, the rest as descending power-of-2 extend
+    # chunks and two greedy decode steps (the kernel path's tokens fed to
+    # both), kernel path vs plain path, over a dense cache and a paged one
+    # on a shuffled table
+    vparams = build_model(vcfg).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    vprompt = torch.as_tensor(vreqs[0].prompt[None, :], device=dev)
+    patches = rnd(1, Pv, vcfg.d_model, dtype=bf, g=g_vlm)
+    S0 = vprompt.shape[1]
+    vbucket = 1 << ((S0 - 1).bit_length() - 1)
+    vtable = torch.randperm(64, generator=g_vlm, device=dev)[None].to(
+        torch.int32)
+
+    def vlm_admit(m, kind):
+        logits, pre = m.prefill_fn(vparams, {"tokens": vprompt[:, :vbucket],
+                                             "patches": patches})
+        if kind == "dense":
+            cache = T.make_decode_cache(vcfg, 1, 1024, dev)
+            insert_cache_rows(cache, pre, numpy.zeros(1, numpy.int32))
+        else:
+            cache = T.make_paged_decode_cache(vcfg, 1, 1024, dev,
+                                              num_pages=64)
+            cache["table"] = vtable.clone()
+            insert_cache_pages(cache["kv"], pre["kv"], vtable[
+                :, :-(-(Pv + vbucket) // 16)].long())
+            cache["pos"] = pre["pos"].clone()
+        done, n = vbucket, 0
+        while done < S0:
+            C = 1 << ((S0 - done).bit_length() - 1)
+            logits, cache = m.extend_fn(
+                vparams, {"tokens": vprompt[:, done:done + C]}, cache)
+            done, n = done + C, n + 1
+        return logits, cache, n
+
+    vruns = {}
+    with torch.no_grad():
+        for kind in ("dense", "paged"):
+            for plain in (False, True):
+                m = build_model(vcfg, reference=plain)
+                logits, cache, vchunks = vlm_admit(m, kind)
+                seq = [logits]
+                for i in range(2):
+                    tok = (vruns[kind, False][i].argmax(-1) if plain
+                           else logits.argmax(-1)).to(torch.int32)
+                    logits, cache = m.decode_fn(vparams, {"token": tok},
+                                                cache)
+                    seq.append(logits)
+                vruns[kind, plain] = seq
+                del cache
+    torch.cuda.synchronize()
+    for kind in ("dense", "paged"):
+        got, want = vruns[kind, False], vruns[kind, True]
+        check(all(a.shape == (1, vcfg.vocab_size)
+                  and bool(torch.isfinite(a).all()) for a in got),
+              f"vlm {kind}: logits shape or non-finite")
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+        check(max(errs) <= LOGIT_BOUND, f"vlm {kind}: logits differ by "
+              f"{max(errs):.3g} > {LOGIT_BOUND}")
+        print(f"[vlm] {kind} request 0 ({Pv} random patches + prompt {S0} "
+              f"tokens): prefill of {vbucket} + {vchunks} extend chunks and "
+              f"2 decode steps, kernel path vs plain path max |logit diff| "
+              f"per call {[round(e, 4) for e in errs]} (bound "
+              f"{LOGIT_BOUND}), argmax {[int(a.argmax()) for a in got]} vs "
+              f"{[int(b.argmax()) for b in want]}")
+    del vruns, got, want, logits
+
+    # int8 at hd 256: a batch of 4 prompts of 256 tokens behind zero
+    # patches, prefilled into a dense and a paged cache and quantized; one
+    # 32-token extend chunk and 4 decode steps through kernels 3 and
+    # 4-int8, the kernel path and the plain path each on its own copy
+    B8, S8, C8, steps8 = 4, 256, 32, 4
+    N8 = Pv + S8                          # cache positions after prefill
+    toks8 = torch.randint(0, vcfg.vocab_size, (B8, S8 + C8 + steps8),
+                          generator=g_vlm, device=dev).to(torch.int32)
+    vmodel = build_model(vcfg)
+    with torch.no_grad():
+        _, pre = vmodel.prefill_fn(vparams, {
+            "tokens": toks8[:, :S8],
+            "patches": torch.zeros((B8, Pv, vcfg.d_model), dtype=bf,
+                                   device=dev)})
+    dense8 = T.make_decode_cache(vcfg, B8, 1024, dev)
+    insert_cache_rows(dense8, pre, numpy.arange(B8, dtype=numpy.int32))
+    pg8 = T.make_paged_decode_cache(vcfg, B8, 1024, dev, num_pages=B8 * 64)
+    pg8["table"] = torch.randperm(B8 * 64, generator=g_vlm,
+                                  device=dev).reshape(B8, 64).to(torch.int32)
+    insert_cache_pages(pg8["kv"], pre["kv"], pg8["table"][:, :N8 // 16].long())
+    pg8["pos"] = pre["pos"].clone()
+    vint8 = {"dense": T.quantize_decode_cache(dense8),
+             "paged": T.quantize_decode_cache(pg8)}
+    del dense8, pg8, pre
+
+    def vlm_int8_run(m, cache):
+        cache = {**cache, "kv": {n: t.clone() for n, t in
+                                 cache["kv"].items()},
+                 "pos": cache["pos"].clone()}
+        logits, cache = m.extend_fn(
+            vparams, {"tokens": toks8[:, S8:S8 + C8]}, cache)
+        out = [logits]
+        for i in range(steps8):           # the same tokens on both paths
+            logits, cache = m.decode_fn(
+                vparams, {"token": toks8[:, S8 + C8 + i]}, cache)
+            out.append(logits)
+        return out
+
+    for kind, c in vint8.items():
+        with torch.no_grad():
+            reset(*kernel_fns.values())
+            got = vlm_int8_run(vmodel, c)
+            torch.cuda.synchronize()
+            k8 = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+            want = vlm_int8_run(build_model(vcfg, reference=True), c)
+        kname = ("decode_attention_int8" if kind == "dense"
+                 else "paged_decode_attention_int8")
+        check(k8 == {kname: Lv * steps8},
+              f"vlm int8 {kind}: launches {k8} != {{{kname}: {Lv} x "
+              f"{steps8}}}")
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"vlm int8 {kind}: non-finite logits")
+        check(max(errs) <= LOGIT_BOUND, f"vlm int8 {kind}: logits differ "
+              f"by {max(errs):.3g} > {LOGIT_BOUND}")
+        print(f"[vlm] int8 {kind}: extend C={C8} then {steps8} decode steps "
+              f"at B={B8}, pos {N8}..{N8 + C8 + steps8} ({Pv} of them "
+              f"patches): launches {k8}; kernel path vs plain path max "
+              f"|logit diff| per call {[round(e, 4) for e in errs]} (bound "
+              f"{LOGIT_BOUND})")
+    del vparams, vmodel, vint8, got, want
+    torch.cuda.empty_cache()
+
+    # a 2-layer fp32 copy at full width: dense and paged, batched and
+    # async give one set of streams (bf16 roundings cannot decide there)
+    vcfg32 = dataclasses.replace(vcfg, num_layers=2, dtype="float32")
+    v32 = {}
+    for mode in ("batched", "async"):
+        for paged in (False, True):
+            o = serve_demo(vcfg32, max_batch=8, max_seq=1024, device="cuda",
+                           paged=paged, admit_mode=mode, verbose=False,
+                           **serve_kw)
+            check(o["completed"] == 16 - len(v_rej),
+                  f"vlm fp32 {mode} paged={paged}: {o['completed']}")
+            v32[mode, paged] = o["tokens"]
+    check(all(t == v32["batched", False] for t in v32.values()),
+          "vlm fp32 2-layer: streams differ between dense/paged or "
+          "batched/async: " + str({k: sum(t[r] != v32["batched", False][r]
+                                          for r in t)
+                                   for k, t in v32.items()}))
+    print(f"[vlm] {vcfg32.num_layers}-layer fp32 at full width: dense and "
+          f"paged, batched and async streams equal over "
+          f"{len(v32['batched', False])} requests "
+          f"({sum(len(t) for t in v32['batched', False].values())} tokens)")
+    torch.cuda.empty_cache()
+    print(f"[vlm] card: {smi}")
 
     # ---------------------------------------------------------- report
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),

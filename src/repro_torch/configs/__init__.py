@@ -1,6 +1,6 @@
 """Architecture registry of the port: the families ported so far (dense,
-with and without qk-norm, moe, ssm and encdec), plus the reduced smoke
-configs; the reference's vlm, MLA and hybrid archs are not registered.
+with and without qk-norm, moe, ssm, encdec and vlm), plus the reduced
+smoke configs; the reference's MLA and hybrid archs are not registered.
 ``PAPER_MODEL`` is the paper's own model, which the co-sim's lookup table
 is built from; it is a configuration only, never served."""
 from __future__ import annotations
@@ -10,6 +10,7 @@ from repro_torch.configs.deepseek_7b import CONFIG as deepseek_7b
 from repro_torch.configs.llama31_70b import CONFIG as llama31_70b
 from repro_torch.configs.llama32_1b import CONFIG as llama32_1b
 from repro_torch.configs.llama3_8b import CONFIG as llama3_8b
+from repro_torch.configs.paligemma_3b import CONFIG as paligemma_3b
 from repro_torch.configs.phi35_moe_42b import CONFIG as phi35_moe_42b
 from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
 from repro_torch.configs.rwkv6_1b6 import CONFIG as rwkv6_1b6
@@ -20,7 +21,8 @@ PAPER_MODEL: ModelConfig = llama31_70b
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [llama32_1b, phi35_moe_42b, rwkv6_1b6, llama3_8b,
-                        qwen3_14b, deepseek_7b, seamless_m4t_medium]}
+                        qwen3_14b, deepseek_7b, seamless_m4t_medium,
+                        paligemma_3b]}
 
 
 def get_config(name: str) -> ModelConfig:

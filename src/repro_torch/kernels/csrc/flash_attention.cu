@@ -7,9 +7,9 @@
 // gives 0.
 //
 // What bounds it on the H100: the card's least time at the serving shapes
-// (prompts of up to a few thousand tokens, hd 64/128) is the bytes of q, k,
-// v and out, read once; the Sq * Sk * hd products stay below that only on
-// the tensor cores. Both kernels share the block layout:
+// (prompts of up to a few thousand tokens, hd 64, 128 and 256) is the
+// bytes of q, k, v and out, read once; the Sq * Sk * hd products stay below
+// that only on the tensor cores. Both kernels share the block layout:
 //  * one block per (64 or 128 rows of (query, grouped head), b * KVH +
 //    kvh): the G query heads of a KV head share every K/V tile, so K/V are
 //    read once per block of rows, not once per query head;
@@ -21,12 +21,14 @@
 //  * four warps; at hd 64 each owns two m16 row fragments (128-row blocks,
 //    as FlashAttention-2 tiles hd 64), so that each K/V fragment load and
 //    each tile's copy, barrier and softmax bookkeeping serve 32 rows; at hd
-//    128 one (64-row blocks: two would not fit the registers). Q is copied
-//    once and held in registers as mma fragments;
-//  * K/V tiles of 64 keys come into a ring of shared-memory stages (three
-//    at hd 64, two at hd 128) by 16-byte cp.async, the next tiles' copies
-//    in flight during this tile's math, one barrier a tile; rows are padded
-//    by 16 bytes, so ldmatrix is free of bank conflicts;
+//    128 and 256 one (64-row blocks: two would not fit the registers). Q
+//    is copied once and held in registers as mma fragments (at hd 256 it
+//    stays in shared memory: see MmaCfg);
+//  * K/V tiles of 64 keys (32 at hd 256) come into a ring of shared-memory
+//    stages (three at hd 64, two at hd 128 and 256) by 16-byte cp.async,
+//    the next tiles' copies in flight during this tile's math, one barrier
+//    a tile; rows are padded by 16 bytes, so ldmatrix is free of bank
+//    conflicts;
 //  * S = Q K^T by mma.sync m16n8k16 (K through ldmatrix); the online
 //    softmax runs in registers on the accumulator layout, its row max
 //    reduced over the four lanes of a quad by shuffles, the 1/sqrt(hd)
@@ -60,12 +62,15 @@ using namespace rt;
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 16;
-constexpr int kRows = kWarps * kRowsPerWarp;  // (query, head) rows per block
-constexpr int kKeys = 32;                     // keys per tile, one per lane
+constexpr int kKeys = 32;  // keys per tile, one per lane (fp32 body)
 
+// the fp32 body's layout: kRowsPerWarp (query, head) rows a warp, 16,
+// or 8 at hd 256, where a lane's 8 output columns of 16 rows would not
+// fit the registers beside the softmax state
 template <int HD>
 struct Smem {
+  static constexpr int kRowsPerWarp = HD == 256 ? 8 : 16;
+  static constexpr int kRows = kWarps * kRowsPerWarp;
   static constexpr int kStride = HD + 4;  // padded K row
   static constexpr int q = 0;
   static constexpr int k = q + kRows * HD;
@@ -96,13 +101,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / KVH;
   const int kvh = blockIdx.y % KVH;
   const int rows_total = Sq * G;
-  const int r0 = blockIdx.x * kRows;
+  const int r0 = blockIdx.x * L::kRows;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
   // Q tile: row r is (query r / G, head kvh * G + r % G), scaled in fp32.
-  for (int i = tid; i < kRows * HD; i += kWarps * 32) {
+  for (int i = tid; i < L::kRows * HD; i += kWarps * 32) {
     const int fr = r0 + i / HD, d = i % HD;
     float x = 0.f;
     if (fr < rows_total) {
@@ -114,14 +119,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   // Keys this block needs: up to the diagonal of its last query, or the
   // prefix, whichever is longer.
-  const int last_q = (min(r0 + kRows, rows_total) - 1) / G;
+  const int last_q = (min(r0 + L::kRows, rows_total) - 1) / G;
   const int n_keys = causal ? min(Sk, max(last_q + 1, prefix_len)) : Sk;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kPer];
-  int qpos[kRowsPerWarp];
+  float m[L::kRowsPerWarp], l[L::kRowsPerWarp], acc[L::kRowsPerWarp][kPer];
+  int qpos[L::kRowsPerWarp];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int fr = r0 + warp * kRowsPerWarp + rr;
+  for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
+    const int fr = r0 + warp * L::kRowsPerWarp + rr;
     qpos[rr] = fr < rows_total ? fr / G : -1;
     m[rr] = kNegInf;
     l[rr] = 0.f;
@@ -131,8 +136,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kbase = k + b * k_sb + kvh * k_sh;
   const T* vbase = v + b * v_sb + kvh * v_sh;
-  const float* Qw = Qs + warp * kRowsPerWarp * HD;
-  float* Pw = Ps + warp * kRowsPerWarp * kKeys;
+  const float* Qw = Qs + warp * L::kRowsPerWarp * HD;
+  float* Pw = Ps + warp * L::kRowsPerWarp * kKeys;
 
   for (int t0 = 0; t0 < n_keys; t0 += kKeys) {
     __syncthreads();  // Q stored; the previous tile fully consumed
@@ -149,15 +154,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // QK^T: lane j scores key t0 + j against the warp's rows.
-    float s[kRowsPerWarp];
+    float s[L::kRowsPerWarp];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = 0.f;
+    for (int rr = 0; rr < L::kRowsPerWarp; ++rr) s[rr] = 0.f;
     const float* krow = Ks + lane * L::kStride;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
       const float4 k4 = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
         const float4 q4 = *reinterpret_cast<const float4*>(Qw + rr * HD + d);
         s[rr] += q4.x * k4.x + q4.y * k4.y + q4.z * k4.z + q4.w * k4.w;
       }
@@ -166,7 +171,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     // Online softmax over the tile; masked keys get p = 0 exactly.
     const int key = t0 + lane;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
       const bool valid = qpos[rr] >= 0 && key < n_keys &&
                          (!causal || key <= qpos[rr] || key < prefix_len);
       const float sv = valid ? s[rr] : kNegInf;
@@ -191,7 +196,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < kPer; ++i)
           vv[jj][i] = Vs[(j + jj) * HD + lane + 32 * i];
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
         const float4 p4 = *reinterpret_cast<const float4*>(Pw + rr * kKeys + j);
 #pragma unroll
         for (int i = 0; i < kPer; ++i)
@@ -202,8 +207,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int fr = r0 + warp * kRowsPerWarp + rr;
+  for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
+    const int fr = r0 + warp * L::kRowsPerWarp + rr;
     if (fr >= rows_total) continue;
     const int qp = fr / G, h = kvh * G + fr % G;
     const float denom = fmaxf(l[rr], 1e-30f);
@@ -215,29 +220,37 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------ bf16: mma
-constexpr int kTileKeys = 64;  // keys per K/V tile
-
 // kMT m16 row fragments per warp: two at hd 64 (128-row blocks, as
 // FlashAttention-2 tiles hd 64), so that each K/V fragment load and each
 // tile's copy, barrier and softmax bookkeeping serve twice the rows; one at
-// hd 128, where two would not fit the registers. kStages K/V tiles in the
-// ring: three at hd 64 (two in flight during a tile's math); two at hd 128,
-// where three blocks of 168 registers then share an SM. Stage s holds K
-// then V; Q passes through the last stage, in registers before that stage
-// is first filled.
+// hd 128, where two would not fit the registers. kStages K/V tiles of
+// kTileKeys keys in the ring: three at hd 64 (two in flight during a
+// tile's math); two at hd 128, where three blocks of 168 registers then
+// share an SM. Stage s holds K then V; Q passes through the last stage, in
+// registers before that stage is first filled.
+// hd 256: a lane's 128 fp32 output accumulators leave no room for Q's 64
+// fragment registers, so Q stays in shared memory (its own region past
+// the ring) and each 16-column k-step of Q K^T loads its A fragment by
+// ldmatrix; tiles of 32 keys halve the score fragments, and V's B
+// fragments come kVFrags at a time, not all 16 at once.
 template <int HD>
 struct MmaCfg {
   static constexpr int kMT = HD == 64 ? 2 : 1;
   static constexpr int kStages = HD == 64 ? 3 : 2;
-  static constexpr int kMinBlocks = HD == 64 ? 1 : 3;
+  static constexpr int kMinBlocks = HD == 128 ? 3 : 1;
+  static constexpr int kTileKeys = HD == 256 ? 32 : 64;  // keys per tile
+  static constexpr bool kQSmem = HD == 256;     // Q fragments from smem
+  static constexpr int kVFrags = HD == 256 ? 4 : HD / 16;
   static constexpr int kRows = kWarps * 16 * kMT;  // (query, head) rows
   static constexpr int kStride = HD + 8;  // bf16 per row, padded 16 bytes
   static constexpr int kTile = kTileKeys * kStride;
   static constexpr int kStage = 2 * kTile;
-  static constexpr int q = (kStages - 1) * kStage;
-  static constexpr int elems = kStages * kStage;
+  static constexpr int q = (kStages - (kQSmem ? 0 : 1)) * kStage;
+  static constexpr int elems =
+      kStages * kStage + (kQSmem ? kRows * kStride : 0);
   static constexpr size_t bytes = elems * sizeof(__nv_bfloat16);
-  static_assert(kRows <= 2 * kTileKeys, "Q fits one stage");
+  static_assert(kQSmem || kRows <= 2 * kTileKeys, "Q fits one stage");
+  static_assert((HD / 16) % kVFrags == 0, "V fragments in whole groups");
 };
 
 // the unaligned instantiation (scalar copies, a cold path) takes the
@@ -256,6 +269,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   using L = MmaCfg<HD>;
   constexpr int kMT = L::kMT;
   constexpr int kStages = L::kStages;
+  constexpr int kTileKeys = L::kTileKeys;
+  constexpr int kVF = L::kVFrags;
   constexpr int kThreads = kWarps * 32;
   constexpr int kChunks = HD / 8;               // 16-byte chunks per row
   constexpr int kRowStep = kThreads / kChunks;  // rows one copy pass covers
@@ -342,17 +357,21 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       n_tiles, (r0 + L::kRows <= rows_total ? row_lim(r0) : 0) / kTileKeys);
 
   // Q into registers, then its buffer (the last stage) joins the ring
-  uint32_t qf[kMT][HD / 16][4];
+  // (hd 256: Q stays where it is)
+  uint32_t qf[kMT][L::kQSmem ? 1 : HD / 16][4];
+  auto q_frag = [&](uint32_t(&r)[4], int mt, int kk) {
+    ldmatrix_x4(r, Qs + (wrow + mt * 16 + (lane & 15)) * L::kStride +
+                       kk * 16 + (lane >> 4) * 8);
+  };
   cp_async_wait<0>();
   __syncthreads();
+  if constexpr (!L::kQSmem) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      ldmatrix_x4(qf[mt][kk],
-                  Qs + (wrow + mt * 16 + (lane & 15)) * L::kStride + kk * 16 +
-                      (lane >> 4) * 8);
-  __syncthreads();
+      for (int kk = 0; kk < HD / 16; ++kk) q_frag(qf[mt][kk], mt, kk);
+    __syncthreads();
+  }
 #pragma unroll
   for (int s = 1; s < kStages - 1; ++s) {
     if (s < n_tiles) load_kv(s, s);
@@ -405,12 +424,22 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
         ldmatrix_x4(kb[np], Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
                                      L::kStride +
                                 kk * 16 + ((lane >> 3) & 1) * 8);
+      uint32_t qa[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if constexpr (L::kQSmem) {
+          q_frag(qa[mt], mt, kk);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[mt][i] = qf[mt][kk][i];
+        }
+      }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int np = 0; np < kNT / 2; ++np) {
-          mma_bf16(s[mt][2 * np], qf[mt][kk], kb[np][0], kb[np][1]);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], kb[np][2], kb[np][3]);
+          mma_bf16(s[mt][2 * np], qa[mt], kb[np][0], kb[np][1]);
+          mma_bf16(s[mt][2 * np + 1], qa[mt], kb[np][2], kb[np][3]);
         }
     }
     if constexpr (decltype(kMask)::value) {
@@ -458,28 +487,33 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       }
 
     // O += P V: P's accumulator layout is the A fragment layout, so P goes
-    // to bf16 in registers; V rows are K-major for B, hence .trans
+    // to bf16 in registers; V rows are K-major for B, hence .trans; kVF
+    // column fragments at a time
 #pragma unroll
     for (int kk = 0; kk < kTileKeys / 16; ++kk) {
-      uint32_t vb[HD / 16][4];
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp)
-        ldmatrix_x4_trans(vb[dp], Vt + (kk * 16 + (lane & 7) +
-                                        ((lane >> 3) & 1) * 8) * L::kStride +
-                                      dp * 16 + (lane >> 4) * 8);
+      for (int d0 = 0; d0 < HD / 16; d0 += kVF) {
+        uint32_t vb[kVF][4];
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const float(*p)[4] = s[mt];
-        const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                                pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                                pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                                pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+        for (int dp = 0; dp < kVF; ++dp)
+          ldmatrix_x4_trans(vb[dp], Vt + (kk * 16 + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8) * L::kStride +
+                                        (d0 + dp) * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          mma_bf16(oacc[mt][2 * dp], pa, vb[dp][0], vb[dp][1]);
-          mma_bf16(oacc[mt][2 * dp + 1], pa, vb[dp][2], vb[dp][3]);
+        for (int mt = 0; mt < kMT; ++mt) {
+          const float(*p)[4] = s[mt];
+          const uint32_t pa[4] = {
+              pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+          for (int dp = 0; dp < kVF; ++dp) {
+            mma_bf16(oacc[mt][2 * (d0 + dp)], pa, vb[dp][0], vb[dp][1]);
+            mma_bf16(oacc[mt][2 * (d0 + dp) + 1], pa, vb[dp][2], vb[dp][3]);
+          }
+          if (d0 + kVF == HD / 16) mma_bf16(lacc[mt], pa, kOnes, kOnes);
         }
-        mma_bf16(lacc[mt], pa, kOnes, kOnes);
       }
     }
   };
@@ -518,7 +552,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const size_t smem = smem_bytes<T, HD>();
   const int G = H / KVH;
   if constexpr (std::is_same<T, float>::value) {
-    const dim3 grid((Sq * G + kRows - 1) / kRows, B * KVH);
+    constexpr int rows = Smem<HD>::kRows;
+    const dim3 grid((Sq * G + rows - 1) / rows, B * KVH);
     auto kern = flash_fwd<T, HD>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -566,11 +601,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == kBFloat16 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Sk, H, KVH, strides,
                                       causal, prefix_len, scale, s);
+  if (dtype == kBFloat16 && hd == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, B, Sq, Sk, H, KVH, strides,
+                                      causal, prefix_len, scale, s);
   if (dtype == kFloat32 && hd == 64)
     return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KVH, strides, causal,
                              prefix_len, scale, s);
   if (dtype == kFloat32 && hd == 128)
     return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KVH, strides, causal,
+                              prefix_len, scale, s);
+  if (dtype == kFloat32 && hd == 256)
+    return launch<float, 256>(q, k, v, o, B, Sq, Sk, H, KVH, strides, causal,
                               prefix_len, scale, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -581,7 +622,9 @@ extern "C" int flash_attention_smem_bytes(int dtype, int hd) {
   using bf16 = __nv_bfloat16;
   if (dtype == kBFloat16 && hd == 64) return (int)smem_bytes<bf16, 64>();
   if (dtype == kBFloat16 && hd == 128) return (int)smem_bytes<bf16, 128>();
+  if (dtype == kBFloat16 && hd == 256) return (int)smem_bytes<bf16, 256>();
   if (dtype == kFloat32 && hd == 64) return (int)smem_bytes<float, 64>();
   if (dtype == kFloat32 && hd == 128) return (int)smem_bytes<float, 128>();
+  if (dtype == kFloat32 && hd == 256) return (int)smem_bytes<float, 256>();
   return 0;
 }

@@ -36,7 +36,7 @@
 //    a KV head still share one read of its rows. One launch, no scratch
 //    memory, no atomics, no host read. At most 96 registers a thread, so
 //    kMinBlocks blocks fit an SM and the 64 clusters of 8 rows x 8 KV heads
-//    run in one wave;
+//    run in one wave (hd 256: 168 registers, three blocks an SM);
 //  * one memory latency a split: a block stages the table entries its
 //    split can touch into shared memory (clamped), while its length and q
 //    load, and then issues the split's K rows, then its V rows (and the
@@ -46,12 +46,13 @@
 //    so no copy waits on a table load. A split past its row's length copies
 //    nothing and leaves an empty partial (m = -1e30, l = 0);
 //  * the chunk in two passes, fp32 throughout: QK by lane groups (kGroup
-//    lanes share a key, each holding 8 elements of its row, 4 at fp32, and
-//    of the kHeads query rows), their partial dot products reduced and
-//    scattered over the group's lanes by a butterfly (log2(kGroup) + 1
-//    shuffles for all kHeads heads) into a score table; then a softmax of
-//    each head by one warp, continuing a running (m, l), with the scale
-//    folded into one FFMA before ex2; then PV with each warp summing a
+//    lanes share a key, each holding 8 elements of its row, 4 at fp32 hd
+//    64 and 128, and of the kHeads query rows), their partial dot
+//    products reduced and scattered over the group's lanes by a butterfly
+//    (log2(kGroup) + 1 shuffles for all kHeads heads) into a score table;
+//    then a softmax of each head by one warp, continuing a running (m, l),
+//    with the scale folded into one FFMA before ex2; then PV with each
+//    warp summing a
 //    quarter of the keys into every lane's hd / 32 columns of all heads.
 //    QK and the softmax run while the V rows still arrive. The warps' sums
 //    add up in warp order into the block's partial;
@@ -82,7 +83,7 @@ constexpr int kHeads = 4;                 // query heads per block
 constexpr int kSplitKeys = 128;           // the shortest split
 constexpr int kMaxSplits = 8;             // the portable cluster size
 constexpr int kRingBudget = 32 * 1024;    // K/V bytes a chunk may take
-constexpr int kMinBlocks = 5;             // blocks an SM holds
+constexpr int kMinBlocks = 5;             // blocks an SM holds (hd <= 128)
 
 // Element strides, in elements of each tensor.
 struct Strides {
@@ -108,8 +109,10 @@ template <typename T, int HD>
 struct Cfg {
   static constexpr bool kScaled = sizeof(T) == 1;    // int8 rows + scales
   // QK: kGroup lanes share a key, each holding kPer elements of its row
-  // and of the kHeads query rows
-  static constexpr int kPer = sizeof(T) == 4 ? 4 : 8;
+  // and of the kHeads query rows: 8 (one 16-byte load at bf16, 8 bytes at
+  // int8), 4 at fp32 (one float4), 8 at fp32 hd 256 (two float4)
+  static constexpr int kPer =
+      sizeof(T) == 4 ? (HD / 32 > 4 ? HD / 32 : 4) : 8;
   static constexpr int kGroup = HD / kPer;
   static_assert(kGroup >= 8 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
                 "a key row spans 8, 16 or 32 lanes");
@@ -144,6 +147,10 @@ struct Cfg {
   // block uses its own split's slot), then the fresh token's
   static constexpr int slots = corr + 16;
   static constexpr int tab = slots + (kMaxSplits + 1) * kPart * 4;  // ints
+  // at hd 256 q (kHeads x kPer), a QK step's rows and the PV sums (kHeads x
+  // kDL) take 32 registers each: three blocks an SM (168 registers a
+  // thread; their ~70 KB of shared memory allows no more)
+  static constexpr int kMinBlocks = HD == 256 ? 3 : paged::kMinBlocks;
 };
 
 // How a call is cut: key splits (the cluster size) and their length, the
@@ -185,12 +192,16 @@ __device__ __forceinline__ void row_slice(const T* p, float* out) {
   load_vec<N>(p, out);
 }
 
-// N = 2 or 4 consecutive elements of a V row in shared memory, as fp32
+// N = 2, 4 or 8 consecutive elements of a V row in shared memory, as fp32
 template <int N>
 __device__ __forceinline__ void col_slice(const float* p, float* out) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x, out[1] = t.y, out[2] = t.z, out[3] = t.w;
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      out[4 * i] = t.x, out[4 * i + 1] = t.y, out[4 * i + 2] = t.z,
+              out[4 * i + 3] = t.w;
+    }
   } else {
     const float2 t = *reinterpret_cast<const float2*>(p);
     out[0] = t.x, out[1] = t.y;
@@ -208,7 +219,12 @@ __device__ __forceinline__ void col_slice(const __nv_bfloat16* p,
 }
 template <int N>
 __device__ __forceinline__ void col_slice(const int8_t* p, float* out) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const int2 t = *reinterpret_cast<const int2*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  } else if constexpr (N == 4) {
     const int t = *reinterpret_cast<const int*>(p);
     const int8_t* c = reinterpret_cast<const int8_t*>(&t);
 #pragma unroll
@@ -248,7 +264,7 @@ __device__ __forceinline__ float base_of(float mx, float c) {
 }
 
 template <typename Q, typename T, int HD, bool kPaged>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Cfg<T, HD>::kMinBlocks)
 decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ ks,
                  const float* __restrict__ vs, const int* __restrict__ table,
@@ -454,9 +470,10 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // softmax of head `warp` over the chunk, continuing its running state;
-    // Pr becomes the probabilities, Corr the factor on the earlier sums
+    // Pr becomes the probabilities, Corr the factor on the earlier sums (a
+    // 16-key chunk, fp32 at hd 256, leaves half the lanes idle)
     {
-      constexpr int kPerLane = kChunk / 32;
+      constexpr int kPerLane = (kChunk + 31) / 32;
       float sv[kPerLane], mx = m_run;
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
@@ -672,8 +689,10 @@ int launch_int8(int qdtype, int hd, const void* q, const void* k,
                                            page, num_pages, st, scale, s);
   RT_INT8_CASE(__nv_bfloat16, kBFloat16, 64)
   RT_INT8_CASE(__nv_bfloat16, kBFloat16, 128)
+  RT_INT8_CASE(__nv_bfloat16, kBFloat16, 256)
   RT_INT8_CASE(float, kFloat32, 64)
   RT_INT8_CASE(float, kFloat32, 128)
+  RT_INT8_CASE(float, kFloat32, 256)
 #undef RT_INT8_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -688,10 +707,13 @@ inline int plan(int cdtype, int hd, int W, int page, Plan* out) {
   }
   RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 64)
   RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 128)
+  RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 256)
   RT_PLAN_CASE(float, kFloat32, 64)
   RT_PLAN_CASE(float, kFloat32, 128)
+  RT_PLAN_CASE(float, kFloat32, 256)
   RT_PLAN_CASE(int8_t, kInt8, 64)
   RT_PLAN_CASE(int8_t, kInt8, 128)
+  RT_PLAN_CASE(int8_t, kInt8, 256)
 #undef RT_PLAN_CASE
   return (int)cudaErrorInvalidValue;
 }

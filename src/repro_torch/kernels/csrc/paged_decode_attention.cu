@@ -39,8 +39,10 @@ extern "C" int paged_decode_attention_fwd(
                                    num_pages, strides, scale, s);
   RT_FP_CASE(__nv_bfloat16, kBFloat16, 64)
   RT_FP_CASE(__nv_bfloat16, kBFloat16, 128)
+  RT_FP_CASE(__nv_bfloat16, kBFloat16, 256)
   RT_FP_CASE(float, kFloat32, 64)
   RT_FP_CASE(float, kFloat32, 128)
+  RT_FP_CASE(float, kFloat32, 256)
 #undef RT_FP_CASE
   return (int)cudaErrorInvalidValue;
 }

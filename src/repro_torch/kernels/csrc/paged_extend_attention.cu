@@ -25,8 +25,9 @@
 //    the online softmax on the accumulator layout with the scale folded
 //    into one FFMA before ex2, P rounded to bf16 in registers, the row
 //    sums as a ones column of the PV product;
-//  * K/V tiles of 64 keys (4 pages of 16) arrive in a ring of shared-
-//    memory stages (three at hd 64, two at hd 128) by 16-byte cp.async, a
+//  * K/V tiles of 64 keys (4 pages of 16; 32 keys at hd 256, where Q stays
+//    in shared memory, see MmaCfg) arrive in a ring of shared-memory
+//    stages (three at hd 64, two at hd 128 and 256) by 16-byte cp.async, a
 //    key row of one KV head being hd * 2 contiguous bytes of its page. A
 //    block reads the table entries its keys touch into shared memory once,
 //    before its first copy, so no copy waits on a table load;
@@ -62,9 +63,8 @@ using namespace rt;
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 16;
-constexpr int kRows = kWarps * kRowsPerWarp;  // (query, head) rows per block
-constexpr int kKeys = 32;                     // keys per tile, one per lane
+constexpr int kRows = kWarps * 16;  // (query, head) rows per block (bf16)
+constexpr int kKeys = 32;           // keys per tile, one per lane (fp32)
 
 struct Strides {
   long long q_b, q_s, q_h;      // q [B, C, H, hd]
@@ -75,8 +75,13 @@ struct Strides {
   long long tab_b;              // table [B, W]
 };
 
+// the fp32 body's layout: kRowsPerWarp (query, head) rows a warp, 16,
+// or 8 at hd 256, where a lane's 8 output columns of 16 rows would not
+// fit the registers beside the softmax state
 template <int HD>
 struct Smem {
+  static constexpr int kRowsPerWarp = HD == 256 ? 8 : 16;
+  static constexpr int kRows = kWarps * kRowsPerWarp;
   static constexpr int kStride = HD + 4;  // padded K row
   static constexpr int q = 0;
   static constexpr int k = q + kRows * HD;
@@ -108,13 +113,13 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / KVH;
   const int kvh = blockIdx.y % KVH;
   const int rows_total = C * G;
-  const int r0 = blockIdx.x * kRows;
+  const int r0 = blockIdx.x * L::kRows;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
   // Q tile: row r is (query r / G, head kvh * G + r % G), scaled in fp32.
-  for (int i = tid; i < kRows * HD; i += kWarps * 32) {
+  for (int i = tid; i < L::kRows * HD; i += kWarps * 32) {
     const int fr = r0 + i / HD, d = i % HD;
     float x = 0.f;
     if (fr < rows_total) {
@@ -127,15 +132,15 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
   // Keys: n_cached from the pages, then the chunk's own up to the
   // diagonal of the block's last query.
   const int n_cached = min(max(pos[b], 0), W * page);
-  const int last_q = (min(r0 + kRows, rows_total) - 1) / G;
+  const int last_q = (min(r0 + L::kRows, rows_total) - 1) / G;
   const int n_keys = n_cached + min(C, last_q + 1);
   const int* trow = table + b * st.tab_b;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kPer];
-  int qpos[kRowsPerWarp];
+  float m[L::kRowsPerWarp], l[L::kRowsPerWarp], acc[L::kRowsPerWarp][kPer];
+  int qpos[L::kRowsPerWarp];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int fr = r0 + warp * kRowsPerWarp + rr;
+  for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
+    const int fr = r0 + warp * L::kRowsPerWarp + rr;
     qpos[rr] = fr < rows_total ? fr / G : -1;
     m[rr] = kNegInf;
     l[rr] = 0.f;
@@ -145,8 +150,8 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* knb = k_new + b * st.kn_b + kvh * st.kn_h;
   const T* vnb = v_new + b * st.vn_b + kvh * st.vn_h;
-  const float* Qw = Qs + warp * kRowsPerWarp * HD;
-  float* Pw = Ps + warp * kRowsPerWarp * kKeys;
+  const float* Qw = Qs + warp * L::kRowsPerWarp * HD;
+  float* Pw = Ps + warp * L::kRowsPerWarp * kKeys;
 
   for (int t0 = 0; t0 < n_keys; t0 += kKeys) {
     __syncthreads();  // Q stored; the previous tile fully consumed
@@ -169,15 +174,15 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // QK^T: lane j scores key t0 + j against the warp's rows.
-    float s[kRowsPerWarp];
+    float s[L::kRowsPerWarp];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = 0.f;
+    for (int rr = 0; rr < L::kRowsPerWarp; ++rr) s[rr] = 0.f;
     const float* krow = Ks + lane * L::kStride;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
       const float4 k4 = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
         const float4 q4 = *reinterpret_cast<const float4*>(Qw + rr * HD + d);
         s[rr] += q4.x * k4.x + q4.y * k4.y + q4.z * k4.z + q4.w * k4.w;
       }
@@ -187,7 +192,7 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
     // cached key is seen by every query, the chunk's key c by queries >= c.
     const int key = t0 + lane;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
       const bool valid = qpos[rr] >= 0 && key < n_keys &&
                          (key < n_cached || key - n_cached <= qpos[rr]);
       const float sv = valid ? s[rr] : kNegInf;
@@ -212,7 +217,7 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < kPer; ++i)
           vv[jj][i] = Vs[(j + jj) * HD + lane + 32 * i];
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
         const float4 p4 = *reinterpret_cast<const float4*>(Pw + rr * kKeys + j);
 #pragma unroll
         for (int i = 0; i < kPer; ++i)
@@ -223,8 +228,8 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int fr = r0 + warp * kRowsPerWarp + rr;
+  for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
+    const int fr = r0 + warp * L::kRowsPerWarp + rr;
     if (fr >= rows_total) continue;
     const int qi = fr / G, h = kvh * G + fr % G;
     const float denom = fmaxf(l[rr], 1e-30f);
@@ -237,25 +242,34 @@ paged_extend_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 
 // ------------------------------------------------------------ bf16: mma
-constexpr int kTileKeys = 64;  // keys per K/V tile
 constexpr int kMaxSplits = 8;  // the portable cluster size
 constexpr int kSplitKeys = 128;     // the shortest split
 constexpr int kSplitRowBlocks = 4;  // chunks of fewer row blocks split
 
-// kStages K/V tiles in the ring; stage s holds K then V; Q passes through
-// the last stage, in registers before that stage is first filled; after
-// the loop the ring holds the block's partial. The table slice follows.
+// kStages K/V tiles of kTileKeys keys in the ring; stage s holds K then V;
+// Q passes through the last stage, in registers before that stage is first
+// filled; after the loop the ring holds the block's partial. The table
+// slice follows. hd 256 takes flash_attention.cu's hd-256 tiling: Q stays
+// in shared memory (its own region past the ring, which the partial may
+// then reuse) and gives its A fragments by ldmatrix at each k-step, tiles
+// of 32 keys, and V's B fragments kVFrags at a time, so that the 128 fp32
+// output accumulators a lane holds fit the registers.
 template <int HD>
 struct MmaCfg {
   static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kTileKeys = HD == 256 ? 32 : 64;  // keys per tile
+  static constexpr bool kQSmem = HD == 256;     // Q fragments from smem
+  static constexpr int kVFrags = HD == 256 ? 4 : HD / 16;
   static constexpr int kStride = HD + 8;  // bf16 per row, padded 16 bytes
   static constexpr int kTile = kTileKeys * kStride;
   static constexpr int kStage = 2 * kTile;
-  static constexpr int q = (kStages - 1) * kStage;
-  static constexpr int ring_bytes = kStages * kStage * 2;
+  static constexpr int q = (kStages - (kQSmem ? 0 : 1)) * kStage;
+  static constexpr int ring_bytes =
+      (kStages * kStage + (kQSmem ? kRows * kStride : 0)) * 2;
   static constexpr int kPStr = HD + 4;  // fp32 row of a partial O
-  static_assert(64 * kPStr * 4 + 2 * 64 * 4 <= ring_bytes,
+  static_assert(kRows * kPStr * 4 + 2 * kRows * 4 <= ring_bytes,
                 "a partial fits the ring");
+  static_assert((HD / 16) % kVFrags == 0, "V fragments in whole groups");
 };
 
 // How a call is cut: row blocks, key splits and their length, table
@@ -271,6 +285,7 @@ Plan plan_for(int C, int G, int W, int page) {
   const long long span = (long long)W * page + C;  // a row's keys at most
   long long len = span;
   if (p.row_blocks < kSplitRowBlocks) {
+    constexpr int kTileKeys = MmaCfg<HD>::kTileKeys;
     const long long per =
         (span + kMaxSplits - 1) / kMaxSplits;  // at most kMaxSplits
     len = (per + kTileKeys - 1) / kTileKeys * kTileKeys;
@@ -301,6 +316,8 @@ paged_extend_fwd_mma(const __nv_bfloat16* __restrict__ q,
   using L = MmaCfg<HD>;
   constexpr int kThreads = kWarps * 32;
   constexpr int kStages = L::kStages;
+  constexpr int kTileKeys = L::kTileKeys;
+  constexpr int kVF = L::kVFrags;
   constexpr int kChunks = HD / 8;               // 16-byte chunks per row
   constexpr int kRowStep = kThreads / kChunks;  // rows one copy pass covers
   constexpr int kNT = kTileKeys / 8;            // n8 score tiles per K tile
@@ -404,16 +421,22 @@ paged_extend_fwd_mma(const __nv_bfloat16* __restrict__ q,
   const int n_whole =
       min(n_tiles, max(0, (row_lim(r0) - k_begin) / kTileKeys));
 
-  uint32_t qf[HD / 16][4];
+  // Q into registers, then its buffer (the last stage) joins the ring
+  // (hd 256: Q stays where it is)
+  uint32_t qf[L::kQSmem ? 1 : HD / 16][4];
+  auto q_frag = [&](uint32_t(&r)[4], int kk) {
+    ldmatrix_x4(r, Qs + (wrow + (lane & 15)) * L::kStride + kk * 16 +
+                       (lane >> 4) * 8);
+  };
   cp_async_wait<0>();
   __syncthreads();
-  if (n_tiles > 0) {
+  if constexpr (!L::kQSmem) {
+    if (n_tiles > 0) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      ldmatrix_x4(qf[kk], Qs + (wrow + (lane & 15)) * L::kStride + kk * 16 +
-                              (lane >> 4) * 8);
+      for (int kk = 0; kk < HD / 16; ++kk) q_frag(qf[kk], kk);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 #pragma unroll
   for (int s = 1; s < kStages - 1; ++s) {
     if (s < n_tiles) load_kv(s, s);
@@ -456,10 +479,17 @@ paged_extend_fwd_mma(const __nv_bfloat16* __restrict__ q,
         ldmatrix_x4(kf[np], Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
                                      L::kStride +
                                 kk * 16 + ((lane >> 3) & 1) * 8);
+      uint32_t qa[4];
+      if constexpr (L::kQSmem) {
+        q_frag(qa, kk);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+      }
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
-        mma_bf16(s[2 * np], qf[kk], kf[np][0], kf[np][1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kf[np][2], kf[np][3]);
+        mma_bf16(s[2 * np], qa, kf[np][0], kf[np][1]);
+        mma_bf16(s[2 * np + 1], qa, kf[np][2], kf[np][3]);
       }
     }
     if constexpr (decltype(kMask)::value) {
@@ -501,20 +531,23 @@ paged_extend_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
     for (int kk = 0; kk < kTileKeys / 16; ++kk) {
-      uint32_t vf[HD / 16][4];
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp)
-        ldmatrix_x4_trans(vf[dp], Vt + (kk * 16 + (lane & 7) +
-                                        ((lane >> 3) & 1) * 8) * L::kStride +
-                                      dp * 16 + (lane >> 4) * 8);
       const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        mma_bf16(oacc[2 * dp], pa, vf[dp][0], vf[dp][1]);
-        mma_bf16(oacc[2 * dp + 1], pa, vf[dp][2], vf[dp][3]);
+      for (int d0 = 0; d0 < HD / 16; d0 += kVF) {
+        uint32_t vf[kVF][4];
+#pragma unroll
+        for (int dp = 0; dp < kVF; ++dp)
+          ldmatrix_x4_trans(vf[dp], Vt + (kk * 16 + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8) * L::kStride +
+                                        (d0 + dp) * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int dp = 0; dp < kVF; ++dp) {
+          mma_bf16(oacc[2 * (d0 + dp)], pa, vf[dp][0], vf[dp][1]);
+          mma_bf16(oacc[2 * (d0 + dp) + 1], pa, vf[dp][2], vf[dp][3]);
+        }
       }
       mma_bf16(lacc, pa, kOnes, kOnes);
     }
@@ -668,7 +701,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_new,
     const int G = H / KVH;
     const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
                      s[8], s[9], s[10], s[11], s[12], s[13], s[14], s[15]};
-    const dim3 grid((C * G + kRows - 1) / kRows, B * KVH);
+    constexpr int rows = Smem<HD>::kRows;
+    const dim3 grid((C * G + rows - 1) / rows, B * KVH);
     kern<<<grid, kWarps * 32, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(k_new),
@@ -698,8 +732,10 @@ extern "C" int paged_extend_attention_fwd(
                           W, page, num_pages, strides, scale, s);
   RT_CASE(__nv_bfloat16, kBFloat16, 64)
   RT_CASE(__nv_bfloat16, kBFloat16, 128)
+  RT_CASE(__nv_bfloat16, kBFloat16, 256)
   RT_CASE(float, kFloat32, 64)
   RT_CASE(float, kFloat32, 128)
+  RT_CASE(float, kFloat32, 256)
 #undef RT_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -716,9 +752,16 @@ extern "C" int paged_extend_attention_plan(int dtype, int hd, int C, int H,
     p = plan_for<64>(C, H / KVH, W, page);
   } else if (dtype == kBFloat16 && hd == 128) {
     p = plan_for<128>(C, H / KVH, W, page);
-  } else if (dtype == kFloat32 && (hd == 64 || hd == 128)) {
-    p = {(C * (H / KVH) + kRows - 1) / kRows, 1, W * page + C, 0,
-         (int)(hd == 64 ? Smem<64>::bytes : Smem<128>::bytes)};
+  } else if (dtype == kBFloat16 && hd == 256) {
+    p = plan_for<256>(C, H / KVH, W, page);
+  } else if (dtype == kFloat32 && (hd == 64 || hd == 128 || hd == 256)) {
+    auto fma = [&](int rows, size_t bytes) {
+      return Plan{(C * (H / KVH) + rows - 1) / rows, 1, W * page + C, 0,
+                  (int)bytes};
+    };
+    p = hd == 64    ? fma(Smem<64>::kRows, Smem<64>::bytes)
+        : hd == 128 ? fma(Smem<128>::kRows, Smem<128>::bytes)
+                    : fma(Smem<256>::kRows, Smem<256>::bytes);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -41,8 +41,8 @@ def _aligned(t) -> bool:
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
-    """q: [B,H,hd]; caches: [B,S,KVH,hd] CUDA tensors (bf16 or fp32, hd 64
-    or 128, last dim contiguous, rows 16-byte aligned); lengths: [B] int32
+    """q: [B,H,hd]; caches: [B,S,KVH,hd] CUDA tensors (bf16 or fp32, hd
+    in HEAD_DIMS, last dim contiguous, rows 16-byte aligned); lengths: [B] int32
     valid tokens per row, clamped to [0, S] by the kernel -> [B,H,hd]."""
     if (q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape
             or lengths.shape != (q.shape[0],)):

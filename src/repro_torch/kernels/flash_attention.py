@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 @functools.cache
@@ -41,8 +41,8 @@ def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
-    """q: [B,Sq,H,hd]; k/v: [B,Sk,KVH,hd] CUDA tensors (bf16 or fp32, hd 64
-    or 128, last dim contiguous, any other strides) -> [B,Sq,H,hd]."""
+    """q: [B,Sq,H,hd]; k/v: [B,Sk,KVH,hd] CUDA tensors (bf16 or fp32, hd
+    in HEAD_DIMS, last dim contiguous, any other strides) -> [B,Sq,H,hd]."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")

@@ -173,7 +173,7 @@ def _paged(name, q, k_pool, v_pool, table, lengths, k_scale, v_scale,
 
 def paged_decode_attention(q, k_pool, v_pool, table, lengths):
     """q: [B,H,hd]; pools [P,page,KVH,hd] of q's dtype (bf16 or fp32, hd
-    64 or 128, rows 16-byte aligned); table [B,W] int32 (ids past the
+    in HEAD_DIMS, rows 16-byte aligned); table [B,W] int32 (ids past the
     pool clamp to its last page); lengths [B] int32 valid tokens, the new
     one included, clamped to [0, W*page] -> [B,H,hd]."""
     out = _paged("paged_decode_attention", q, k_pool, v_pool, table,

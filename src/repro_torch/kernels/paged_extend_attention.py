@@ -46,7 +46,7 @@ def plan(dtype: torch.dtype, head_dim: int, chunk: int, heads: int,
 
 def paged_extend_attention(q, k_pool, v_pool, k_new, v_new, table, pos):
     """q: [B,C,H,hd]; pools [P,page,KVH,hd]; k_new/v_new [B,C,KVH,hd], all
-    CUDA tensors of one dtype (bf16 or fp32, hd 64 or 128, last dim
+    CUDA tensors of one dtype (bf16 or fp32, hd in HEAD_DIMS, last dim
     contiguous); table [B,W] int32 (ids past the pool clamp to its last
     page); pos [B] int32 cached tokens per row, clamped to [0, W*page]
     -> [B,C,H,hd]."""

@@ -4,6 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.profile \
       --arch phi3.5-moe-42b-a6.6b --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.profile \
+      --arch paligemma-3b [--paged]
 
 Runs ``serve_demo`` at an arch's full width (default llama3.2-1b) and
 published depth, or at ``--layers`` layers (phi3.5-moe needs 8: its 32

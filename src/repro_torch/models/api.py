@@ -4,7 +4,9 @@
 
     init_params(generator)            -> params (on generator.device)
     prefill_fn(params, inputs)        -> (logits, cache)   (+ "frames"
-                                                            for encdec)
+                                                            for encdec,
+                                                            "patches"
+                                                            for vlm)
     extend_fn(params, inputs, cache)  -> (logits, cache)   cache in place
     decode_fn(params, inputs, cache)  -> (logits, cache)   cache in place
 
@@ -24,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import WKV6_CHUNK
 from repro_torch.models import transformer as T
 
-FAMILIES = ("dense", "moe", "ssm", "encdec")
+FAMILIES = ("dense", "moe", "ssm", "encdec", "vlm")
 
 
 @dataclass(frozen=True)

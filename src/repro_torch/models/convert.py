@@ -8,7 +8,8 @@ RWKV6 vectors (``mu_*``, ``decay_base``, ``bonus_u``, norm scales) and
 the qk-norm scales ``q_norm``/``k_norm`` keep their shapes. Leaves the
 reference keeps in fp32 (the MoE router, ``decay_base``, ``bonus_u``) stay
 fp32. An encdec tree's ``encoder`` and ``cross`` stacks become per-layer
-dicts (the cross-attention one inside each decoder layer). Caches keep the
+dicts (the cross-attention one inside each decoder layer); an encdec or
+vlm tree's ``frontend_proj`` is a projection like any other. Caches keep the
 reference's layout, but for the paged pools' trash page and ``enc_kv``,
 a (k, v) pair there and a ``{"k", "v"}`` dict here.
 """
@@ -81,6 +82,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
         p["encoder"] = {"layers": [layer(enc, i)
                                    for i in range(cfg.encoder_layers)],
                         "final_norm": t(enc["final_norm"])}
+    if "frontend_proj" in tree:          # encdec frames, vlm patches
         p["frontend_proj"] = linear(tree["frontend_proj"])
     return p
 

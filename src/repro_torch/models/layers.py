@@ -67,8 +67,13 @@ def mlp(p, x):
     return F.linear(h, p["w_down"])
 
 
-def embed(p, tokens):
-    return p["embed"][tokens]
+def embed(p, tokens, cfg):
+    """Token embeddings; the vlm family scales them by sqrt(d_model)
+    (gemma's normalisation)."""
+    x = p["embed"][tokens]
+    if cfg.family == "vlm":
+        x = x * math.sqrt(cfg.d_model)
+    return x
 
 
 def logits(p, x, cfg):
@@ -199,14 +204,15 @@ def _insert_int8(cache, k, v, insert):
 
 
 def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
-                    causal: bool = True, cache=None, pos=None, rows=None,
-                    table=None, reference: bool = False):
+                    causal: bool = True, prefix_len: int = 0, cache=None,
+                    pos=None, rows=None, table=None, reference: bool = False):
     """Projections (+ qk-norm) + RoPE + attention (+ cache update), GQA.
 
     Returns (out, kv). ``mode="prefill"``: attention over ``x`` itself
     through the flash kernel, causal unless ``causal`` is False (an
-    encoder's, which as in the reference takes no RoPE); ``kv`` is the
-    layer's (k, v) [B,S,KVH,hd] for the caller's cache. With
+    encoder's, which as in the reference takes no RoPE), with the first
+    ``prefix_len`` keys visible to every query (a vlm's patches); ``kv``
+    is the layer's (k, v) [B,S,KVH,hd] for the caller's cache. With
     ``cfg.qk_norm`` q and k are RMS-normalised per head (``q_norm``,
     ``k_norm`` [hd]) before RoPE. The other modes continue from
     ``cache``, this layer's leaves: {"k", "v"} [B,S,KVH,hd], plus
@@ -243,7 +249,7 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
     kv = None
     if mode == "prefill":
         attend = ref.attention_ref if reference else ops.flash_attention
-        o = attend(q, k, v, causal=causal)
+        o = attend(q, k, v, causal=causal, prefix_len=prefix_len)
         kv = (k, v)
     elif mode == "decode" and table is not None:
         k0, v0 = k[:, 0], v[:, 0]

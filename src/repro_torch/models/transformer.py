@@ -1,7 +1,8 @@
 """Models: parameters, prefill, extend and decode.
 
 Port of the ``"dense"`` (with or without qk-norm), ``"moe"``, ``"ssm"``
-(RWKV6) and ``"encdec"`` families of ``repro/models/transformer.py``. The
+(RWKV6), ``"encdec"`` and ``"vlm"`` families of
+``repro/models/transformer.py``. The
 layer stack is a Python loop over a list of per-layer parameter dicts (the
 reference scans a stacked ``[L, ...]`` tree). Parameters live on the
 device of the ``torch.Generator`` that draws them. A moe layer has
@@ -10,7 +11,10 @@ block (``models.rwkv6``). An encdec model adds ``"encoder"`` (its own
 layers, bidirectional, and a final norm), ``"frontend_proj"`` [d, d] (the
 audio frontend stub's projection of the ``frames`` input) and, in each
 decoder layer, ``"cross"`` (a norm and an attention block over the
-encoder's output).
+encoder's output). A vlm model adds ``"frontend_proj"`` [d, d], the vision
+frontend stub's projection of the ``patches`` input, which its prefill
+puts before the text as a bidirectional prefix: the cache then holds the
+patches' K/V ahead of the prompt's, and ``pos`` counts them.
 
 Cache layouts, as in the reference: dense ``{"kv": {"k": [L,B,S,KVH,hd],
 "v": ...}, "pos": [B] int32}``; int8 adds ``"k_scale"``/``"v_scale"``
@@ -97,6 +101,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                         "mlp": mlp()} for _ in range(cfg.encoder_layers)],
             "final_norm": ones()}
         p["frontend_proj"] = _dense(gen, d, d, dt)
+    if cfg.family == "vlm":
+        p["frontend_proj"] = _dense(gen, d, d, dt)
     return p
 
 
@@ -105,14 +111,16 @@ def _device(params) -> torch.device:
 
 
 def _layer(cfg, p, x, positions, *, mode="prefill", causal=True,
-           cache=None, pos=None, rows=None, table=None, enc=None,
-           reference=False):
-    """One layer: self-attention, then (an encdec decoder layer, ``enc``
-    = (k, v, lengths) of its ``enc_kv``) cross-attention, then the MLP or
-    the MoE block."""
+           prefix_len=0, cache=None, pos=None, rows=None, table=None,
+           enc=None, reference=False):
+    """One layer: self-attention (its first ``prefix_len`` keys seen by
+    every query in prefill), then (an encdec decoder layer, ``enc`` = (k,
+    v, lengths) of its ``enc_kv``) cross-attention, then the MLP or the
+    MoE block."""
     h = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
     o, kv = Lyr.attention_block(cfg, p["attn"], h, positions=positions,
-                                mode=mode, causal=causal, cache=cache,
+                                mode=mode, causal=causal,
+                                prefix_len=prefix_len, cache=cache,
                                 pos=pos, rows=rows, table=table,
                                 reference=reference)
     x = x + o
@@ -183,18 +191,30 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
                reference: bool = False, wkv_chunk: int = WKV6_CHUNK):
     """Run the whole prompt [B, S]; return (last-token logits, a cache of
     exactly S positions with ``pos == S``). An encdec model also takes
-    ``inputs["frames"]`` [B,Se,d] and returns their ``enc_kv``.
-    ``wkv_chunk``: the ssm plain path's chunk (``reference``)."""
+    ``inputs["frames"]`` [B,Se,d] and returns their ``enc_kv``; a vlm
+    model takes ``inputs["patches"]`` [B,P,d], runs them as a
+    bidirectional prefix before the prompt, and returns a cache of P + S
+    positions with ``pos == P + S``. ``wkv_chunk``: the ssm plain path's
+    chunk (``reference``)."""
     dev = _device(params)
     tokens = torch.as_tensor(inputs["tokens"], device=dev)
     B, S = tokens.shape
-    x = Lyr.embed(params["embed"], tokens)
-    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    x = Lyr.embed(params["embed"], tokens, cfg)
     if cfg.family == "ssm":
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
         state = RWKV.rwkv6_state_init(cfg, B, dev)
         x = _rwkv_forward(cfg, params, x, state, reference=reference,
                           wkv_chunk=wkv_chunk)
         return _head(cfg, params, x), {"state": state, "pos": pos}
+    prefix_len = 0
+    if cfg.family == "vlm":
+        proj = params["frontend_proj"]
+        patches = F.linear(torch.as_tensor(inputs["patches"], device=dev)
+                           .to(proj.dtype), proj)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        prefix_len = patches.shape[1]
+        S = x.shape[1]
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
     positions = torch.arange(S, device=dev)
     L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     k_all = torch.empty((L, B, S, KVH, hd), dtype=x.dtype, device=dev)
@@ -203,8 +223,8 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
     if cfg.family == "encdec":
         cache["enc_kv"] = _encode(cfg, params, inputs["frames"], reference)
     for i, p in enumerate(params["layers"]):
-        x, (k, v) = _layer(cfg, p, x, positions, enc=_enc_layer(cache, i),
-                           reference=reference)
+        x, (k, v) = _layer(cfg, p, x, positions, prefix_len=prefix_len,
+                           enc=_enc_layer(cache, i), reference=reference)
         k_all[i], v_all[i] = k, v
     return _head(cfg, params, x), cache
 
@@ -228,7 +248,7 @@ def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     tokens = torch.as_tensor(inputs["tokens"], device=dev)
     B, C = tokens.shape
     pos = cache["pos"]
-    x = Lyr.embed(params["embed"], tokens)
+    x = Lyr.embed(params["embed"], tokens, cfg)
     if cfg.family == "ssm":
         x = _rwkv_forward(cfg, params, x, cache["state"], rows=rows,
                           reference=reference, wkv_chunk=wkv_chunk)
@@ -255,7 +275,7 @@ def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     dev = _device(params)
     token = torch.as_tensor(inputs["token"], device=dev)
     pos = cache["pos"]
-    x = Lyr.embed(params["embed"], token[:, None])
+    x = Lyr.embed(params["embed"], token[:, None], cfg)
     if cfg.family == "ssm":
         x = _rwkv_forward(cfg, params, x, cache["state"], rows=rows,
                           step=True, reference=reference)
@@ -329,9 +349,10 @@ def quantize_decode_cache(cache: dict) -> dict:
 
 
 def supports_paged_cache(cfg: ModelConfig) -> bool:
-    """Paged KV applies to the GQA attention families (an encdec model's
-    self-attention; its ``enc_kv`` stays dense per row); MLA latents and
-    the recurrent families keep O(1) state per token and stay dense."""
+    """Paged KV applies to the GQA attention families (dense, moe, vlm,
+    an encdec model's self-attention; its ``enc_kv`` stays dense per row);
+    MLA latents and the recurrent families keep O(1) state per token and
+    stay dense."""
     return cfg.family not in ("ssm", "hybrid") and not cfg.use_mla
 
 

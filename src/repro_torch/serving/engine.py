@@ -23,7 +23,10 @@ Port of ``repro/serving/engine.py``:
 
 An encdec model's prefills take zero ``frames`` [B, Se, d] (the audio
 frontend stub); the encoder's K/V (``enc_kv``) follow a row through every
-insert, and the frames do not count against ``max_seq``.
+insert, and the frames do not count against ``max_seq``. A vlm model's
+prefills take zero ``patches`` [B, P, d] (the vision frontend stub), which
+sit in the cache before the prompt: the P patch positions count against
+``max_seq``, in the pages a request reserves and in a slot's length.
 
 The schedule of buckets and chunks is the reference's, so ``prefill_calls``
 and the greedy streams match it. Every token draw is keyed by (engine seed,
@@ -302,6 +305,10 @@ class ServingEngine:
         self.brownout = 1.0
         self._clock = clock or time.perf_counter
         self._has_deadlines = False
+        # cache positions every request spends before its prompt: a vlm's
+        # patches (an encdec model's frames live in the encoder's cache)
+        self._prefix = (self.cfg.num_prefix_embeddings
+                        if self.cfg.family == "vlm" else 0)
         self.paged = bool(paged) and T.supports_paged_cache(self.cfg)
         if self.paged:
             if page_size < 1 or page_size & (page_size - 1):
@@ -459,7 +466,8 @@ class ServingEngine:
                 continue
             need = self._pages_needed(req) if self.paged else 0
             if (len(req.prompt) == 0
-                    or len(req.prompt) + req.max_new_tokens - 1 > self.max_seq
+                    or (self._prefix + len(req.prompt) + req.max_new_tokens
+                        - 1 > self.max_seq)
                     or need > self.num_pages):
                 # can never fit this engine's cache (or page pool): reject
                 # without a slot
@@ -568,18 +576,20 @@ class ServingEngine:
             req_cache = b1
         self._insert_group_cache(req_cache, np.asarray([slot]))
         if self.paged:
-            # the logical length is the request cache's pos, not its kv
-            # length (the serial tail cache spans max_seq)
+            # the logical length is the request cache's pos (the prefix
+            # included), not its kv length (the serial tail cache spans
+            # max_seq)
             self._slot_len[slot] = int(req_cache["pos"][0])
         self._finalize_admits([(slot, req, 0)], logits)
 
     def _prefill_inputs(self, toks: np.ndarray) -> dict:
         """A prefill call's inputs for prompt rows ``toks`` [B, S]: an
-        encdec model also takes its frontend stub's frames, zeros
-        [B, Se, d]."""
+        encdec model also takes its frontend stub's frames, a vlm model its
+        patches, zeros [B, num_prefix_embeddings, d]."""
         inputs = {"tokens": torch.as_tensor(toks)}
-        if self.cfg.family == "encdec":
-            inputs["frames"] = torch.zeros(
+        stub = {"encdec": "frames", "vlm": "patches"}.get(self.cfg.family)
+        if stub:
+            inputs[stub] = torch.zeros(
                 (toks.shape[0], self.cfg.num_prefix_embeddings,
                  self.cfg.d_model), dtype=T.torch_dtype(self.cfg.dtype),
                 device=self.device)
@@ -610,8 +620,9 @@ class ServingEngine:
             self.metrics.prefill_calls += 1
             self._insert_group_cache(gcache, slots)
             if self.paged:
+                # the group cache's length: the bucket after any prefix
                 for slot, _req, _full in group:
-                    self._slot_len[slot] = bucket
+                    self._slot_len[slot] = self._prefix + bucket
             fins = []
             for r, (slot, req, full) in enumerate(group):
                 if bucket == len(full):
@@ -733,10 +744,11 @@ class ServingEngine:
             self._tbl[:, :width], device=self.device)}
 
     def _pages_needed(self, req: Request) -> int:
-        """Pages covering the whole contract: prompt + max_new_tokens - 1
-        cache positions (the last sampled token never writes KV; a resumed
-        request's carried tokens are part of max_new_tokens)."""
-        total = len(req.prompt) + req.max_new_tokens - 1
+        """Pages covering the whole contract: prefix + prompt +
+        max_new_tokens - 1 cache positions (the last sampled token never
+        writes KV; a resumed request's carried tokens are part of
+        max_new_tokens)."""
+        total = self._prefix + len(req.prompt) + req.max_new_tokens - 1
         return -(-total // self.page_size)
 
     def _alloc_pages(self, slot: int, need: int) -> None:

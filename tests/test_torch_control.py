@@ -10,12 +10,14 @@ gives the same bits, so arrays are compared exactly.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 
 from repro.configs import PAPER_MODEL as REF_PAPER_MODEL
 from repro.core import lookup as ref_lookup
+from repro.core import planner_l as ref_planner_l_mod
 from repro.core.planner_l import plan_l as ref_plan_l
 from repro.core.scheduler import RequestScheduler as RefScheduler
 from repro.data.workload import make_trace as ref_make_trace
@@ -27,6 +29,7 @@ from repro.sim.cluster import simulate_week_reference as ref_week
 from repro.sim.testbed import paper_grid as ref_paper_grid
 from repro_torch.configs import PAPER_MODEL
 from repro_torch.core import lookup
+from repro_torch.core import planner_l as planner_l_mod
 from repro_torch.core.planner_l import PlannerLSession, plan_l
 from repro_torch.core.scheduler import RequestScheduler
 from repro_torch.data.workload import make_trace, stream_requests
@@ -135,11 +138,24 @@ def test_stream_requests_chunks_equal_reference():
         assert (a.start_s, a.end_s) == (b.start_s, b.end_s)
 
 
-def test_simulate_week_reference_equals_original(grids):
+def _solve_to_the_end(solve):
+    """``solve`` (a ``solve_milp``) with a time limit that cannot bind."""
+    def run(*args, **kw):
+        return solve(*args, **{**kw, "time_limit": math.inf})
+    return run
+
+
+def test_simulate_week_reference_equals_original(grids, monkeypatch):
     """Three drought-window slots of four sites at 256x the grid's
     arrivals (power-reality shedding drops requests): the port's copy of
     the reference week loop equals the original's, and its policy-driven
-    driver equals the loop."""
+    ``simulate_week`` equals the loop. Planner-L caps each site ILP at a
+    wall-clock budget, so on a loaded machine the two planners could stop
+    their branch and cut at different points: here both solve every site
+    ILP to the end."""
+    for mod in (ref_planner_l_mod, planner_l_mod):
+        monkeypatch.setattr(mod, "solve_milp",
+                            _solve_to_the_end(mod.solve_milp))
     g, r = grids
     sl = slice(500, 503)
     got = simulate_week_reference("heron", g.table, g.sites[:4],

@@ -72,6 +72,11 @@ def _rnd(gen, shape, dtype):
     (8, 160, 160, 16, 16, 64, False, 0),  # seamless encoder: G = 1
     (8, 64, 160, 16, 16, 64, False, 0),   # seamless cross-attention chunk
     (2, 1, 160, 16, 16, 64, False, 0),    # a 1-token cross-attention chunk
+    # paligemma-3b: hd 256, G = 8 over one KV head; prefix 9 (inside the
+    # first 32-key tile), none, and its 256 patches before a text bucket
+    (2, 100, 100, 8, 1, 256, True, 9),
+    (2, 77, 77, 8, 1, 256, True, 0),
+    (1, 320, 320, 8, 1, 256, True, 256),
 ])
 def test_flash_kernel_matches_plain(gen, dtype, B, Sq, Sk, H, KVH, hd,
                                     causal, prefix):
@@ -94,10 +99,11 @@ def test_flash_kernel_takes_strided_views(gen):
         ref.attention_ref(q, k, v).float(), **TOL[torch.bfloat16])
 
 
-def test_flash_kernel_takes_unaligned_rows(gen):
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_kernel_takes_unaligned_rows(gen, hd):
     """Row starts off the 16-byte grid (a view one element into its
     storage) go through the kernel's scalar loads, with the same result."""
-    B, S, H, KVH, hd = 2, 70, 8, 2, 64
+    B, S, H, KVH = 2, 70, 8, 2
     buf = _rnd(gen, (B, S, (H + 2 * KVH) * hd + 1), torch.bfloat16)
     q = buf[..., 1:1 + H * hd].view(B, S, H, hd)
     k = buf[..., 1 + H * hd:1 + (H + KVH) * hd].view(B, S, KVH, hd)
@@ -130,6 +136,7 @@ def test_flash_kernel_rows_do_not_depend_on_the_batch(gen, dtype, hd, prefix):
     (8, 160, 16, 16, 64, (160,) * 8),     # seamless cross-attention decode
     (4, 1024, 40, 8, 128, (1, 333, 1024, 1031)),   # qwen3-14b: G = 5
     (4, 1024, 32, 32, 128, (1, 333, 1024, 1031)),  # deepseek-7b: G = 1
+    (4, 1024, 8, 1, 256, (1, 333, 1024, 1031)),    # paligemma-3b: G = 8
 ])
 def test_decode_kernel_matches_plain(gen, dtype, B, S, H, KVH, hd, lengths):
     q = _rnd(gen, (B, H, hd), dtype)
@@ -177,6 +184,12 @@ def _pools(gen, P, page, KVH, hd, dtype):
     return out[0], out[2], out[1], out[3]
 
 
+def _heads(hd):
+    """(H, KVH) of the cases at ``hd``: paligemma-3b's 8 heads over one
+    KV head at hd 256, llama3.2-1b's 32 over 8 otherwise."""
+    return (8, 1) if hd == 256 else (32, 8)
+
+
 def _table(gen, B, W, P, sentinel_rows=()):
     perm = torch.randperm(P, generator=gen, device="cuda")[:B * W]
     table = perm.reshape(B, W).to(torch.int32)
@@ -187,11 +200,13 @@ def _table(gen, B, W, P, sentinel_rows=()):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,H,KVH", [(64, 32, 8), (128, 32, 8),
-                                      (128, 40, 8), (128, 32, 32)])
+                                      (128, 40, 8), (128, 32, 32),
+                                      (256, 8, 1)])
 def test_paged_decode_kernel_matches_plain(gen, dtype, hd, H, KVH):
     """Rows of every kind: short, page-aligned, past the table's width, and
     all sentinel with a length (a free slot), which reads the trash page
-    on both sides; at G = 4, 5 (qwen3-14b) and 1 (deepseek-7b)."""
+    on both sides; at G = 4, 5 (qwen3-14b), 1 (deepseek-7b) and 8 over
+    one KV head at hd 256 (paligemma-3b)."""
     B, page, P, W = 6, 16, 512, 64
     q = _rnd(gen, (B, H, hd), dtype)
     kp, vp = _pools(gen, P, page, KVH, hd, dtype)
@@ -207,8 +222,9 @@ def test_paged_decode_kernel_matches_plain(gen, dtype, hd, H, KVH):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fresh", [False, True])
-def test_paged_decode_int8_kernel_matches_plain(gen, dtype, fresh):
-    B, H, KVH, hd, page, P, W = 5, 32, 8, 64, 16, 320, 64
+@pytest.mark.parametrize("hd", [64, 256])
+def test_paged_decode_int8_kernel_matches_plain(gen, dtype, fresh, hd):
+    (H, KVH), B, page, P, W = _heads(hd), 5, 16, 320, 64
     q = _rnd(gen, (B, H, hd), dtype)
     kp, vp, ks, vs = _pools(gen, P, page, KVH, hd, torch.int8)
     table = _table(gen, B, W, P, sentinel_rows=(3,))
@@ -225,11 +241,11 @@ def test_paged_decode_int8_kernel_matches_plain(gen, dtype, fresh):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_decode_int8_kernel_matches_plain(gen, dtype, hd):
     """Dense int8 with the fresh token: lengths 0 (the fresh token alone),
     ragged, full and past the cache."""
-    B, S, H, KVH = 4, 1024, 32, 8
+    (H, KVH), B, S = _heads(hd), 4, 1024
     q = _rnd(gen, (B, H, hd), dtype)
     kc, ks = Lyr.quantize_kv(_rnd(gen, (B, S, KVH, hd), torch.float32))
     vc, vs = Lyr.quantize_kv(_rnd(gen, (B, S, KVH, hd), torch.float32))
@@ -244,11 +260,11 @@ DECODE_KINDS = ["dense", "dense_int8", "paged", "paged_int8"]
 
 
 def _decode_inputs(gen, kind, dtype, lengths, cap, hd=64, page=16):
-    """Inputs of one decode entry point, B = len(lengths), H=32, KVH=8:
+    """Inputs of one decode entry point, B = len(lengths), ``_heads(hd)``:
     dense caches of ``cap`` tokens, or pools behind a [B, cap // page]
     table (one page per table slot, plus the trash page); the int8 kinds
     carry fp32 scales and a fresh token of q's dtype."""
-    B, H, KVH = len(lengths), 32, 8
+    B, (H, KVH) = len(lengths), _heads(hd)
     x = dict(q=_rnd(gen, (B, H, hd), dtype), table=None, ks=None, vs=None,
              kn=None, vn=None,
              lens=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
@@ -332,7 +348,7 @@ def test_paged_decode_kernel_bits_do_not_depend_on_the_table_width(
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", DECODE_KINDS)
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_decode_kernels_long_rows_take_several_splits(gen, kind, dtype, hd):
     """At 1024 keys of capacity every kernel cuts a row into 8 clusters'
     splits of 128 keys; rows near, at and past the capacity, and one split
@@ -365,6 +381,7 @@ def test_decode_kernels_above_eight_splits_of_128_keys(gen, kind, dtype):
     (256, 128, 32, 8),
     (1, 128, 40, 8), (64, 128, 40, 8),      # qwen3-14b: G = 5
     (1, 128, 32, 32), (64, 128, 32, 32),    # deepseek-7b: G = 1
+    (1, 256, 8, 1), (16, 256, 8, 1), (64, 256, 8, 1),   # paligemma-3b
 ])
 def test_paged_extend_kernel_matches_plain(gen, dtype, C, hd, H, KVH):
     """Cached pages below pos, then the chunk's causal triangle; one row
@@ -381,12 +398,13 @@ def test_paged_extend_kernel_matches_plain(gen, dtype, C, hd, H, KVH):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,hd", [(1, 64), (16, 64), (33, 64), (5, 128)])
+@pytest.mark.parametrize("C,hd", [(1, 64), (16, 64), (33, 64), (5, 128),
+                                  (1, 256), (16, 256)])
 def test_paged_extend_kernel_long_rows_take_several_splits(gen, dtype, C, hd):
     """Rows whose pos is at or near the table's width (W * page): at these
     C the bf16 kernel splits every row's keys over a cluster of blocks and
     combines the partials."""
-    B, H, KVH, page, P, W = 4, 32, 8, 16, 300, 64
+    (H, KVH), B, page, P, W = _heads(hd), 4, 16, 300, 64
     if dtype == torch.bfloat16:
         assert PE.plan(dtype, hd, C, H, KVH, W, page)["splits"] > 1
     q = _rnd(gen, (B, C, H, hd), dtype)
@@ -401,11 +419,12 @@ def test_paged_extend_kernel_long_rows_take_several_splits(gen, dtype, C, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_extend_kernel_takes_unaligned_rows(gen, dtype):
+@pytest.mark.parametrize("hd", [64, 256])
+def test_paged_extend_kernel_takes_unaligned_rows(gen, dtype, hd):
     """q/k_new/v_new as views one element into a fused buffer (row starts
     off the 16-byte grid, odd strides) take the kernel's scalar-copy
     instantiation, with the same result."""
-    B, C, H, KVH, hd, page, P, W = 3, 20, 32, 8, 64, 16, 200, 64
+    (H, KVH), B, C, page, P, W = _heads(hd), 3, 20, 16, 200, 64
     buf = _rnd(gen, (B, C, (H + 2 * KVH) * hd + 1), dtype)
     q = buf[..., 1:1 + H * hd].view(B, C, H, hd)
     kn = buf[..., 1 + H * hd:1 + (H + KVH) * hd].view(B, C, KVH, hd)
@@ -595,27 +614,35 @@ def test_moe_and_rwkv6_kernel_paths_match_plain_path(gen, arch):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "seamless-m4t-medium",
+                                  "paligemma-3b"])
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_new_families_kernel_paths_match_plain_path(gen, arch, paged):
     """prefill, extend and decode at fp32 through the kernels vs the plain
-    versions: qk-norm at G = 5 (qwen3-14b, 10 heads over 2), and the
-    encoder (kernel 1 unmasked over 160 random frames), cross-attention
-    chunks (kernel 1, Sq != Sk) and cross-attention decode (kernel 2 at 160
-    keys a row) of seamless-m4t-medium, at hd 64."""
+    versions: qk-norm at G = 5 (qwen3-14b, 10 heads over 2); the encoder
+    (kernel 1 unmasked over 160 random frames), cross-attention chunks
+    (kernel 1, Sq != Sk) and cross-attention decode (kernel 2 at 160 keys a
+    row) of seamless-m4t-medium, at hd 64; and paligemma-3b's 8 heads over
+    one KV head at hd 256, its prefill through kernel 1 with 40 random
+    patches as the bidirectional prefix (past one 32-key tile, not a
+    multiple of it)."""
     over = {"qwen3-14b": dict(num_heads=10, num_kv_heads=2),
-            "seamless-m4t-medium": dict(num_prefix_embeddings=160)}[arch]
-    cfg = reduced(get_config(arch), d_model=256, head_dim=64,
-                  dtype="float32", **over)
+            "seamless-m4t-medium": dict(num_prefix_embeddings=160),
+            "paligemma-3b": dict(num_heads=8, num_kv_heads=1, head_dim=256,
+                                 num_prefix_embeddings=40)}[arch]
+    cfg = reduced(get_config(arch), **{"d_model": 256, "head_dim": 64,
+                                       "dtype": "float32", **over})
     params = build(cfg).init_params(gen)
     toks = torch.randint(0, cfg.vocab_size, (2, 45), generator=gen,
                          device="cuda").to(torch.int32)
     frames = _rnd(gen, (2, 160, cfg.d_model), torch.float32)
+    patches = _rnd(gen, (2, 40, cfg.d_model), torch.float32)
     out = {}
     for reference in (False, True):
         m = build(cfg, reference=reference)
         lp, pre = m.prefill_fn(params, {"tokens": toks[:, :32],
-                                        "frames": frames})
+                                        "frames": frames,
+                                        "patches": patches})
         if paged:
             cache = T.make_paged_decode_cache(cfg, 2, 64, "cuda",
                                               page_size=16)

@@ -137,7 +137,7 @@ def test_admit_token_budget_bounds_per_step_work(setup):
 @pytest.mark.parametrize("kw", [dict(admit_mode="async"),
                                 dict(admit_mode="async", paged=True),
                                 dict(admit_mode="async", queue_watermark=4)])
-def test_unported_modes_raise(setup, kw):
+def test_async_modes_serve_reference_streams(setup, kw):
     """Async engines (dense, paged, under a queue watermark) serve the JAX
     engine's greedy streams; only an admission mode neither package has
     raises."""

@@ -1,9 +1,12 @@
-"""The qk-norm dense and encoder-decoder families against the reference.
+"""The qk-norm dense, encoder-decoder and vlm families against the reference.
 
-qwen3-14b (dense, qk-norm; G = 2 here, at ``num_kv_heads=2``) and
+qwen3-14b (dense, qk-norm; G = 2 here, at ``num_kv_heads=2``),
 seamless-m4t-medium (encdec: a bidirectional encoder over the frontend
-stub's frames, cross-attention in every decoder layer; G = 1), each at its
-``reduced`` smoke config of 2 layers in fp32, with the reference's weights
+stub's frames, cross-attention in every decoder layer; G = 1) and
+paligemma-3b (vlm: the frontend stub's patches as a bidirectional prefix
+before the text, embeddings scaled by sqrt(d_model); G = 4 over its one KV
+head), each at its ``reduced`` smoke config of 2 layers in fp32, with the
+reference's weights
 carried across by ``models.convert``. The reference side of each arch is
 built once per module. Logits and caches (``kv`` and ``enc_kv``) agree to
 1e-4 for prefill, extend and decode; the port engine's greedy streams
@@ -11,7 +14,8 @@ equal the reference engine's on the same requests, whatever the admission
 path and cache layout; int8 caches give the logits of the reference's
 int8 path within ``tests/test_torch_int8.py``'s bound. The plain dense
 configs registered beside them (llama3-8b, deepseek-7b) are held field by
-field.
+field. The vlm patches take cache positions: admission, pages and slot
+lengths count them as the reference engine does.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ from repro_torch.serving.engine import Request, ServingEngine
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 MAX_SEQ = 32
-# qwen3-14b at two KV heads, so that its grouped heads are exercised
-OVERRIDES = {"qwen3-14b": dict(num_kv_heads=2), "seamless-m4t-medium": {}}
+# qwen3-14b at two KV heads, so that its grouped heads are exercised;
+# paligemma-3b keeps its single KV head
+OVERRIDES = {"qwen3-14b": dict(num_kv_heads=2), "seamless-m4t-medium": {},
+             "paligemma-3b": {}}
 LENGTHS = (8, 13, 5, 11, 7, 9)
 N_NEW = 4
 
@@ -49,10 +55,13 @@ def _close(got, want):
 
 
 def _inputs(cfg, toks, seed=0):
-    """Prefill inputs as numpy: an encdec model also takes frames."""
+    """Prefill inputs as numpy: an encdec model also takes frames, a vlm
+    model patches (random, so that the frontend projection and the
+    prefix mask carry values)."""
     inp = {"tokens": toks}
-    if cfg.family == "encdec":
-        inp["frames"] = np.random.default_rng(seed).standard_normal(
+    stub = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+    if stub:
+        inp[stub] = np.random.default_rng(seed).standard_normal(
             (toks.shape[0], cfg.num_prefix_embeddings, cfg.d_model)
         ).astype(np.float32)
     return inp
@@ -71,11 +80,26 @@ def _streams(eng, reqs):
     return {r.rid: list(r.tokens) for r in m.completed}, m.summary()
 
 
+@pytest.fixture(scope="module")
+def families():
+    """Each arch's bundle, built at first use and kept for the module."""
+    return {}
+
+
 @pytest.fixture(scope="module", params=sorted(OVERRIDES))
-def fam(request):
+def fam(request, families):
     """One arch, both packages: weights, jitted model functions and the
     reference engine's greedy streams."""
-    arch = request.param
+    return _family(families, request.param)
+
+
+def _family(families, arch):
+    if arch not in families:
+        families[arch] = _build_family(arch)
+    return families[arch]
+
+
+def _build_family(arch):
     jcfg = jax_reduced(jax_get_config(arch), dtype="float32",
                        **OVERRIDES[arch])
     cfg = reduced(get_config(arch), dtype="float32", **OVERRIDES[arch])
@@ -133,6 +157,8 @@ def test_prefill_matches_reference(fam):
     _close(tl, jl)
     _close_cache(tc, jc)
     assert ("enc_kv" in tc) == (f.cfg.family == "encdec")
+    P = f.cfg.num_prefix_embeddings if f.cfg.family == "vlm" else 0
+    assert tc["kv"]["k"].shape[2] == P + 12
 
 
 @pytest.mark.parametrize("C", [1, 4])
@@ -212,7 +238,7 @@ def test_int8_logits_match_reference(fam, paged):
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-7b", "qwen3-14b",
-                                  "seamless-m4t-medium"])
+                                  "seamless-m4t-medium", "paligemma-3b"])
 def test_new_configs_equal_reference(arch):
     want = jax_get_config(arch)
     got = get_config(arch)
@@ -220,3 +246,55 @@ def test_new_configs_equal_reference(arch):
     assert dataclasses.asdict(smoke_config(arch)) == dataclasses.asdict(
         jax_reduced(want))
     build(got)            # every registered arch builds
+
+
+def _edge_requests(cls, vocab, prefix):
+    """Three 13-token prompts: the first's contract (patches + prompt +
+    max_new_tokens - 1) ends exactly at MAX_SEQ, the second's one position
+    past it, the third's well inside."""
+    rng = np.random.default_rng(5)
+    fit = MAX_SEQ - prefix - 13 + 1
+    return [cls(rid=i, prompt=rng.integers(0, vocab, 13).astype(np.int32),
+                max_new_tokens=n) for i, n in enumerate((fit, fit + 1, 3))]
+
+
+@pytest.mark.parametrize("mode,paged", [("batched", False),
+                                        ("serial", True), ("async", True)])
+def test_vlm_prefix_counts_against_max_seq(families, mode, paged):
+    """paligemma-3b's patches take cache positions: at the max_seq edge the
+    port's engine admits and rejects in its first step what the reference
+    engine does, needs the same pages (the patches' included) and reaches
+    the same slot lengths; then it serves every admitted request and gives
+    every page back. (Its streams equal the reference engine's in every
+    admission mode: ``test_engine_greedy_streams_match_reference``.)"""
+    f = _family(families, "paligemma-3b")
+    P = f.cfg.num_prefix_embeddings
+    kw = dict(max_batch=4, max_seq=MAX_SEQ, admit_mode=mode,
+              admit_token_budget=8 if mode == "async" else None)
+    if paged:
+        kw.update(paged=True, page_size=8)
+    jeng = JEngine(f.jm, f.jparams, **kw)
+    eng = ServingEngine(f.model, f.params, **kw)
+    jreqs = _edge_requests(JRequest, f.cfg.vocab_size, P)
+    reqs = _edge_requests(Request, f.cfg.vocab_size, P)
+    assert [P + len(r.prompt) + r.max_new_tokens - 1 for r in reqs] == [
+        MAX_SEQ, MAX_SEQ + 1, P + 15]
+    if paged:
+        for jr, r in zip(jreqs, reqs):
+            want = -(-(P + len(r.prompt) + r.max_new_tokens - 1) // 8)
+            assert eng._pages_needed(r) == jeng._pages_needed(jr, P) == want
+    for e, rs in ((jeng, jreqs), (eng, reqs)):
+        for r in rs:
+            e.submit(r)
+        e.step()
+    assert ([r.rid for r in eng.metrics.rejected]
+            == [r.rid for r in jeng.metrics.rejected] == [1])
+    if paged:
+        np.testing.assert_array_equal(eng._slot_len, jeng._slot_len)
+        assert eng._slot_len[0] >= P + 8      # the patches and a bucket
+    m = eng.run()
+    assert sorted(r.rid for r in m.completed) == [0, 2]
+    assert [len(r.tokens) for r in sorted(m.completed, key=lambda r: r.rid)
+            ] == [reqs[0].max_new_tokens, 3]
+    if paged:
+        assert len(eng._free_pages) == eng.num_pages

@@ -18,7 +18,11 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as dec_pallas
+from repro.kernels.decode_attention import (
+    paged_decode_attention as pdec_pallas)
 from repro.kernels.flash_attention import flash_attention as fa_pallas
+from repro.kernels.flash_attention import (
+    paged_extend_attention as pext_pallas)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention as dec_cuda
 from repro_torch.kernels.flash_attention import flash_attention as fa_cuda
@@ -115,3 +119,74 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa_cuda(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         dec_cuda(q[:, 0], k, v, torch.ones(1, dtype=torch.int32))
+
+
+# ------------------------------------------------------------ hd 256 (vlm)
+# paligemma-3b's heads: hd 256, G = 8 over one KV head, at a few keys; the
+# same inputs through the Pallas kernels (interpret mode) and the port's
+# plain versions, which the card's hd-256 kernels are held against
+HD256 = dict(H=8, KVH=1, hd=256)
+
+
+def _paged_pool(rng, B, W, page, KVH, hd):
+    """Pools [P + 1, page, KVH, hd] (the port's trash page last) and a
+    permuted table [B, W] over the P = B * W real pages."""
+    P = B * W
+    kp, vp = (rng.standard_normal((P + 1, page, KVH, hd)).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(P).reshape(B, W).astype(np.int32)
+    return kp, vp, table
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_matches_pallas_hd256(dtype):
+    """Kernel 1: a 20-token bidirectional prefix (not a multiple of the
+    16-key tile) before causal text."""
+    (jq, jk, jv), (q, k, v) = _both(
+        _qkv(5, 1, 32, 32, HD256["H"], HD256["KVH"], HD256["hd"]), dtype)
+    want = fa_pallas(jq, jk, jv, causal=True, prefix_len=20, block_q=16,
+                     block_k=16, interpret=True)
+    _close(ref.attention_ref(q, k, v, causal=True, prefix_len=20), want,
+           dtype)
+
+
+def test_decode_plain_matches_pallas_hd256():
+    """Kernel 2: rows of 1, 9 and all 16 keys."""
+    arrs, lens = _dec_inputs(6, 3, 16, HD256["H"], HD256["KVH"],
+                             HD256["hd"], (1, 9, 16))
+    (jq, jk, jv), (q, k, v) = _both(arrs, "float32")
+    want = dec_pallas(jq, jk, jv, jnp.asarray(lens), block_k=16,
+                      interpret=True)
+    _close(ref.decode_attention_ref(q, k, v, torch.from_numpy(lens)), want,
+           "float32")
+
+
+def test_paged_decode_plain_matches_pallas_hd256():
+    """Kernel 4: two rows over pages of 8 (a partial last page)."""
+    rng = np.random.default_rng(7)
+    kp, vp, table = _paged_pool(rng, 2, 2, 8, HD256["KVH"], HD256["hd"])
+    q = rng.standard_normal((2, HD256["H"], HD256["hd"])).astype(np.float32)
+    lens = np.asarray([5, 16], np.int32)
+    want = pdec_pallas(jnp.asarray(q), jnp.asarray(kp[:-1]),
+                       jnp.asarray(vp[:-1]), jnp.asarray(table),
+                       jnp.asarray(lens), interpret=True)
+    got = ops.paged_decode_attention(*(torch.from_numpy(a) for a in (
+        q, kp, vp, table, lens)))
+    _close(got, want, "float32")
+
+
+def test_paged_extend_plain_matches_pallas_hd256():
+    """Kernel 5: a 4-token chunk after 3 and 9 cached keys."""
+    rng = np.random.default_rng(8)
+    kp, vp, table = _paged_pool(rng, 2, 2, 8, HD256["KVH"], HD256["hd"])
+    C = 4
+    q = rng.standard_normal((2, C, HD256["H"], HD256["hd"])).astype(
+        np.float32)
+    kn, vn = (rng.standard_normal((2, C, HD256["KVH"], HD256["hd"]))
+              .astype(np.float32) for _ in range(2))
+    pos = np.asarray([3, 9], np.int32)
+    want = pext_pallas(*(jnp.asarray(a) for a in (
+        q, kp[:-1], vp[:-1], kn, vn, table, pos)), interpret=True)
+    got = ops.paged_extend_attention(*(torch.from_numpy(a) for a in (
+        q, kp, vp, kn, vn, table, pos)))
+    _close(got, want, "float32")
