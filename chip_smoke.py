@@ -69,13 +69,25 @@ Phases (any failure exits non-zero before the result line):
      through a prefill, extend chunks and two decode steps match the plain
      path's, dense and paged; a 2-layer fp32 model at full width gives
      equal streams dense and paged, batched and async; int8 caches at hd
-     256 go through kernels 3 and 4-int8.
+     256 go through kernels 3 and 4-int8;
+  10. mla: deepseek-v2-236b at its published width, 6 of its 60 layers
+     (MLA attention, 160 experts top-6 and 2 shared in every layer), the
+     same 16 requests, batched and async, over its dense latent cache;
+     every request completes, kernel 1 launches once per layer and
+     prefill call and kernel 6 three times per layer and token slice,
+     kernels 2-5 never; one prompt's logits through a prefill, extend
+     chunks and two decode steps match the plain path's (its argmax, and
+     within twice the plain path's own spread between two cuts of the
+     prompt, and at least LOGIT_BOUND: the top-6 routing over 160
+     experts flips under bf16 rounding); a 1-layer
+     fp32 model at full width gives equal streams batched and async.
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
-mask), and kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV
-head, kernel 1 with a 256-position bidirectional prefix), against their
-plain versions, with times and bounds; phase 2 lists the hd-256
-instantiations beside the others.
+mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
+kernel 1 with a 256-position bidirectional prefix), kernel 1 at
+deepseek-v2's q/k 192 over v 128 and kernel 6 at its 160 experts, against
+their plain versions, with times and bounds; phase 2 lists the hd-256 and
+192/128 instantiations beside the others.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -191,6 +203,8 @@ def main() -> int:
     from repro_torch.launch.serve import (demo_requests, full_width_config,
                                           serve_demo)
     from repro_torch.models import layers as Lyr
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.moe import slice_tokens
     from repro_torch.models import transformer as T
     from repro_torch.models.api import build as build_model
     from repro_torch.serving.engine import (ServingEngine,
@@ -230,7 +244,10 @@ def main() -> int:
     # dynamic shared memory its launch asks for from the library
     smem = {"flash_attention": [
                 (f"{dt} hd={hd}", flash_smem_bytes(getattr(torch, dt), hd))
-                for dt in ("bfloat16", "float32") for hd in (64, 128, 256)],
+                for dt in ("bfloat16", "float32") for hd in (64, 128, 256)]
+            + [(f"{dt} q/k=192 v=128", flash_smem_bytes(getattr(torch, dt),
+                                                        192, 128))
+               for dt in ("bfloat16", "float32")],
             "expert_matmul": [
                 (f"bfloat16 C{op}16", expert_smem_bytes(torch.bfloat16, c))
                 for op, c in (("<=", 16), (">", 17))],
@@ -954,6 +971,43 @@ def main() -> int:
     del qx, kx, vx, kq, vq, kpx, vpx, kp8, vp8, ext, qe, ke, ve
     torch.cuda.empty_cache()
 
+    # kernel 1 at deepseek-v2's expanded MLA prefill: q/k 192 over v 128,
+    # 128 heads over 128 (G = 1), causal, against its plain version at
+    # bf16 and fp32 and timed at bf16; the library call is SDPA where this
+    # installation's takes a v width other than q's. Its own generator, so
+    # every other input stays as it was
+    g_mla = torch.Generator(device=dev).manual_seed(SEED + 6)
+    Bm, Sm, Hm = 4, 512, 128
+    print("[kernels] deepseek-v2's MLA prefill (kernel 1 at q/k 192 over v "
+          "128, G = 1) vs its plain version; times at bf16")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        qx, kx = (rnd(Bm, Sm, Hm, 192, dtype=dt, g=g_mla) for _ in range(2))
+        vx = rnd(Bm, Sm, Hm, 128, dtype=dt, g=g_mla)
+        case = (f"{dtype} B={Bm} Sq=Sk={Sm} H=KVH={Hm} (G=1) q/k 192 v 128 "
+                f"causal (deepseek-v2-236b prefill)")
+        compare("flash_attention", flash_attention(qx, kx, vx),
+                ref.attention_ref(qx, kx, vx), dtype, case)
+        if dt is bf:
+            qtx, ktx, vtx = (t.transpose(1, 2) for t in (qx, kx, vx))
+            try:            # probing the yardstick, not the port
+                F.scaled_dot_product_attention(qtx, ktx, vtx, is_causal=True)
+                lib_fn = lambda: F.scaled_dot_product_attention(
+                    qtx, ktx, vtx, is_causal=True)
+            except RuntimeError as e:
+                lib_fn = None
+                print(f"  library: none, scaled_dot_product_attention "
+                      f"refuses v 128 under q/k 192 here: {e}")
+            timed("flash_attention", case,
+                  lambda: flash_attention(qx, kx, vx),
+                  lambda: ref.attention_ref(qx, kx, vx), lib_fn,
+                  2 * Bm * Sm * Hm * (192 + 192 + 128 + 128),
+                  2.0 * (192 + 128) * Bm * Hm * Sm * (Sm + 1) / 2)
+            mla_flash_entry = extra_shapes["flash_attention"][-1]
+            del qtx, ktx, vtx
+        del qx, kx, vx
+    torch.cuda.empty_cache()
+
     # kernel 6 at phi3.5-moe's shapes: 16 experts, D 4096, F 6400 (gate/up;
     # down swaps them), C = T tokens with fill from a seeded top-2 routing
     E6, D6, F6 = 16, 4096, 6400
@@ -1045,6 +1099,53 @@ def main() -> int:
         else:
             extra_shapes["expert_matmul"] = [entry]
         del xe, w
+    # kernel 6 at deepseek-v2's experts: E 160, D 5120, F 1536, top-6
+    # fills from a seeded routing at a decode's 8 tokens and at one prefill
+    # slice (moe.slice_tokens), gate/up and the down GEMM (D and F
+    # swapped) of each; against the plain version at bf16 and fp32, timed
+    # at bf16 beside torch.bmm over every row
+    E10, D10, F10 = 160, 5120, 1536
+    Tc10 = slice_tokens(E10, D10, bf)
+
+    def routed_fill6(T):
+        idx = torch.topk(torch.rand((T, E10), generator=g_mla, device=dev),
+                         6, dim=-1).indices
+        return torch.bincount(idx.reshape(-1), minlength=E10).to(torch.int32)
+
+    print(f"[kernels] expert_matmul at deepseek-v2's 160 experts, top-6 "
+          f"(T=8 and a prefill slice of T={Tc10})")
+    mla_expert_entries = []
+    for ntok in (8, Tc10):
+        fill = routed_fill6(ntok)
+        live_rows, live_e = int(fill.sum()), int((fill > 0).sum())
+        for D_, F_ in ((D10, F10), (F10, D10)):
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                xe = rnd(E10, ntok, D_, dtype=dt, g=g_mla)
+                w = (rnd(E10, D_, F_, dtype=torch.float32, g=g_mla)
+                     / D_ ** 0.5).to(dt)
+                case = (f"{dtype} E={E10} C=T={ntok} D={D_} F={F_} top-6 "
+                        f"({live_e} live experts, {live_rows} rows, at most "
+                        f"{int(fill.max())} an expert)")
+                got = expert_matmul(xe, w, fill)
+                rows_past = (torch.arange(ntok, device=dev)[None, :]
+                             >= fill[:, None])
+                check(not got[rows_past].any(), f"expert_matmul {case}: "
+                      "rows past fill are not zero")
+                compare("expert_matmul", got,
+                        ref.expert_matmul_ref(xe, w, fill), dtype, case)
+                if dt is bf:
+                    timed("expert_matmul", case,
+                          lambda: expert_matmul(xe, w, fill),
+                          lambda: ref.expert_matmul_ref(xe, w, fill),
+                          lambda: torch.bmm(xe, w),
+                          2 * (live_rows * D_ + live_e * D_ * F_
+                               + E10 * ntok * F_) + 4 * E10,
+                          2.0 * live_rows * D_ * F_)
+                    mla_expert_entries.append(extra_shapes["expert_matmul"][-1])
+                del xe, w, got
+    torch.cuda.empty_cache()
+
     # the serving shape, a short segment, and one long prompt admitted
     # alone (B=1: the value columns split over 8 blocks a head). Kernel 6's
     # timings above hold the card at its power limit and pull the SM clock
@@ -1983,6 +2084,190 @@ def main() -> int:
           f"({sum(len(t) for t in v32['batched', False].values())} tokens)")
     torch.cuda.empty_cache()
     print(f"[vlm] card: {smi}")
+
+    # ------------------------------------------------------------ 10. mla
+    # deepseek-v2-236b at its published width (d 5120, 128 heads, MLA with
+    # q_lora 1536 and kv_lora 512, q/k 128 + 64 over v 128; 160 routed
+    # experts top-6 and 2 shared of 1536 in every layer; V 102400), 6 of
+    # its 60 layers: one layer is 3.97 B parameters, so 6 layers and the
+    # untied embeddings make 24.9 B (49.8 GB in bf16), the whole model 239 B,
+    # far past one 80 GB card. The same 16 requests, batched and async, over
+    # the dense latent cache (an engine asked for pages stays dense).
+    # Launches: a prefill call runs kernel 1 (the expanded form) in every
+    # layer; every model call runs kernel 6 three times a layer for each
+    # slice of its tokens (moe.slice_tokens: a prefill batch of up to 8 x
+    # 512 tokens takes several); the absorbed extend and decode are plain
+    # matmuls, so kernels 2-5 never launch
+    mcfg = full_width_config("deepseek-v2-236b", 6)
+    Lm = mcfg.num_layers
+    mreqs = [r for _, r in demo_requests(mcfg, **serve_kw)]
+    m_tokens = sum(r.max_new_tokens for r in mreqs)
+    print(f"[mla] {mcfg.name} at full width, {Lm} of "
+          f"{get_config(mcfg.name).num_layers} layers: "
+          f"{mcfg.param_count() / 1e9:.2f} B parameters "
+          f"({2 * mcfg.param_count() / 1e9:.1f} GB in bf16); the whole "
+          f"model {get_config(mcfg.name).param_count() / 1e9:.1f} B; "
+          f"kernel 6 slices of {slice_tokens(160, 5120, bf)} tokens")
+    m_launch = {}
+    m_streams = {}
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    for mode in ("batched", "async"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(*kernel_fns.values())
+        mout = serve_demo(mcfg, max_batch=8, max_seq=1024, device="cuda",
+                          admit_mode=mode, **serve_kw)
+        ml = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        msites = mout["per_site"]
+        check(mout["completed"] == mout["submitted"] == 16
+              and set(mout["tokens"]) == {r.rid for r in mreqs},
+              f"mla {mode}: served {mout['completed']}/{mout['submitted']}")
+        chunks = sum(s["extend_chunks"] for s in msites)
+        steps = sum(s["decode_steps"] for s in msites)
+        prefills = sum(s["prefill_calls"] for s in msites) - chunks
+        calls = prefills + chunks + steps
+        k6 = ml.get("expert_matmul", 0)
+        check(set(ml) == {"flash_attention", "expert_matmul"}
+              and ml["flash_attention"] == Lm * prefills
+              and k6 % (3 * Lm) == 0 and k6 >= 3 * Lm * calls,
+              f"mla {mode}: launches {ml}; want kernel 1 {Lm} x {prefills} "
+              f"prefill calls, kernel 6 3 x {Lm} x (slices >= {calls} model "
+              f"calls), no other kernel")
+        served_m = sum(s["served_tokens"] for s in msites)
+        check(served_m == m_tokens, f"mla {mode}: served {served_m} tokens, "
+              f"not {m_tokens}")
+        check(peak_gb < card_gb, f"mla {mode}: peak {peak_gb:.2f} GB")
+        m_launch[mode] = ml
+        m_streams[mode] = mout["tokens"]
+        same = sum(mout["tokens"][k] == m_streams["batched"][k]
+                   for k in m_streams["batched"])
+        print(f"[mla] {mcfg.name} {mode} L={Lm} d={mcfg.d_model} "
+              f"H={mcfg.num_heads} bf16: 16/16 requests, {served_m} tokens "
+              f"in {mout['wall_seconds']:.3f} s "
+              f"({served_m / mout['wall_seconds']:.1f} tok/s), {calls} model "
+              f"calls ({prefills} prefill, {chunks} extend, {steps} decode), "
+              f"kernel 6 slices {k6 // (3 * Lm)}; peak memory {peak_gb:.2f} "
+              f"GB of {card_gb:.2f}; launches {ml} (kernels 2-5: 0); "
+              f"streams equal to the batched run's: {same} of 16")
+        for i, s in enumerate(msites):
+            print(f"  site {i}: prefill calls "
+                  f"{s['prefill_calls'] - s['extend_chunks']}, extend chunks "
+                  f"{s['extend_chunks']}, decode steps {s['decode_steps']}, "
+                  f"TTFT mean {s['mean_ttft'] * 1e3:.1f} / p99 "
+                  f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+                  f"{s['mean_tbt'] * 1e3:.2f} / p99 {s['p99_tbt'] * 1e3:.2f} "
+                  f"ms")
+        torch.cuda.empty_cache()
+    mla_flash_entry["launches"] = m_launch["batched"]["flash_attention"]
+    for e in mla_expert_entries:
+        e["launches"] = m_launch["batched"]["expert_matmul"]
+
+    # request 0 through a prefill of its largest power of 2 below its
+    # length, the rest as descending power-of-2 extend chunks and two greedy
+    # decode steps (the kernel path's tokens fed to every run), kernel path
+    # vs plain path; an engine asked for pages keeps the dense latent cache.
+    # The top-6 routing over 160 experts flips between near-tied experts
+    # under one bf16 rounding (the tokens whose expert set differs between
+    # the two paths are counted per layer of the prefill), so the plain path
+    # differs from itself between two cuts of the same prompt (its prefill
+    # at that power of 2, or at half of it) by more than LOGIT_BOUND. As for
+    # rwkv6 at bf16 (phase 6), the kernel path is held within
+    # SPREAD_FACTOR_BF16 times that spread (the bound at least LOGIT_BOUND),
+    # with the plain path's argmax at every call
+    mparams = build_model(mcfg).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    check(not ServingEngine(build_model(mcfg), mparams, max_batch=8,
+                            max_seq=1024, paged=True).paged,
+          "mla: an engine asked for pages is paged")
+    mprompt = torch.as_tensor(mreqs[0].prompt[None, :], device=dev)
+    S0 = mprompt.shape[1]
+    mbucket = 1 << ((S0 - 1).bit_length() - 1)
+    route, routes = MOE._route, {}
+
+    def mla_admit(plain, bucket, toks):
+        """Logits of each call; the greedy tokens, unless ``toks``."""
+        def recording(x32, w, k):
+            out = route(x32, w, k)
+            routes.setdefault((plain, bucket), []).append(out[1])
+            return out
+
+        m = build_model(mcfg, reference=plain)
+        MOE._route = recording
+        try:
+            logits, pre = m.prefill_fn(mparams,
+                                       {"tokens": mprompt[:, :bucket]})
+            cache = T.make_decode_cache(mcfg, 1, 1024, dev)
+            insert_cache_rows(cache, pre, numpy.zeros(1, numpy.int32))
+            del pre
+            seq, done = [logits], bucket
+            while done < S0:
+                C = 1 << ((S0 - done).bit_length() - 1)
+                logits, cache = m.extend_fn(
+                    mparams, {"tokens": mprompt[:, done:done + C]}, cache)
+                seq.append(logits)
+                done += C
+            toks = toks or []
+            for i in range(2):
+                if len(toks) == i:
+                    toks.append(logits.argmax(-1).to(torch.int32))
+                logits, cache = m.decode_fn(mparams, {"token": toks[i]},
+                                            cache)
+                seq.append(logits)
+        finally:
+            MOE._route = route
+        return seq, toks
+
+    with torch.no_grad():
+        got, mtoks = mla_admit(False, mbucket, None)
+        want, _ = mla_admit(True, mbucket, mtoks)
+        alt, _ = mla_admit(True, mbucket // 2, mtoks)
+    torch.cuda.synchronize()
+    check(all(a.shape == (1, mcfg.vocab_size)
+              and bool(torch.isfinite(a).all()) for a in got),
+          "mla: logits shape or non-finite")
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, want)]
+    # the calls both cuts share: the last extend chunk, two decode steps
+    spread = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(want[-3:], alt[-3:]))
+    lbound = max(LOGIT_BOUND, SPREAD_FACTOR_BF16 * spread)
+    flips = [int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+             for a, b in zip(routes[False, mbucket][:Lm],
+                             routes[True, mbucket][:Lm])]
+    check(max(errs) <= lbound and all(
+        int(a.argmax()) == int(b.argmax()) for a, b in zip(got, want)),
+          f"mla: logits differ by {max(errs):.3g} (bound {lbound:.3g}) or "
+          f"argmax {[int(a.argmax()) for a in got]} != "
+          f"{[int(b.argmax()) for b in want]}")
+    print(f"[mla] request 0 (prompt {S0} tokens): prefill of {mbucket}, "
+          f"{len(got) - 3} extend chunks and 2 decode steps, kernel path vs "
+          f"plain path max |logit diff| per call {[round(e, 4) for e in errs]}"
+          f" (bound {lbound:.4g}), argmax {[int(a.argmax()) for a in got]} "
+          f"vs {[int(b.argmax()) for b in want]}; plain path, prefill of "
+          f"{mbucket} vs {mbucket // 2}: {spread:.4g} over the last 3 calls; "
+          f"prefill tokens whose top-6 experts differ between the paths, by "
+          f"layer: {flips} of {mbucket}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del mparams, got, want, alt, routes
+    torch.cuda.empty_cache()
+
+    # a 1-layer fp32 copy at full width (15.9 GB of layer, 4.2 of
+    # embeddings): batched and async give one set of streams
+    mcfg32 = dataclasses.replace(mcfg, num_layers=1, dtype="float32")
+    m32 = {}
+    for mode in ("batched", "async"):
+        o = serve_demo(mcfg32, max_batch=8, max_seq=1024, device="cuda",
+                       admit_mode=mode, verbose=False, **serve_kw)
+        check(o["completed"] == 16, f"mla fp32 {mode}: {o['completed']}")
+        m32[mode] = o["tokens"]
+    check(m32["async"] == m32["batched"], "mla fp32 1-layer: async streams "
+          "differ from batched: " + str(sum(
+              m32["async"][r] != m32["batched"][r] for r in m32["batched"])))
+    print(f"[mla] {mcfg32.num_layers}-layer fp32 at full width: batched and "
+          f"async streams equal over 16 requests "
+          f"({sum(len(t) for t in m32['batched'].values())} tokens)")
+    torch.cuda.empty_cache()
+    print(f"[mla] card: {smi}")
 
     # ---------------------------------------------------------- report
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),

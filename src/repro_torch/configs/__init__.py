@@ -1,12 +1,14 @@
 """Architecture registry of the port: the families ported so far (dense,
-with and without qk-norm, moe, ssm, encdec and vlm), plus the reduced
-smoke configs; the reference's MLA and hybrid archs are not registered.
+with and without qk-norm, moe with GQA or MLA attention, ssm, encdec and
+vlm), plus the reduced smoke configs; the reference's hybrid arch is not
+registered.
 ``PAPER_MODEL`` is the paper's own model, which the co-sim's lookup table
 is built from; it is a configuration only, never served."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.deepseek_7b import CONFIG as deepseek_7b
+from repro_torch.configs.deepseek_v2_236b import CONFIG as deepseek_v2_236b
 from repro_torch.configs.llama31_70b import CONFIG as llama31_70b
 from repro_torch.configs.llama32_1b import CONFIG as llama32_1b
 from repro_torch.configs.llama3_8b import CONFIG as llama3_8b
@@ -22,7 +24,7 @@ PAPER_MODEL: ModelConfig = llama31_70b
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [llama32_1b, phi35_moe_42b, rwkv6_1b6, llama3_8b,
                         qwen3_14b, deepseek_7b, seamless_m4t_medium,
-                        paligemma_3b]}
+                        paligemma_3b, deepseek_v2_236b]}
 
 
 def get_config(name: str) -> ModelConfig:

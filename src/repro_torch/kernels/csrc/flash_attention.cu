@@ -4,7 +4,9 @@
 // (body _fa_kernel): out[b, i, h] = softmax(q[b, i, h] . k[b, j, h // G] /
 // sqrt(hd), masked to j <= i or j < prefix_len) @ v[b, :, h // G], fp32
 // softmax state, output in the input dtype; a row with nothing visible
-// gives 0.
+// gives 0. q and k rows are QD wide, v and out rows VD: QD = VD = hd (64,
+// 128, 256), or QD 192 over VD 128, MLA's expanded prefill (deepseek-v2:
+// 128 nope + 64 rope columns of q/k, 128 of v).
 //
 // What bounds it on the H100: the card's least time at the serving shapes
 // (prompts of up to a few thousand tokens, hd 64, 128 and 256) is the
@@ -21,9 +23,9 @@
 //  * four warps; at hd 64 each owns two m16 row fragments (128-row blocks,
 //    as FlashAttention-2 tiles hd 64), so that each K/V fragment load and
 //    each tile's copy, barrier and softmax bookkeeping serve 32 rows; at hd
-//    128 and 256 one (64-row blocks: two would not fit the registers). Q
-//    is copied once and held in registers as mma fragments (at hd 256 it
-//    stays in shared memory: see MmaCfg);
+//    128, 192 and 256 one (64-row blocks: two would not fit the
+//    registers). Q is copied once and held in registers as mma fragments
+//    (at hd 256 and q/k 192 it stays in shared memory: see MmaCfg);
 //  * K/V tiles of 64 keys (32 at hd 256) come into a ring of shared-memory
 //    stages (three at hd 64, two at hd 128 and 256) by 16-byte cp.async,
 //    the next tiles' copies in flight during this tile's math, one barrier
@@ -50,8 +52,13 @@
 // fp32 input type is TF32 (10 mantissa bits), which cannot meet the fp32
 // checks (2e-5 against the plain version, 1e-4 on logits), so fp32 keeps
 // this body; the serving paths run bf16.
-// Inputs are strided [B, S, heads, hd] views (last dim contiguous); the
-// output is a contiguous [B, Sq, H, hd] tensor the wrapper allocated.
+// QD 192 over VD 128 (bf16): one m16 row fragment a warp, 64-key tiles,
+// two stages, Q in shared memory (its 48 fragment registers a lane beside
+// V's 64 fp32 accumulators would spill), two blocks an SM. K tiles are 192
+// wide and V tiles 128; a K row's 24 16-byte chunks do not divide the 128
+// threads, so its copies walk the flat (row, chunk) index.
+// Inputs are strided [B, S, heads, QD or VD] views (last dim contiguous);
+// the output is a contiguous [B, Sq, H, VD] tensor the wrapper allocated.
 
 #include <type_traits>
 
@@ -67,20 +74,20 @@ constexpr int kKeys = 32;  // keys per tile, one per lane (fp32 body)
 // the fp32 body's layout: kRowsPerWarp (query, head) rows a warp, 16,
 // or 8 at hd 256, where a lane's 8 output columns of 16 rows would not
 // fit the registers beside the softmax state
-template <int HD>
+template <int QD, int VD>
 struct Smem {
-  static constexpr int kRowsPerWarp = HD == 256 ? 8 : 16;
+  static constexpr int kRowsPerWarp = QD == 256 ? 8 : 16;
   static constexpr int kRows = kWarps * kRowsPerWarp;
-  static constexpr int kStride = HD + 4;  // padded K row
+  static constexpr int kStride = QD + 4;  // padded K row
   static constexpr int q = 0;
-  static constexpr int k = q + kRows * HD;
+  static constexpr int k = q + kRows * QD;
   static constexpr int v = k + kKeys * kStride;
-  static constexpr int p = v + kKeys * HD;
+  static constexpr int p = v + kKeys * VD;
   static constexpr int floats = p + kRows * kKeys;
   static constexpr size_t bytes = floats * sizeof(float);
 };
 
-template <typename T, int HD>
+template <typename T, int QD, int VD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
@@ -88,8 +95,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           long long k_sb, long long k_ss, long long k_sh, long long v_sb,
           long long v_ss, long long v_sh, int causal, int prefix_len,
           float scale) {
-  using L = Smem<HD>;
-  constexpr int kPer = HD / 32;  // output dims per lane
+  using L = Smem<QD, VD>;
+  constexpr int kPer = VD / 32;  // output dims per lane
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   float* Qs = smem + L::q;
@@ -107,8 +114,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
 
   // Q tile: row r is (query r / G, head kvh * G + r % G), scaled in fp32.
-  for (int i = tid; i < L::kRows * HD; i += kWarps * 32) {
-    const int fr = r0 + i / HD, d = i % HD;
+  for (int i = tid; i < L::kRows * QD; i += kWarps * 32) {
+    const int fr = r0 + i / QD, d = i % QD;
     float x = 0.f;
     if (fr < rows_total) {
       const int qp = fr / G, h = kvh * G + fr % G;
@@ -136,20 +143,32 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kbase = k + b * k_sb + kvh * k_sh;
   const T* vbase = v + b * v_sb + kvh * v_sh;
-  const float* Qw = Qs + warp * L::kRowsPerWarp * HD;
+  const float* Qw = Qs + warp * L::kRowsPerWarp * QD;
   float* Pw = Ps + warp * L::kRowsPerWarp * kKeys;
 
   for (int t0 = 0; t0 < n_keys; t0 += kKeys) {
     __syncthreads();  // Q stored; the previous tile fully consumed
-    for (int i = tid; i < kKeys * HD; i += kWarps * 32) {
-      const int j = i / HD, d = i % HD, key = t0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < n_keys) {
-        kx = to_float(kbase[key * k_ss + d]);
-        vx = to_float(vbase[key * v_ss + d]);
+    if constexpr (QD == VD) {
+      for (int i = tid; i < kKeys * QD; i += kWarps * 32) {
+        const int j = i / QD, d = i % QD, key = t0 + j;
+        float kx = 0.f, vx = 0.f;
+        if (key < n_keys) {
+          kx = to_float(kbase[key * k_ss + d]);
+          vx = to_float(vbase[key * v_ss + d]);
+        }
+        Ks[j * L::kStride + d] = kx;
+        Vs[j * VD + d] = vx;
       }
-      Ks[j * L::kStride + d] = kx;
-      Vs[j * HD + d] = vx;
+    } else {
+      for (int i = tid; i < kKeys * QD; i += kWarps * 32) {
+        const int j = i / QD, d = i % QD, key = t0 + j;
+        Ks[j * L::kStride + d] =
+            key < n_keys ? to_float(kbase[key * k_ss + d]) : 0.f;
+      }
+      for (int i = tid; i < kKeys * VD; i += kWarps * 32) {
+        const int j = i / VD, d = i % VD, key = t0 + j;
+        Vs[j * VD + d] = key < n_keys ? to_float(vbase[key * v_ss + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -159,11 +178,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int rr = 0; rr < L::kRowsPerWarp; ++rr) s[rr] = 0.f;
     const float* krow = Ks + lane * L::kStride;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
+    for (int d = 0; d < QD; d += 4) {
       const float4 k4 = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
       for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
-        const float4 q4 = *reinterpret_cast<const float4*>(Qw + rr * HD + d);
+        const float4 q4 = *reinterpret_cast<const float4*>(Qw + rr * QD + d);
         s[rr] += q4.x * k4.x + q4.y * k4.y + q4.z * k4.z + q4.w * k4.w;
       }
     }
@@ -194,7 +213,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
         for (int i = 0; i < kPer; ++i)
-          vv[jj][i] = Vs[(j + jj) * HD + lane + 32 * i];
+          vv[jj][i] = Vs[(j + jj) * VD + lane + 32 * i];
 #pragma unroll
       for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
         const float4 p4 = *reinterpret_cast<const float4*>(Pw + rr * kKeys + j);
@@ -212,7 +231,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     if (fr >= rows_total) continue;
     const int qp = fr / G, h = kvh * G + fr % G;
     const float denom = fmaxf(l[rr], 1e-30f);
-    T* orow = o + ((long long)(b * Sq + qp) * H + h) * HD;
+    T* orow = o + ((long long)(b * Sq + qp) * H + h) * VD;
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
       orow[lane + 32 * i] = from_float<T>(acc[rr][i] / denom);
@@ -233,31 +252,38 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 // the ring) and each 16-column k-step of Q K^T loads its A fragment by
 // ldmatrix; tiles of 32 keys halve the score fragments, and V's B
 // fragments come kVFrags at a time, not all 16 at once.
-template <int HD>
+// QD 192 over VD 128: 64-key tiles and two stages as at hd 128, but Q's
+// 12 k-steps of fragments (48 registers a lane) beside V's 64 fp32
+// accumulators spill past 255 registers, so Q stays in shared memory as
+// at hd 256 and V's B fragments come 4 at a time; a stage holds a K tile
+// of 192-wide rows and a V tile of 128-wide ones, two blocks an SM.
+template <int QD, int VD>
 struct MmaCfg {
-  static constexpr int kMT = HD == 64 ? 2 : 1;
-  static constexpr int kStages = HD == 64 ? 3 : 2;
-  static constexpr int kMinBlocks = HD == 128 ? 3 : 1;
-  static constexpr int kTileKeys = HD == 256 ? 32 : 64;  // keys per tile
-  static constexpr bool kQSmem = HD == 256;     // Q fragments from smem
-  static constexpr int kVFrags = HD == 256 ? 4 : HD / 16;
+  static constexpr int kMT = QD == 64 ? 2 : 1;
+  static constexpr int kStages = QD == 64 ? 3 : 2;
+  static constexpr int kMinBlocks = QD == 128 ? 3 : QD == 192 ? 2 : 1;
+  static constexpr int kTileKeys = QD == 256 ? 32 : 64;  // keys per tile
+  static constexpr bool kQSmem = QD >= 192;     // Q fragments from smem
+  static constexpr int kVFrags = VD == 256 || QD == 192 ? 4 : VD / 16;
   static constexpr int kRows = kWarps * 16 * kMT;  // (query, head) rows
-  static constexpr int kStride = HD + 8;  // bf16 per row, padded 16 bytes
-  static constexpr int kTile = kTileKeys * kStride;
-  static constexpr int kStage = 2 * kTile;
+  // bf16 per Q/K row and per V row, each padded 16 bytes
+  static constexpr int kStride = QD + 8;
+  static constexpr int kVStride = VD + 8;
+  static constexpr int kTile = kTileKeys * kStride;  // a K tile
+  static constexpr int kStage = kTile + kTileKeys * kVStride;
   static constexpr int q = (kStages - (kQSmem ? 0 : 1)) * kStage;
   static constexpr int elems =
       kStages * kStage + (kQSmem ? kRows * kStride : 0);
   static constexpr size_t bytes = elems * sizeof(__nv_bfloat16);
-  static_assert(kQSmem || kRows <= 2 * kTileKeys, "Q fits one stage");
-  static_assert((HD / 16) % kVFrags == 0, "V fragments in whole groups");
+  static_assert(kQSmem || kRows * kStride <= kStage, "Q fits one stage");
+  static_assert((VD / 16) % kVFrags == 0, "V fragments in whole groups");
 };
 
 // the unaligned instantiation (scalar copies, a cold path) takes the
 // registers it needs rather than spill under the aligned one's limit
-template <int HD, bool kVec>
+template <int QD, int VD, bool kVec>
 __global__ void
-__launch_bounds__(kWarps * 32, kVec ? MmaCfg<HD>::kMinBlocks : 1)
+__launch_bounds__(kWarps * 32, kVec ? MmaCfg<QD, VD>::kMinBlocks : 1)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
@@ -266,16 +292,24 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               long long k_ss, long long k_sh, long long v_sb, long long v_ss,
               long long v_sh, int causal, int prefix_len, float scale_log2) {
   using bf16 = __nv_bfloat16;
-  using L = MmaCfg<HD>;
+  using L = MmaCfg<QD, VD>;
   constexpr int kMT = L::kMT;
   constexpr int kStages = L::kStages;
   constexpr int kTileKeys = L::kTileKeys;
   constexpr int kVF = L::kVFrags;
   constexpr int kThreads = kWarps * 32;
-  constexpr int kChunks = HD / 8;               // 16-byte chunks per row
-  constexpr int kRowStep = kThreads / kChunks;  // rows one copy pass covers
+  // 16-byte chunks per Q/K row and per V row; where the threads divide a
+  // row's chunks (every width but 192), a thread keeps one chunk column
+  // and walks rows kRowStep apart, else it walks the flat (row, chunk)
+  // index kThreads apart
+  constexpr int kChunks = QD / 8;
+  constexpr int kVChunks = VD / 8;
+  constexpr bool kEven = kThreads % kChunks == 0;
+  constexpr int kRowStep = kEven ? kThreads / kChunks : 1;
+  constexpr int kVRowStep = kThreads / kVChunks;
+  static_assert(kThreads % kVChunks == 0, "V rows split over the threads");
   constexpr int kNT = kTileKeys / 8;            // n8 score tiles per K tile
-  constexpr int kDT = HD / 8;                   // n8 output tiles
+  constexpr int kDT = VD / 8;                   // n8 output tiles
   extern __shared__ float4 smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
   bf16* Qs = sm + L::q;
@@ -299,39 +333,76 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = (n_keys + kTileKeys - 1) / kTileKeys;
 
   // every copy pass moves chunk c8 / 8 of rows j0, j0 + kRowStep, ...
+  // (V: cv8 / 8 of rows jv0, jv0 + kVRowStep, ...)
   const int c8 = (tid % kChunks) * 8;
   const int j0 = tid / kChunks;
+  const int cv8 = (tid % kVChunks) * 8;
+  const int jv0 = tid / kVChunks;
 
   // Q rows (query fr / G, head kvh * G + fr % G) and tile 0: copy group 0
-#pragma unroll
-  for (int j = j0; j < L::kRows; j += kRowStep) {
+  auto copy_q = [&](int j, int c) {
     const int fr = r0 + j;
     const bool ok = fr < rows_total;
     const bf16* src = ok ? q + b * q_sb + (fr / G) * q_ss +
-                               (kvh * G + fr % G) * q_sh + c8
+                               (kvh * G + fr % G) * q_sh + c
                          : q;
-    copy_chunk(Qs + j * L::kStride + c8, src, ok ? 8 : 0, kVec);
+    copy_chunk(Qs + j * L::kStride + c, src, ok ? 8 : 0, kVec);
+  };
+  if constexpr (kEven) {
+#pragma unroll
+    for (int j = j0; j < L::kRows; j += kRowStep) copy_q(j, c8);
+  } else {
+    static_assert(L::kRows * kChunks % kThreads == 0, "whole Q passes");
+#pragma unroll
+    for (int it = 0; it < L::kRows * kChunks / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      copy_q(i / kChunks, i % kChunks * 8);
+    }
   }
   const bf16* kbase = k + b * k_sb + kvh * k_sh;
   const bf16* vbase = v + b * v_sb + kvh * v_sh;
   const bf16* krow = kbase + j0 * k_ss + c8;
-  const bf16* vrow = vbase + j0 * v_ss + c8;
-  const long long k_step = kRowStep * k_ss, v_step = kRowStep * v_ss;
+  const bf16* vrow = vbase + jv0 * v_ss + cv8;
+  const long long k_step = kRowStep * k_ss, v_step = kVRowStep * v_ss;
   auto load_kv = [&](int tile, int stage) {
-    const int key0 = tile * kTileKeys + j0;
     const bf16* kp = krow + (long long)(tile * kTileKeys) * k_ss;
     const bf16* vp = vrow + (long long)(tile * kTileKeys) * v_ss;
-    bf16* kd = sm + stage * L::kStage + j0 * L::kStride + c8;
-    bf16* vd = kd + L::kTile;
+    bf16* ks = sm + stage * L::kStage;
+    bf16* kd = ks + j0 * L::kStride + c8;
+    bf16* vd = ks + L::kTile + jv0 * L::kVStride + cv8;
+    if constexpr (QD == VD) {          // K and V rows in one walk
+      const int key0 = tile * kTileKeys + j0;
 #pragma unroll
-    for (int it = 0; it < kTileKeys / kRowStep; ++it) {
-      const bool ok = key0 + it * kRowStep < n_keys;
-      copy_chunk(kd + it * kRowStep * L::kStride, ok ? kp : kbase,
-                 ok ? 8 : 0, kVec);
-      copy_chunk(vd + it * kRowStep * L::kStride, ok ? vp : vbase,
-                 ok ? 8 : 0, kVec);
-      kp += k_step;
-      vp += v_step;
+      for (int it = 0; it < kTileKeys / kRowStep; ++it) {
+        const bool ok = key0 + it * kRowStep < n_keys;
+        copy_chunk(kd + it * kRowStep * L::kStride, ok ? kp : kbase,
+                   ok ? 8 : 0, kVec);
+        copy_chunk(vd + it * kRowStep * L::kStride, ok ? vp : vbase,
+                   ok ? 8 : 0, kVec);
+        kp += k_step;
+        vp += v_step;
+      }
+    } else {                           // QD 192: K by the flat index
+      static_assert(!kEven && kTileKeys * kChunks % kThreads == 0,
+                    "K walks its own index only at QD 192, in whole passes");
+#pragma unroll
+      for (int it = 0; it < kTileKeys * kChunks / kThreads; ++it) {
+        const int i = tid + it * kThreads;
+        const int j = i / kChunks, c = i % kChunks * 8;
+        const int key = tile * kTileKeys + j;
+        const bool ok = key < n_keys;
+        copy_chunk(ks + j * L::kStride + c,
+                   ok ? kbase + (long long)key * k_ss + c : kbase,
+                   ok ? 8 : 0, kVec);
+      }
+      const int keyv0 = tile * kTileKeys + jv0;
+#pragma unroll
+      for (int it = 0; it < kTileKeys / kVRowStep; ++it) {
+        const bool ok = keyv0 + it * kVRowStep < n_keys;
+        copy_chunk(vd + it * kVRowStep * L::kVStride, ok ? vp : vbase,
+                   ok ? 8 : 0, kVec);
+        vp += v_step;
+      }
     }
   };
   if (n_tiles > 0) load_kv(0, 0);
@@ -358,7 +429,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
   // Q into registers, then its buffer (the last stage) joins the ring
   // (hd 256: Q stays where it is)
-  uint32_t qf[kMT][L::kQSmem ? 1 : HD / 16][4];
+  uint32_t qf[kMT][L::kQSmem ? 1 : QD / 16][4];
   auto q_frag = [&](uint32_t(&r)[4], int mt, int kk) {
     ldmatrix_x4(r, Qs + (wrow + mt * 16 + (lane & 15)) * L::kStride +
                        kk * 16 + (lane >> 4) * 8);
@@ -369,7 +440,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) q_frag(qf[mt][kk], mt, kk);
+      for (int kk = 0; kk < QD / 16; ++kk) q_frag(qf[mt][kk], mt, kk);
     __syncthreads();
   }
 #pragma unroll
@@ -417,7 +488,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[mt][j][i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < QD / 16; ++kk) {
       uint32_t kb[kNT / 2][4];  // all fragments first: one load latency
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np)
@@ -492,12 +563,12 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kTileKeys / 16; ++kk) {
 #pragma unroll
-      for (int d0 = 0; d0 < HD / 16; d0 += kVF) {
+      for (int d0 = 0; d0 < VD / 16; d0 += kVF) {
         uint32_t vb[kVF][4];
 #pragma unroll
         for (int dp = 0; dp < kVF; ++dp)
           ldmatrix_x4_trans(vb[dp], Vt + (kk * 16 + (lane & 7) +
-                                          ((lane >> 3) & 1) * 8) * L::kStride +
+                                          ((lane >> 3) & 1) * 8) * L::kVStride +
                                         (d0 + dp) * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
@@ -512,7 +583,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
             mma_bf16(oacc[mt][2 * (d0 + dp)], pa, vb[dp][0], vb[dp][1]);
             mma_bf16(oacc[mt][2 * (d0 + dp) + 1], pa, vb[dp][2], vb[dp][3]);
           }
-          if (d0 + kVF == HD / 16) mma_bf16(lacc[mt], pa, kOnes, kOnes);
+          if (d0 + kVF == VD / 16) mma_bf16(lacc[mt], pa, kOnes, kOnes);
         }
       }
     }
@@ -531,7 +602,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       const int qp = fr / G, h = kvh * G + fr % G;
       const float inv = 1.f / fmaxf(ls, 1e-30f);
       bf16* orow =
-          o + ((long long)(b * Sq + qp) * H + h) * HD + (lane & 3) * 2;
+          o + ((long long)(b * Sq + qp) * H + h) * VD + (lane & 3) * 2;
 #pragma unroll
       for (int d = 0; d < kDT; ++d)
         *reinterpret_cast<uint32_t*>(orow + d * 8) = pack_bf16(
@@ -539,22 +610,22 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-template <typename T, int HD>
+template <typename T, int QD, int VD>
 size_t smem_bytes() {
-  if constexpr (std::is_same<T, float>::value) return Smem<HD>::bytes;
-  else return MmaCfg<HD>::bytes;
+  if constexpr (std::is_same<T, float>::value) return Smem<QD, VD>::bytes;
+  else return MmaCfg<QD, VD>::bytes;
 }
 
-template <typename T, int HD>
+template <typename T, int QD, int VD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KVH, const long long* st, int causal,
            int prefix_len, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD>();
+  const size_t smem = smem_bytes<T, QD, VD>();
   const int G = H / KVH;
   if constexpr (std::is_same<T, float>::value) {
-    constexpr int rows = Smem<HD>::kRows;
+    constexpr int rows = Smem<QD, VD>::kRows;
     const dim3 grid((Sq * G + rows - 1) / rows, B * KVH);
-    auto kern = flash_fwd<T, HD>;
+    auto kern = flash_fwd<T, QD, VD>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -569,11 +640,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                 reinterpret_cast<uintptr_t>(k) |
                 reinterpret_cast<uintptr_t>(v)) % 16 == 0;
     for (int i = 0; i < 9; ++i) vec = vec && st[i] % 8 == 0;
-    auto kern = vec ? flash_fwd_mma<HD, true> : flash_fwd_mma<HD, false>;
+    auto kern = vec ? flash_fwd_mma<QD, VD, true>
+                    : flash_fwd_mma<QD, VD, false>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    constexpr int rows = MmaCfg<HD>::kRows;
+    constexpr int rows = MmaCfg<QD, VD>::kRows;
     const dim3 grid((Sq * G + rows - 1) / rows, B * KVH);
     kern<<<grid, kWarps * 32, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -586,45 +658,44 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// strides: element strides of q, k, v over (batch, seq, head), 9 values.
-// Returns the cudaError_t of the launch (0 on success).
+// The (q/k width, v width) pairs the kernels are built for: hd 64, 128 and
+// 256 for both, and MLA's 192 over 128.
+#define FLASH_WIDTHS(X) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+
+// strides: element strides of q, k, v over (batch, seq, head), 9 values;
+// hd is the q/k width, vd the v (and output) width. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int hd,
-                                   int B, int Sq, int Sk, int H, int KVH,
-                                   const long long* strides, int causal,
-                                   int prefix_len, float scale,
+                                   int vd, int B, int Sq, int Sk, int H,
+                                   int KVH, const long long* strides,
+                                   int causal, int prefix_len, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Sk, H, KVH, strides,
-                                     causal, prefix_len, scale, s);
-  if (dtype == kBFloat16 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Sk, H, KVH, strides,
-                                      causal, prefix_len, scale, s);
-  if (dtype == kBFloat16 && hd == 256)
-    return launch<__nv_bfloat16, 256>(q, k, v, o, B, Sq, Sk, H, KVH, strides,
-                                      causal, prefix_len, scale, s);
-  if (dtype == kFloat32 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KVH, strides, causal,
-                             prefix_len, scale, s);
-  if (dtype == kFloat32 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KVH, strides, causal,
-                              prefix_len, scale, s);
-  if (dtype == kFloat32 && hd == 256)
-    return launch<float, 256>(q, k, v, o, B, Sq, Sk, H, KVH, strides, causal,
-                              prefix_len, scale, s);
+#define FLASH_LAUNCH(QD, VD)                                                 \
+  if (hd == QD && vd == VD) {                                               \
+    if (dtype == kBFloat16)                                                 \
+      return launch<__nv_bfloat16, QD, VD>(q, k, v, o, B, Sq, Sk, H, KVH,   \
+                                           strides, causal, prefix_len,     \
+                                           scale, s);                       \
+    if (dtype == kFloat32)                                                  \
+      return launch<float, QD, VD>(q, k, v, o, B, Sq, Sk, H, KVH, strides,  \
+                                   causal, prefix_len, scale, s);           \
+  }
+  FLASH_WIDTHS(FLASH_LAUNCH)
+#undef FLASH_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of the instantiation that flash_attention_fwd
-// launches for (dtype, hd), in bytes; 0 for one it does not take.
-extern "C" int flash_attention_smem_bytes(int dtype, int hd) {
-  using bf16 = __nv_bfloat16;
-  if (dtype == kBFloat16 && hd == 64) return (int)smem_bytes<bf16, 64>();
-  if (dtype == kBFloat16 && hd == 128) return (int)smem_bytes<bf16, 128>();
-  if (dtype == kBFloat16 && hd == 256) return (int)smem_bytes<bf16, 256>();
-  if (dtype == kFloat32 && hd == 64) return (int)smem_bytes<float, 64>();
-  if (dtype == kFloat32 && hd == 128) return (int)smem_bytes<float, 128>();
-  if (dtype == kFloat32 && hd == 256) return (int)smem_bytes<float, 256>();
+// launches for (dtype, hd, vd), in bytes; 0 for one it does not take.
+extern "C" int flash_attention_smem_bytes(int dtype, int hd, int vd) {
+#define FLASH_SMEM(QD, VD)                                                   \
+  if (hd == QD && vd == VD) {                                               \
+    if (dtype == kBFloat16) return (int)smem_bytes<__nv_bfloat16, QD, VD>(); \
+    if (dtype == kFloat32) return (int)smem_bytes<float, QD, VD>();         \
+  }
+  FLASH_WIDTHS(FLASH_SMEM)
+#undef FLASH_SMEM
   return 0;
 }

@@ -35,7 +35,8 @@ def _on_cpu(t) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
-    """[B,Sq,H,hd] x [B,Sk,KVH,hd]² -> [B,Sq,H,hd]."""
+    """q [B,Sq,H,hd], k [B,Sk,KVH,hd], v [B,Sk,KVH,vd] -> [B,Sq,H,vd]
+    (vd = hd, or MLA's 128 under q/k 192)."""
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=causal,
                                  prefix_len=prefix_len)

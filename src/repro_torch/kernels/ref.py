@@ -16,7 +16,9 @@ import torch
 
 
 def attention_ref(q, k, v, *, causal: bool = True, prefix_len: int = 0):
-    """q: [B,Sq,H,hd]; k/v: [B,Sk,KVH,hd] (GQA). Full Sq×Sk softmax in fp32.
+    """q: [B,Sq,H,hd]; k: [B,Sk,KVH,hd]; v: [B,Sk,KVH,vd] (GQA; vd may
+    differ from hd, as in MLA's expanded prefill) -> [B,Sq,H,vd]. Full
+    Sq×Sk softmax in fp32, scores scaled by 1/sqrt(hd).
 
     Under ``causal``, query ``i`` sees keys ``j <= i`` plus every key
     ``j < prefix_len`` (a bidirectional prefix)."""
@@ -32,7 +34,8 @@ def attention_ref(q, k, v, *, causal: bool = True, prefix_len: int = 0):
         s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(
+        q.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths):

@@ -6,10 +6,12 @@
       --arch phi3.5-moe-42b-a6.6b --layers 8
   PYTHONPATH=src python -m repro_torch.launch.profile \
       --arch paligemma-3b [--paged]
+  PYTHONPATH=src python -m repro_torch.launch.profile \
+      --arch deepseek-v2-236b --layers 6
 
 Runs ``serve_demo`` at an arch's full width (default llama3.2-1b) and
 published depth, or at ``--layers`` layers (phi3.5-moe needs 8: its 32
-do not fit one 80 GB card), three times with the same arguments as
+do not fit one 80 GB card; deepseek-v2-236b 6 of its 60), three times with the same arguments as
 ``chip_smoke.py``: once to warm up (cuBLAS handles, lazily loaded
 kernels, the kernel build), once warm to read the engine metrics
 undisturbed, and once under ``torch.profiler``; ``--paged`` serves from
@@ -100,7 +102,8 @@ def main(argv=None) -> int:
                     help="depth (default: the published one); "
                          "phi3.5-moe-42b-a6.6b needs --layers 8 on one 80 GB "
                          "card, whose memory its 32 layers (83.7 GB of bf16 "
-                         "weights) exceed")
+                         "weights) exceed, and deepseek-v2-236b --layers 6 "
+                         "(49.8 GB; its 60 layers are 479 GB)")
     args = ap.parse_args(argv)
     serve = dict(SERVE, paged=args.paged)
     cfg = full_width_config(args.arch, args.layers)

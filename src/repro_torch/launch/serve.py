@@ -14,6 +14,8 @@ model on H100 DGX hardware and the wind fleet's first slot of power
       --arch seamless-m4t-medium --admit-mode async --admit-budget 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch paligemma-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch deepseek-v2-236b
 
 The command line serves an arch's reduced smoke config (``--layers``
 overrides its depth); ``full_width_config`` gives the published width

@@ -40,10 +40,10 @@ class Model:
 
 def build(cfg: ModelConfig, *, reference: bool = False,
           wkv_chunk: int = WKV6_CHUNK) -> Model:
-    if cfg.family not in FAMILIES or cfg.use_mla:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: only the {', '.join(FAMILIES)} families (GQA "
-            "attention, no MLA) are ported so far")
+            f"{cfg.name}: only the {', '.join(FAMILIES)} families are "
+            "ported so far")
     return Model(
         cfg=cfg,
         init_params=functools.partial(T.init_params, cfg),

@@ -5,9 +5,11 @@ The one place that knows both layouts: the reference keeps ``x @ W`` with
 the port keeps PyTorch's ``[out, in]`` and one dict per layer, except in
 the MoE block, whose leaves keep the reference's layout (``models.moe``).
 RWKV6 vectors (``mu_*``, ``decay_base``, ``bonus_u``, norm scales) and
-the qk-norm scales ``q_norm``/``k_norm`` keep their shapes. Leaves the
-reference keeps in fp32 (the MoE router, ``decay_base``, ``bonus_u``) stay
-fp32. An encdec tree's ``encoder`` and ``cross`` stacks become per-layer
+the qk-norm scales ``q_norm``/``k_norm`` keep their shapes, as do MLA's
+norm scales ``q_ln``/``kv_ln``; its projections (``w_dq``, ``w_uq``,
+``w_dkv``, ``w_kr``, ``w_uk``, ``w_uv``, ``wo``) turn like any other.
+Leaves the reference keeps in fp32 (the MoE router, ``decay_base``,
+``bonus_u``) stay fp32. An encdec tree's ``encoder`` and ``cross`` stacks become per-layer
 dicts (the cross-attention one inside each decoder layer); an encdec or
 vlm tree's ``frontend_proj`` is a projection like any other. Caches keep the
 reference's layout, but for the paged pools' trash page and ``enc_kv``,
@@ -24,6 +26,8 @@ from repro_torch.models.transformer import torch_dtype
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _QK_NORM = ("q_norm", "k_norm")
+_MLA = ("w_dq", "w_uq", "w_dkv", "w_kr", "w_uk", "w_uv", "wo")
+_MLA_NORM = ("q_ln", "kv_ln")
 _MLP = ("w_gate", "w_up", "w_down")
 
 
@@ -60,6 +64,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
         return out
 
     def attn(a, i):
+        if cfg.use_mla:
+            out = {k: linear(a[k][i]) for k in _MLA}
+            out.update({k: t(a[k][i]) for k in _MLA_NORM})
+            return out
         out = {k: linear(a[k][i]) for k in _ATTN}
         out.update({k: t(a[k][i]) for k in _QK_NORM if k in a})
         return out
@@ -90,11 +98,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
 def cache_from_numpy(tree: dict, device) -> dict:
     """The reference's decode cache, already converted to numpy arrays, in
     the port's layout on ``device``: dense, int8 (``k_scale``/``v_scale``),
-    paged (``table``) or an ssm family's recurrent ``state``, and an
-    encdec cache's ``enc_kv``. The leaves keep their shapes and dtypes,
-    except that each paged pool gains the trash page (zeros) after its P
-    pages, whose id P is the reference's sentinel; the ``span`` marker is
-    dropped."""
+    paged (``table``), an MLA model's latents (``ckv``/``kr``) or an ssm
+    family's recurrent ``state``, and an encdec cache's ``enc_kv``. The
+    leaves keep their shapes and dtypes, except that each paged pool gains
+    the trash page (zeros) after its P pages, whose id P is the
+    reference's sentinel; the ``span`` marker is dropped."""
     paged = "table" in tree
 
     def t(a, pool=paged):

@@ -16,6 +16,14 @@ output never depends on its batch-mates, which the engine's batched ==
 serial anchor relies on. It equals the reference's compute-every-expert
 form token by token, to rounding.
 
+The buckets ``xe`` and ``ye`` [E, C, D] grow with E x T: at deepseek-v2's
+160 experts and d 5120 a 4096-token prefill would take 6.7 GB for each.
+So routing runs over all T tokens at once (the aux loss sees them all),
+and the bucket-GEMM-combine over slices of at most ``SLICE_BYTES`` of
+``xe``; no row of a GEMM depends on another, so a token's output does not
+depend on the cut. Smaller models (phi3.5's 16 experts at d 4096 take
+8192 tokens a slice) run in one slice.
+
 The leaves keep the reference's layout: expert stacks ``w_gate``/``w_up``
 [E, D, F] and ``w_down`` [E, F, D], the router [D, E] in fp32, a shared
 expert's ``w_gate``/``w_up`` [D, Fs] and ``w_down`` [Fs, D], all applied
@@ -28,6 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import dense_init
+
+# the most bytes of one slice's bucket xe [E, Tc, D] (ye is as large)
+SLICE_BYTES = 1 << 30
 
 
 def moe_params(cfg, gen: torch.Generator, dtype) -> dict:
@@ -69,6 +80,31 @@ def _bucket(e_flat, num_experts: int):
     return slot, onehot.sum(0, dtype=torch.int32)
 
 
+def slice_tokens(num_experts: int, d_model: int, dtype) -> int:
+    """Tokens a slice of ``moe_block`` takes: as many as keep its bucket
+    [E, Tc, D] within ``SLICE_BYTES``, at least one."""
+    per_token = num_experts * d_model * torch.empty((), dtype=dtype
+                                                    ).element_size()
+    return max(1, SLICE_BYTES // per_token)
+
+
+def _experts(p, xf, weights, idx, num_experts: int, gemm):
+    """The routed experts' weighted sum for tokens xf [T, D] with their
+    top-k ``weights``/``idx`` [T, k]: bucket, three GEMMs, combine."""
+    T, D = xf.shape
+    k = idx.shape[1]
+    e_flat = idx.reshape(-1)                                   # [T*k]
+    slot, fill = _bucket(e_flat, num_experts)
+    tok = torch.arange(T * k, device=xf.device) // k
+    xe = xf.new_zeros((num_experts, T, D))
+    xe[e_flat, slot] = xf[tok]
+    h = (F.silu(gemm(xe, p["w_gate"], fill))
+         * gemm(xe, p["w_up"], fill))
+    ye = gemm(h, p["w_down"], fill)                            # [E, T, D]
+    return (ye[e_flat, slot].float().view(T, k, D)
+            * weights[..., None]).sum(1).to(xf.dtype)
+
+
 def moe_block(cfg, p, x, *, reference: bool = False):
     """x: [B,S,D] -> (y [B,S,D] in x's dtype, aux loss). ``reference``
     runs the expert GEMMs through their plain version on any device."""
@@ -76,17 +112,11 @@ def moe_block(cfg, p, x, *, reference: bool = False):
     T, k, E = B * S, cfg.experts_per_token, cfg.num_experts
     xf = x.reshape(T, D)
     weights, idx, aux = _route(xf.float(), p["router"], k)
-    e_flat = idx.reshape(-1)                                   # [T*k]
-    slot, fill = _bucket(e_flat, E)
-    tok = torch.arange(T * k, device=x.device) // k
-    xe = x.new_zeros((E, T, D))
-    xe[e_flat, slot] = xf[tok]
     gemm = ref.expert_matmul_ref if reference else ops.expert_matmul
-    h = (F.silu(gemm(xe, p["w_gate"], fill))
-         * gemm(xe, p["w_up"], fill))
-    ye = gemm(h, p["w_down"], fill)                            # [E, T, D]
-    y = (ye[e_flat, slot].float().view(T, k, D)
-         * weights[..., None]).sum(1).to(x.dtype)
+    Tc = slice_tokens(E, D, x.dtype)
+    ys = [_experts(p, xf[t:t + Tc], weights[t:t + Tc], idx[t:t + Tc], E,
+                   gemm) for t in range(0, T, Tc)]
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
     if cfg.num_shared_experts:
         sp = p["shared"]
         hs = F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])

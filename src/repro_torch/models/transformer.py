@@ -1,13 +1,14 @@
 """Models: parameters, prefill, extend and decode.
 
-Port of the ``"dense"`` (with or without qk-norm), ``"moe"``, ``"ssm"``
-(RWKV6), ``"encdec"`` and ``"vlm"`` families of
+Port of the ``"dense"`` (with or without qk-norm), ``"moe"`` (GQA or MLA
+attention), ``"ssm"`` (RWKV6), ``"encdec"`` and ``"vlm"`` families of
 ``repro/models/transformer.py``. The
 layer stack is a Python loop over a list of per-layer parameter dicts (the
 reference scans a stacked ``[L, ...]`` tree). Parameters live on the
 device of the ``torch.Generator`` that draws them. A moe layer has
-``"moe"`` (``models.moe``) in place of ``"mlp"``; an ssm layer is an RWKV6
-block (``models.rwkv6``). An encdec model adds ``"encoder"`` (its own
+``"moe"`` (``models.moe``) in place of ``"mlp"``; an MLA model's ``"attn"``
+holds ``models.mla``'s weights; an ssm layer is an RWKV6 block
+(``models.rwkv6``). An encdec model adds ``"encoder"`` (its own
 layers, bidirectional, and a final norm), ``"frontend_proj"`` [d, d] (the
 audio frontend stub's projection of the ``frames`` input) and, in each
 decoder layer, ``"cross"`` (a norm and an attention block over the
@@ -28,7 +29,9 @@ state, ``{"state": {"wkv": [L,B,H,hd,hd], "tm": [L,B,D], "cm": [L,B,D]}
 (fp32), "pos": [B]}``, with no sequence axis. An encdec cache adds
 ``"enc_kv": {"k", "v"}`` [L,B,Se,KVH,hd], the cross-attention's K/V of
 the encoder output, dense per row in every layout and never quantized
-(the reference keeps it as a (k, v) pair). ``extend_fn`` and
+(the reference keeps it as a (k, v) pair). An MLA cache's ``kv`` holds the
+latents instead, ``{"ckv": [L,B,S,kv_lora], "kr": [L,B,S,rope]}``, dense
+in every layout and never quantized. ``extend_fn`` and
 ``decode_fn`` update the cache in place and return it.
 """
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import WKV6_CHUNK
 from repro_torch.models import layers as Lyr
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as RWKV
 
@@ -85,7 +89,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
     layers = []
     for _ in range(cfg.num_layers):
-        layer = {"ln1": ones(), "ln2": ones(), "attn": attn()}
+        layer = {"ln1": ones(), "ln2": ones(),
+                 "attn": MLA.mla_params(cfg, gen, dt) if cfg.use_mla
+                 else attn()}
         if cfg.is_moe:
             layer["moe"] = MOE.moe_params(cfg, gen, dt)
         else:
@@ -114,15 +120,20 @@ def _layer(cfg, p, x, positions, *, mode="prefill", causal=True,
            prefix_len=0, cache=None, pos=None, rows=None, table=None,
            enc=None, reference=False):
     """One layer: self-attention (its first ``prefix_len`` keys seen by
-    every query in prefill), then (an encdec decoder layer, ``enc`` = (k,
-    v, lengths) of its ``enc_kv``) cross-attention, then the MLP or the
-    MoE block."""
+    every query in prefill; MLA's latent attention for an MLA model), then
+    (an encdec decoder layer, ``enc`` = (k, v, lengths) of its ``enc_kv``)
+    cross-attention, then the MLP or the MoE block."""
     h = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    o, kv = Lyr.attention_block(cfg, p["attn"], h, positions=positions,
-                                mode=mode, causal=causal,
-                                prefix_len=prefix_len, cache=cache,
-                                pos=pos, rows=rows, table=table,
-                                reference=reference)
+    if cfg.use_mla:
+        o, kv = MLA.mla_block(cfg, p["attn"], h, positions=positions,
+                              mode=mode, cache=cache, pos=pos, rows=rows,
+                              reference=reference)
+    else:
+        o, kv = Lyr.attention_block(cfg, p["attn"], h, positions=positions,
+                                    mode=mode, causal=causal,
+                                    prefix_len=prefix_len, cache=cache,
+                                    pos=pos, rows=rows, table=table,
+                                    reference=reference)
     x = x + o
     if "cross" in p:
         h = Lyr.rmsnorm(p["cross"]["ln"], x, cfg.norm_eps)
@@ -194,8 +205,9 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
     ``inputs["frames"]`` [B,Se,d] and returns their ``enc_kv``; a vlm
     model takes ``inputs["patches"]`` [B,P,d], runs them as a
     bidirectional prefix before the prompt, and returns a cache of P + S
-    positions with ``pos == P + S``. ``wkv_chunk``: the ssm plain path's
-    chunk (``reference``)."""
+    positions with ``pos == P + S``; an MLA model's cache holds its
+    latents ``ckv``/``kr``. ``wkv_chunk``: the ssm plain path's chunk
+    (``reference``)."""
     dev = _device(params)
     tokens = torch.as_tensor(inputs["tokens"], device=dev)
     B, S = tokens.shape
@@ -216,16 +228,17 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
         S = x.shape[1]
     pos = torch.full((B,), S, dtype=torch.int32, device=dev)
     positions = torch.arange(S, device=dev)
-    L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    k_all = torch.empty((L, B, S, KVH, hd), dtype=x.dtype, device=dev)
-    v_all = torch.empty_like(k_all)
-    cache = {"kv": {"k": k_all, "v": v_all}, "pos": pos}
+    kv_all = {name: torch.empty((cfg.num_layers, B, S, *shape),
+                                dtype=x.dtype, device=dev)
+              for name, shape in _kv_shapes(cfg).items()}
+    cache = {"kv": kv_all, "pos": pos}
     if cfg.family == "encdec":
         cache["enc_kv"] = _encode(cfg, params, inputs["frames"], reference)
     for i, p in enumerate(params["layers"]):
-        x, (k, v) = _layer(cfg, p, x, positions, prefix_len=prefix_len,
-                           enc=_enc_layer(cache, i), reference=reference)
-        k_all[i], v_all[i] = k, v
+        x, kv = _layer(cfg, p, x, positions, prefix_len=prefix_len,
+                       enc=_enc_layer(cache, i), reference=reference)
+        for leaf, t in zip(kv_all.values(), kv):
+            leaf[i] = t
     return _head(cfg, params, x), cache
 
 
@@ -295,9 +308,26 @@ def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     return _head(cfg, params, x), cache
 
 
+def _kv_shapes(cfg: ModelConfig) -> dict:
+    """Each cache leaf's shape per token: K and V [KVH, hd], or an MLA
+    model's latents ``ckv`` [kv_lora] and ``kr`` [rope]."""
+    if cfg.use_mla:
+        return {"ckv": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_head_dim,)}
+    shape = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": shape, "v": shape}
+
+
 def _kv_leaves(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
     """Zeroed K/V leaves [*lead, KVH, hd]: int8 with fp32 scales
-    [*lead, KVH] when ``dtype`` is "int8", else of ``dtype``."""
+    [*lead, KVH] when ``dtype`` is "int8", else of ``dtype``. An MLA
+    model's latent leaves [*lead, kv_lora] and [*lead, rope] have no int8
+    layout."""
+    if cfg.use_mla:
+        if str(dtype) == "int8":
+            raise ValueError(f"{cfg.name}: MLA latents are never quantized")
+        return {name: torch.zeros((*lead, *shape), dtype=torch_dtype(dtype),
+                                  device=device)
+                for name, shape in _kv_shapes(cfg).items()}
     shape = (*lead, cfg.num_kv_heads, cfg.resolved_head_dim)
     if str(dtype) == "int8":
         z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)
@@ -325,8 +355,9 @@ def _with_enc_kv(cfg: ModelConfig, cache: dict, batch: int, dtype,
 def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                       dtype=None) -> dict:
     """Zeroed decode cache for ``batch`` rows of ``max_seq`` tokens;
-    ``dtype="int8"`` gives the quantized layout. The ssm family's is its
-    recurrent state, whatever ``max_seq`` and ``dtype``."""
+    ``dtype="int8"`` gives the quantized layout (an MLA model's latents
+    have none). The ssm family's is its recurrent state, whatever
+    ``max_seq`` and ``dtype``."""
     if cfg.family == "ssm":
         return {"state": RWKV.rwkv6_state_init(cfg, batch, device),
                 "pos": torch.zeros((batch,), dtype=torch.int32,
@@ -342,7 +373,10 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
 def quantize_decode_cache(cache: dict) -> dict:
     """An fp decode cache (dense or paged) -> a new int8 one with
     per-(token, KV head) scales; ``pos``, the table and an encdec cache's
-    ``enc_kv`` are shared."""
+    ``enc_kv`` are shared. An MLA cache's latents are left as they are,
+    as the reference leaves them (a new dict over the same leaves)."""
+    if "k" not in cache["kv"]:
+        return dict(cache)
     k, ks = Lyr.quantize_kv(cache["kv"]["k"])
     v, vs = Lyr.quantize_kv(cache["kv"]["v"])
     return {**cache, "kv": {"k": k, "k_scale": ks, "v": v, "v_scale": vs}}

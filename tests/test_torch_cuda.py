@@ -17,6 +17,8 @@ but computes and writes fp32, so it is held to 2e-5 at both dtypes.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -684,3 +686,133 @@ def test_async_engine_on_the_card_gives_the_batched_streams(gen, paged):
         streams[mode] = {r.rid: r.tokens for r in m.completed}
     assert len(streams["async"]) == 6
     assert streams["async"] == streams["batched"]
+
+
+# deepseek-v2's MLA: kernel 1 at q/k 192 over v 128 (its expanded prefill,
+# 128 heads over 128 at G = 1), and kernel 6 at 160 experts
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal", [
+    (2, 77, 77, 8, 8, True),              # G = 1, S not a multiple of 64
+    (1, 300, 300, 16, 16, True),
+    (2, 50, 130, 8, 2, True),             # G = 4, Sq < Sk
+    (2, 90, 90, 8, 8, False),
+    (1, 33, 200, 8, 2, False),            # G = 4, Sq < Sk, non-causal
+    (4, 128, 128, 128, 128, True),        # deepseek-v2's heads
+])
+def test_flash_kernel_mla_widths_match_plain(gen, dtype, B, Sq, Sk, H, KVH,
+                                             causal):
+    q = _rnd(gen, (B, Sq, H, 192), dtype)
+    k = _rnd(gen, (B, Sk, KVH, 192), dtype)
+    v = _rnd(gen, (B, Sk, KVH, 128), dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    assert got.shape == (B, Sq, H, 128)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_flash_kernel_mla_widths_take_unaligned_rows_and_views(gen):
+    """q/k at 192 and v at 128 as views one element into their storage
+    (the scalar-copy instantiation), and k as MLA builds it: a 128-wide
+    part per head beside a 64-wide part shared by every head."""
+    B, S, H = 2, 70, 8
+    buf = _rnd(gen, (B, S, H * (2 * 192 + 128) + 1), torch.bfloat16)
+    q = buf[..., 1:1 + H * 192].view(B, S, H, 192)
+    k = buf[..., 1 + H * 192:1 + 2 * H * 192].view(B, S, H, 192)
+    v = buf[..., 1 + 2 * H * 192:].view(B, S, H, 128)
+    assert q.data_ptr() % 16 and q.stride(1) % 8
+    torch.testing.assert_close(flash_attention(q, k, v).float(),
+                               ref.attention_ref(q, k, v).float(),
+                               **TOL[torch.bfloat16])
+    kn, kr = _rnd(gen, (B, S, H, 128), torch.bfloat16), _rnd(
+        gen, (B, S, 64), torch.bfloat16)
+    k = torch.cat([kn, kr[:, :, None].expand(B, S, H, 64)], dim=-1)
+    v = _rnd(gen, (B, S, H, 128), torch.bfloat16)
+    q = q.contiguous()
+    torch.testing.assert_close(flash_attention(q, k, v).float(),
+                               ref.attention_ref(q, k, v).float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_mla_rows_do_not_depend_on_the_batch(gen, dtype):
+    S, H = 150, 16
+    q, k = (_rnd(gen, (4, S, H, 192), dtype) for _ in range(2))
+    v = _rnd(gen, (4, S, H, 128), dtype)
+    assert torch.equal(flash_attention(q, k, v)[1:2],
+                       flash_attention(q[1:2], k[1:2], v[1:2]))
+
+
+@pytest.mark.parametrize("kind", DECODE_KINDS + ["extend", "flash"])
+def test_kernels_refuse_other_width_pairs(gen, kind):
+    """Kernels 2-5 keep refusing head dim 192 (MLA decodes and extends in
+    the absorbed form, outside them); kernel 1 takes v narrower than q/k
+    only at 192 over 128."""
+    if kind in DECODE_KINDS:
+        x = _decode_inputs(gen, kind, torch.bfloat16, (5, 9), 64, hd=192)
+        with pytest.raises(ValueError, match="192"):
+            _decode(kind, x)
+        return
+    if kind == "extend":
+        kp, vp = _pools(gen, 8, 16, 8, 192, torch.bfloat16)
+        q = _rnd(gen, (2, 4, 32, 192), torch.bfloat16)
+        kn, vn = (_rnd(gen, (2, 4, 8, 192), torch.bfloat16) for _ in range(2))
+        with pytest.raises(ValueError, match="192"):
+            paged_extend_attention(q, kp, vp, kn, vn, _table(gen, 2, 4, 8),
+                                   torch.tensor([3, 0], dtype=torch.int32,
+                                                device="cuda"))
+        return
+    for qd, vd in ((192, 192), (128, 64), (192, 64)):
+        q, k = (_rnd(gen, (1, 8, 4, qd), torch.bfloat16) for _ in range(2))
+        v = _rnd(gen, (1, 8, 4, vd), torch.bfloat16)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,D,F", [(8, 5120, 1536), (20, 512, 384),
+                                   (20, 384, 512)])
+def test_expert_matmul_kernel_at_160_experts(gen, dtype, C, D, F):
+    """deepseek-v2's 160 experts: empty, partial and full buckets (a
+    top-6 decode of 8 tokens fills at most 48 of them), at its gate/up
+    width and at small ragged ones."""
+    E = 160
+    fill = torch.randint(0, C + 1, (E,), generator=gen, device="cuda")
+    fill[::3] = 0
+    fill[1::7] = C
+    fill = fill.to(torch.int32)
+    xe = _rnd(gen, (E, C, D), dtype)
+    w = (_rnd(gen, (E, D, F), torch.float32) / D ** 0.5).to(dtype)
+    got = expert_matmul(xe, w, fill)
+    torch.testing.assert_close(got.float(),
+                               ref.expert_matmul_ref(xe, w, fill).float(),
+                               **TOL[dtype])
+    rows = torch.arange(C, device="cuda")[None, :].expand(E, C)
+    assert (got[rows >= fill[:, None]] == 0).all()
+
+
+def test_deepseek_v2_kernel_path_matches_plain_path(gen):
+    """One layer of deepseek-v2 at its published width, fp32: a prefill
+    through kernel 1 at 192 over 128 and kernel 6 at 160 experts top-6,
+    then an absorbed extend and decode (kernel 6 only), against the plain
+    versions."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), num_layers=1,
+                              dtype="float32")
+    params = build(cfg).init_params(gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 45), generator=gen,
+                         device="cuda").to(torch.int32)
+    out = {}
+    for reference in (False, True):
+        m = build(cfg, reference=reference)
+        flash_attention.launches = expert_matmul.launches = 0
+        lp, pre = m.prefill_fn(params, {"tokens": toks[:, :32]})
+        cache = T.make_decode_cache(cfg, 2, 64, "cuda")
+        for n in ("ckv", "kr"):
+            cache["kv"][n][:, :, :32] = pre["kv"][n]
+        cache["pos"][:] = 32
+        le, cache = m.extend_fn(params, {"tokens": toks[:, 32:40]}, cache)
+        ld, _ = m.decode_fn(params, {"token": toks[:, 40]}, cache)
+        out[reference] = (lp, le, ld)
+        launched = (flash_attention.launches, expert_matmul.launches)
+        assert launched == ((0, 0) if reference else (1, 9))
+    for a, b in zip(out[False], out[True]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
