@@ -80,14 +80,28 @@ Phases (any failure exits non-zero before the result line):
      within twice the plain path's own spread between two cuts of the
      prompt, and at least LOGIT_BOUND: the top-6 routing over 160
      experts flips under bf16 rounding); a 1-layer
-     fp32 model at full width gives equal streams batched and async.
+     fp32 model at full width gives equal streams batched and async;
+  11. hybrid: zamba2-7b whole (81 Mamba2 layers, the shared attention +
+     MLP block with a rank-128 LoRA per group of 6, hd 112), lora_b,
+     A_log and dt_bias perturbed from a seed, the same 16 requests,
+     batched and async over its dense state + attention caches; every
+     request completes, kernel 1 launches once per group and prefill
+     call and kernel 2 once per group and decode step, kernels 3-7
+     never; one prompt's logits through a prefill, extend chunks and two
+     decode steps match the plain path's, at bf16 within twice the plain
+     path's own spread between two SSD chunk sizes (81 recurrent layers
+     decorrelate the logits under one rounding) and, the whole model at
+     fp32, within LOGIT_BOUND_FP32 with argmax equal at every call; an
+     int8 attn cache at B=4 (fp32 model) goes through kernel 3; a 7-layer
+     fp32 copy (one group, one tail layer) gives the plain path's streams.
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
 mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
 kernel 1 with a 256-position bidirectional prefix), kernel 1 at
-deepseek-v2's q/k 192 over v 128 and kernel 6 at its 160 experts, against
-their plain versions, with times and bounds; phase 2 lists the hd-256 and
-192/128 instantiations beside the others.
+deepseek-v2's q/k 192 over v 128 and kernel 6 at its 160 experts, and
+kernels 1, 2 and 3 at zamba2-7b's hd 112, against their plain versions,
+with times and bounds; phase 2 lists the hd-256, 192/128 and hd-112
+instantiations beside the others.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -244,7 +258,8 @@ def main() -> int:
     # dynamic shared memory its launch asks for from the library
     smem = {"flash_attention": [
                 (f"{dt} hd={hd}", flash_smem_bytes(getattr(torch, dt), hd))
-                for dt in ("bfloat16", "float32") for hd in (64, 128, 256)]
+                for dt in ("bfloat16", "float32")
+                for hd in (64, 112, 128, 256)]
             + [(f"{dt} q/k=192 v=128", flash_smem_bytes(getattr(torch, dt),
                                                         192, 128))
                for dt in ("bfloat16", "float32")],
@@ -267,11 +282,12 @@ def main() -> int:
             "decode_attention": [
                 (f"{dt} hd={hd} S=1024", decode_plan(getattr(torch, dt), hd,
                                                      32, 8, 1, 1024))
-                for dt in ("bfloat16", "float32") for hd in (64, 128, 256)],
+                for dt in ("bfloat16", "float32")
+                for hd in (64, 112, 128, 256)],
             "decode_attention_int8": [
                 (f"int8 hd={hd} S=1024", decode_plan(torch.int8, hd, 32, 8, 1,
                                                      1024))
-                for hd in (64, 128, 256)],
+                for hd in (64, 112, 128, 256)],
             "paged_decode_attention": [
                 (f"{dt} hd={hd} W=64 page=16", decode_plan(
                     getattr(torch, dt), hd, 32, 8, 64, 16))
@@ -1006,6 +1022,85 @@ def main() -> int:
             mla_flash_entry = extra_shapes["flash_attention"][-1]
             del qtx, ktx, vtx
         del qx, kx, vx
+    torch.cuda.empty_cache()
+
+    # kernels 1, 2 and 3 at zamba2-7b's shared attention: hd 112, 32 heads
+    # over 32 (G = 1); kernel 1 causal at B=4 Sq=Sk=512, kernels 2 and 3 at
+    # the decode shape above (B=8, S=1024, the ragged lengths; kernel 3
+    # with the fresh token). Each against its plain version at bf16 and
+    # fp32, timed at bf16 (kernels 1 and 2 beside SDPA). Their own
+    # generator, so every other input stays as it was
+    g_zam = torch.Generator(device=dev).manual_seed(SEED + 7)
+    Bz, Sz, Hz, hdz = 4, 512, 32, 112
+    zamba_entries = {}
+    print("[kernels] zamba2-7b's shapes (kernels 1, 2, 3 at hd 112, G = 1) "
+          "vs their plain versions; times at bf16")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        qx, kx, vx = (rnd(Bz, Sz, Hz, hdz, dtype=dt, g=g_zam)
+                      for _ in range(3))
+        case = (f"{dtype} B={Bz} Sq=Sk={Sz} H=KVH={Hz} (G=1) hd={hdz} "
+                f"causal (zamba2-7b prefill)")
+        compare("flash_attention", flash_attention(qx, kx, vx),
+                ref.attention_ref(qx, kx, vx), dtype, case)
+        if dt is bf:
+            qtx, ktx, vtx = (t.transpose(1, 2) for t in (qx, kx, vx))
+            timed("flash_attention", case,
+                  lambda: flash_attention(qx, kx, vx),
+                  lambda: ref.attention_ref(qx, kx, vx),
+                  lambda: F.scaled_dot_product_attention(
+                      qtx, ktx, vtx, is_causal=True),
+                  2 * (2 * qx.numel() + kx.numel() + vx.numel()),
+                  4.0 * Bz * Hz * hdz * Sz * (Sz + 1) / 2)
+            zamba_entries["flash_attention"] = \
+                extra_shapes["flash_attention"][-1]
+            del qtx, ktx, vtx
+        del qx, kx, vx
+    keys_z = int(lens_main.clamp(max=S_dec).sum())
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        qx = rnd(8, Hz, hdz, dtype=dt, g=g_zam)
+        kx, vx = (rnd(8, S_dec, Hz, hdz, dtype=dt, g=g_zam)
+                  for _ in range(2))
+        kn, vn = (rnd(8, Hz, hdz, dtype=dt, g=g_zam) for _ in range(2))
+        kq, ksq = Lyr.quantize_kv(kx.float())
+        vq, vsq = Lyr.quantize_kv(vx.float())
+        dcase = (f"{dtype} B=8 S={S_dec} H=KVH={Hz} (G=1) hd={hdz} "
+                 f"lengths={lens_main.tolist()} (zamba2-7b decode)")
+        compare("decode_attention", decode_attention(qx, kx, vx, lens_main),
+                ref.decode_attention_ref(qx, kx, vx, lens_main), dtype,
+                dcase)
+        compare("decode_attention_int8",
+                decode_attention_int8(qx, kq, vq, ksq, vsq, lens_main,
+                                      k_new=kn, v_new=vn),
+                ref.decode_attention_int8_ref(qx, kq, vq, ksq, vsq,
+                                              lens_main, kn, vn), dtype,
+                f"{dcase} int8 +fresh")
+        if dt is bf:
+            mask_z = (torch.arange(S_dec, device=dev)[None, :]
+                      < lens_main[:, None])[:, None, None, :]
+            ktx, vtx = kx.transpose(1, 2), vx.transpose(1, 2)
+            timed("decode_attention", dcase,
+                  lambda: decode_attention(qx, kx, vx, lens_main),
+                  lambda: ref.decode_attention_ref(qx, kx, vx, lens_main),
+                  lambda: F.scaled_dot_product_attention(
+                      qx[:, :, None, :], ktx, vtx, attn_mask=mask_z),
+                  2 * (2 * qx.numel() + 2 * keys_z * Hz * hdz) + 4 * 8,
+                  4.0 * Hz * hdz * keys_z)
+            zamba_entries["decode_attention"] = \
+                extra_shapes["decode_attention"][-1]
+            timed("decode_attention_int8", f"{dcase} int8 +fresh",
+                  lambda: decode_attention_int8(qx, kq, vq, ksq, vsq,
+                                                lens_main, k_new=kn,
+                                                v_new=vn),
+                  lambda: ref.decode_attention_int8_ref(
+                      qx, kq, vq, ksq, vsq, lens_main, kn, vn), None,
+                  2 * 2 * qx.numel() + 2 * keys_z * Hz * (hdz + 4)
+                  + 2 * 2 * kn.numel() + 4 * 8, 4.0 * Hz * hdz * (keys_z + 8))
+            zamba_entries["decode_attention_int8"] = \
+                extra_shapes["decode_attention_int8"][-1]
+            del ktx, vtx
+        del qx, kx, vx, kq, vq, kn, vn
     torch.cuda.empty_cache()
 
     # kernel 6 at phi3.5-moe's shapes: 16 experts, D 4096, F 6400 (gate/up;
@@ -2268,6 +2363,271 @@ def main() -> int:
           f"({sum(len(t) for t in m32['batched'].values())} tokens)")
     torch.cuda.empty_cache()
     print(f"[mla] card: {smi}")
+
+    # --------------------------------------------------------- 11. hybrid
+    # zamba2-7b whole: 81 Mamba2 layers (d 3584, inner 7168, SSM state 64
+    # over 112 heads of 64, conv 4), 13 groups of (the shared attention +
+    # MLP block, 32 heads over 32 at hd 112, with the group's rank-128 LoRA
+    # on q/k/v, then 6 Mamba2 layers) and 3 tail layers; V 32000: 6.78 B
+    # parameters, 13.6 GB in bf16. lora_b (zero in the reference's init),
+    # A_log and dt_bias are perturbed from a seed, so that the LoRA delta
+    # and the decay clamp (dt * A past 1.5) take part. The same 16
+    # requests, batched and async, over the dense state + attn caches (an
+    # engine asked for pages stays dense). Launches: a prefill call runs
+    # kernel 1 once a group, a decode step kernel 2 once a group; the dense
+    # extend is plain PyTorch and the SSD has no kernel (the reference
+    # computes it in XLA), so kernels 3-7 never launch
+    from repro_torch.models import mamba2 as M2
+    zcfg = full_width_config("zamba2-7b")
+    Gz = zcfg.num_layers // zcfg.shared_attn_every
+    zreqs = [r for _, r in demo_requests(zcfg, **serve_kw)]
+    z_tokens = sum(r.max_new_tokens for r in zreqs)
+
+    def zamba_params(cfg):
+        """Weights from SEED, lora_b, A_log and dt_bias perturbed."""
+        p = build_model(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        gz = torch.Generator(device=dev).manual_seed(SEED + 8)
+        noise = lambda t, sd: (sd * torch.randn(
+            t.shape, generator=gz, device=dev)).to(t.dtype)
+        p["shared"]["lora_b"] += noise(p["shared"]["lora_b"], 0.02)
+        for layer in p["mamba"] + p.get("mamba_tail", []):
+            layer["A_log"] += noise(layer["A_log"], 0.5)
+            layer["dt_bias"] += noise(layer["dt_bias"], 1.0)
+        return p
+
+    zparams = zamba_params(zcfg)
+    print(f"[hybrid] {zcfg.name} whole: {zcfg.num_layers} Mamba2 layers in "
+          f"{Gz} groups of {zcfg.shared_attn_every} + "
+          f"{zcfg.num_layers - Gz * zcfg.shared_attn_every} tail, shared "
+          f"attention H={zcfg.num_heads} KVH={zcfg.num_kv_heads} "
+          f"hd={zcfg.head_dim}: {zcfg.param_count() / 1e9:.2f} B parameters "
+          f"({2 * zcfg.param_count() / 1e9:.1f} GB in bf16); lora_b, A_log, "
+          f"dt_bias perturbed")
+    check(not ServingEngine(build_model(zcfg), zparams, max_batch=1,
+                            max_seq=16, paged=True).paged,
+          "hybrid: an engine asked for pages is paged")
+    z_launch, z_streams = {}, {}
+    for mode in ("batched", "async"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(*kernel_fns.values())
+        zout = serve_demo(zcfg, max_batch=8, max_seq=1024, device="cuda",
+                          admit_mode=mode, params=zparams, **serve_kw)
+        zl = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        zsites = zout["per_site"]
+        check(zout["completed"] == zout["submitted"] == 16
+              and set(zout["tokens"]) == {r.rid for r in zreqs},
+              f"hybrid {mode}: served {zout['completed']}/"
+              f"{zout['submitted']}")
+        chunks = sum(s["extend_chunks"] for s in zsites)
+        steps = sum(s["decode_steps"] for s in zsites)
+        prefills = sum(s["prefill_calls"] for s in zsites) - chunks
+        want_l = {"flash_attention": Gz * prefills,
+                  "decode_attention": Gz * steps}
+        check(zl == want_l and all(want_l.values()),
+              f"hybrid {mode}: launches {zl} != {want_l} ({prefills} prefill "
+              f"calls, {chunks} extend chunks, {steps} decode steps)")
+        served_z = sum(s["served_tokens"] for s in zsites)
+        check(served_z == z_tokens, f"hybrid {mode}: served {served_z} "
+              f"tokens, not {z_tokens}")
+        z_launch[mode], z_streams[mode] = zl, zout["tokens"]
+        same = sum(zout["tokens"][k] == z_streams["batched"][k]
+                   for k in z_streams["batched"])
+        print(f"[hybrid] {zcfg.name} {mode} bf16: 16/16 requests, {served_z} "
+              f"tokens in {zout['wall_seconds']:.3f} s "
+              f"({served_z / zout['wall_seconds']:.1f} tok/s), "
+              f"{prefills + chunks + steps} model calls ({prefills} prefill, "
+              f"{chunks} extend, {steps} decode), peak memory {peak_gb:.2f} "
+              f"GB; launches {zl} (kernels 3-7: 0); streams equal to the "
+              f"batched run's: {same} of 16")
+        for i, s in enumerate(zsites):
+            print(f"  site {i}: prefill calls "
+                  f"{s['prefill_calls'] - s['extend_chunks']}, extend chunks "
+                  f"{s['extend_chunks']}, decode steps {s['decode_steps']}, "
+                  f"TTFT mean {s['mean_ttft'] * 1e3:.1f} / p99 "
+                  f"{s['p99_ttft'] * 1e3:.1f} ms, TBT mean "
+                  f"{s['mean_tbt'] * 1e3:.2f} / p99 {s['p99_tbt'] * 1e3:.2f} "
+                  f"ms")
+        torch.cuda.empty_cache()
+    for name in ("flash_attention", "decode_attention"):
+        zamba_entries[name]["launches"] = z_launch["batched"][name]
+
+    # request 0 through a prefill of its largest power of 2 below its
+    # length, the rest as descending power-of-2 extend chunks and two greedy
+    # decode steps (the kernel path's tokens fed to every run), kernel path
+    # vs plain path; the share of (token, SSM head) pairs of the prefill
+    # whose dt * A reaches the decay clamp is counted over every layer. At
+    # bf16 the 81 recurrent layers re-round their outputs and carry the
+    # rounding through the prompt, and this random model's logits (std ~1)
+    # decorrelate under one rounding's difference: the plain path differs
+    # from itself, with the SSD at 16-token chunks in place of 32 (the same
+    # math, the same calls), by as much as from the kernel path. As for
+    # rwkv6 (phase 6) the kernel path is held within SPREAD_FACTOR_BF16
+    # times that spread (the bound at least LOGIT_BOUND); the whole model
+    # at fp32 then holds the kernel path to LOGIT_BOUND_FP32 with argmax
+    # equal at every call, and carries the int8 segment
+    zprompt = torch.as_tensor(zreqs[0].prompt[None, :], device=dev)
+    S0 = zprompt.shape[1]
+    zbucket = 1 << ((S0 - 1).bit_length() - 1)
+    chunked, clamp = M2.ssd_chunked, []
+
+    def counting(x, dt_v, Bm, Cm, A, state0, chunk=M2.CHUNK):
+        clamp.append(float((dt_v.float() * A >= -M2.LOG_A_MIN).float()
+                           .mean()))
+        return chunked(x, dt_v, Bm, Cm, A, state0, chunk)
+
+    def zamba_admit(m, params, toks):
+        logits, pre = m.prefill_fn(params, {"tokens": zprompt[:, :zbucket]})
+        cache = T.make_decode_cache(m.cfg, 1, 1024, dev)
+        insert_cache_rows(cache, pre, numpy.zeros(1, numpy.int32))
+        del pre
+        seq, done = [logits], zbucket
+        while done < S0:
+            C = 1 << ((S0 - done).bit_length() - 1)
+            logits, cache = m.extend_fn(
+                params, {"tokens": zprompt[:, done:done + C]}, cache)
+            seq.append(logits)
+            done += C
+        for i in range(2):
+            if len(toks) == i:
+                toks.append(logits.argmax(-1).to(torch.int32))
+            logits, cache = m.decode_fn(params, {"token": toks[i]}, cache)
+            seq.append(logits)
+        return seq
+
+    def max_diffs(xs, ys):
+        return [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(xs, ys)]
+
+    amax = lambda seq: [int(a.argmax()) for a in seq]
+    ztoks = []
+    with torch.no_grad():
+        M2.ssd_chunked = counting
+        try:
+            got = zamba_admit(build_model(zcfg), zparams, ztoks)
+        finally:
+            M2.ssd_chunked = chunked
+        want = zamba_admit(build_model(zcfg, reference=True), zparams, ztoks)
+        chunk0 = M2.CHUNK
+        M2.set_ssd_chunk(16)
+        try:
+            alt = zamba_admit(build_model(zcfg, reference=True), zparams,
+                              ztoks)
+        finally:
+            M2.set_ssd_chunk(chunk0)
+    torch.cuda.synchronize()
+    check(all(a.shape == (1, zcfg.vocab_size)
+              and bool(torch.isfinite(a).all()) for a in got),
+          "hybrid: logits shape or non-finite")
+    errs, spreads = max_diffs(got, want), max_diffs(alt, want)
+    lbound = max(LOGIT_BOUND, SPREAD_FACTOR_BF16 * max(spreads))
+    check(max(errs) <= lbound, f"hybrid: logits differ by {max(errs):.3g} "
+          f"(bound {lbound:.3g})")
+    print(f"[hybrid] request 0 (prompt {S0} tokens) at bf16: prefill of "
+          f"{zbucket}, {len(got) - 3} extend chunks and 2 decode steps, "
+          f"kernel path vs plain path max |logit diff| per call "
+          f"{[round(e, 4) for e in errs]} (bound {lbound:.4g}); plain path "
+          f"with 16-token SSD chunks vs 32: {[round(e, 4) for e in spreads]}"
+          f"; logit std {want[0].float().std().item():.3f}; argmax kernel "
+          f"{amax(got)}, plain {amax(want)}, plain at 16 {amax(alt)}; "
+          f"(token, SSM head) pairs of the prefill at the decay clamp: "
+          f"{min(clamp[:zcfg.num_layers]):.3f}-"
+          f"{max(clamp[:zcfg.num_layers]):.3f} by layer")
+    del zparams, got, want, alt
+    torch.cuda.empty_cache()
+
+    # the whole model at fp32 (27.1 GB), the same perturbations: request 0
+    # as above, kernel path vs plain path within LOGIT_BOUND_FP32 and argmax
+    # equal at every call; then an int8 attn cache at B=4
+    # (make_decode_cache(dtype="int8"), the only way the reference reaches
+    # int8 for the hybrid) filled by a 256- and a 32-token extend chunk
+    # (plain PyTorch), then 4 decode steps through kernel 3, the kernel
+    # path and the plain path each on its own cache
+    zcfg32w = dataclasses.replace(zcfg, dtype="float32")
+    zp32w = zamba_params(zcfg32w)
+    ztoks = []
+    with torch.no_grad():
+        got = zamba_admit(build_model(zcfg32w), zp32w, ztoks)
+        want = zamba_admit(build_model(zcfg32w, reference=True), zp32w,
+                           ztoks)
+    errs = max_diffs(got, want)
+    check(all(bool(torch.isfinite(a).all()) for a in got)
+          and max(errs) <= LOGIT_BOUND_FP32 and amax(got) == amax(want),
+          f"hybrid fp32: logits differ by {max(errs):.3g} (bound "
+          f"{LOGIT_BOUND_FP32}) or argmax {amax(got)} != {amax(want)}")
+    print(f"[hybrid] request 0 at fp32, the whole model: kernel path vs "
+          f"plain path max |logit diff| per call {[f'{e:.2e}' for e in errs]}"
+          f" (bound {LOGIT_BOUND_FP32}), argmax equal at all {len(got)} "
+          f"calls: {amax(got)}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del got, want
+    B8z, S8z, C8z, steps8z = 4, 256, 32, 4
+    toks8z = torch.randint(0, zcfg.vocab_size, (B8z, S8z + C8z + steps8z),
+                           generator=g_zam, device=dev).to(torch.int32)
+
+    def zamba_int8_run(m):
+        cache = T.make_decode_cache(zcfg32w, B8z, 1024, dev, dtype="int8")
+        out = []
+        for a, b in ((0, S8z), (S8z, S8z + C8z)):
+            logits, cache = m.extend_fn(zp32w, {"tokens": toks8z[:, a:b]},
+                                        cache)
+            out.append(logits)
+        for i in range(steps8z):
+            logits, cache = m.decode_fn(
+                zp32w, {"token": toks8z[:, S8z + C8z + i]}, cache)
+            out.append(logits)
+        return out
+
+    with torch.no_grad():
+        reset(*kernel_fns.values())
+        got = zamba_int8_run(build_model(zcfg32w))
+        torch.cuda.synchronize()
+        k8 = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+        want = zamba_int8_run(build_model(zcfg32w, reference=True))
+    check(k8 == {"decode_attention_int8": Gz * steps8z},
+          f"hybrid int8: launches {k8} != {{decode_attention_int8: {Gz} x "
+          f"{steps8z}}}")
+    zamba_entries["decode_attention_int8"]["launches"] = k8[
+        "decode_attention_int8"]
+    errs = max_diffs(got, want)
+    check(all(bool(torch.isfinite(a).all()) for a in got)
+          and max(errs) <= LOGIT_BOUND_FP32, f"hybrid int8: logits differ "
+          f"by {max(errs):.3g} > {LOGIT_BOUND_FP32}")
+    print(f"[hybrid] int8 attn cache at B={B8z}, fp32 model: extends of "
+          f"{S8z} and {C8z}, then {steps8z} decode steps: launches {k8}; "
+          f"kernel path vs plain path max |logit diff| per call "
+          f"{[f'{e:.2e}' for e in errs]} (bound {LOGIT_BOUND_FP32})")
+    del zp32w, got, want
+    torch.cuda.empty_cache()
+
+    # a 7-layer fp32 copy at full width (one group and one tail layer,
+    # 4.1 GB), the same perturbations, served: the kernel path's greedy
+    # streams are the plain path's, and the plain path launches no kernel
+    zcfg32 = dataclasses.replace(zcfg, num_layers=7, dtype="float32")
+    zp32 = zamba_params(zcfg32)
+    z32 = {}
+    for plain in (False, True):
+        reset(*kernel_fns.values())
+        o = serve_demo(zcfg32, max_batch=8, max_seq=1024, device="cuda",
+                       params=zp32, reference=plain, verbose=False,
+                       **serve_kw)
+        zl = {k: f.launches for k, f in kernel_fns.items() if f.launches}
+        check(o["completed"] == 16, f"hybrid fp32 plain={plain}: "
+              f"{o['completed']}")
+        check(not zl if plain else set(zl) == {"flash_attention",
+                                               "decode_attention"},
+              f"hybrid fp32 plain={plain}: launches {zl}")
+        z32[plain] = o["tokens"]
+    check(z32[False] == z32[True], "hybrid fp32 7-layer: kernel path streams "
+          "differ from the plain path's: " + str(sum(
+              z32[False][r] != z32[True][r] for r in z32[True])))
+    print(f"[hybrid] {zcfg32.num_layers}-layer fp32 at full width: kernel "
+          f"path and plain path streams equal over 16 requests "
+          f"({sum(len(t) for t in z32[False].values())} tokens)")
+    del zp32
+    torch.cuda.empty_cache()
+    print(f"[hybrid] card: {smi}")
 
     # ---------------------------------------------------------- report
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),

@@ -1,7 +1,6 @@
-"""Architecture registry of the port: the families ported so far (dense,
-with and without qk-norm, moe with GQA or MLA attention, ssm, encdec and
-vlm), plus the reduced smoke configs; the reference's hybrid arch is not
-registered.
+"""Architecture registry of the port: every family of the reference (dense,
+with and without qk-norm, moe with GQA or MLA attention, ssm, hybrid,
+encdec and vlm), plus the reduced smoke configs.
 ``PAPER_MODEL`` is the paper's own model, which the co-sim's lookup table
 is built from; it is a configuration only, never served."""
 from __future__ import annotations
@@ -18,13 +17,14 @@ from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
 from repro_torch.configs.rwkv6_1b6 import CONFIG as rwkv6_1b6
 from repro_torch.configs.seamless_m4t_medium import (
     CONFIG as seamless_m4t_medium)
+from repro_torch.configs.zamba2_7b import CONFIG as zamba2_7b
 
 PAPER_MODEL: ModelConfig = llama31_70b
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [llama32_1b, phi35_moe_42b, rwkv6_1b6, llama3_8b,
                         qwen3_14b, deepseek_7b, seamless_m4t_medium,
-                        paligemma_3b, deepseek_v2_236b]}
+                        paligemma_3b, deepseek_v2_236b, zamba2_7b]}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -35,9 +35,11 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     lengths, nullptr, nullptr, o, B, H, KVH,  \
                                     1, S, B, st, scale, s);
   RT_DENSE_CASE(__nv_bfloat16, kBFloat16, 64)
+  RT_DENSE_CASE(__nv_bfloat16, kBFloat16, 112)
   RT_DENSE_CASE(__nv_bfloat16, kBFloat16, 128)
   RT_DENSE_CASE(__nv_bfloat16, kBFloat16, 256)
   RT_DENSE_CASE(float, kFloat32, 64)
+  RT_DENSE_CASE(float, kFloat32, 112)
   RT_DENSE_CASE(float, kFloat32, 128)
   RT_DENSE_CASE(float, kFloat32, 256)
 #undef RT_DENSE_CASE

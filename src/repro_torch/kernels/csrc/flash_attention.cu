@@ -5,8 +5,8 @@
 // sqrt(hd), masked to j <= i or j < prefix_len) @ v[b, :, h // G], fp32
 // softmax state, output in the input dtype; a row with nothing visible
 // gives 0. q and k rows are QD wide, v and out rows VD: QD = VD = hd (64,
-// 128, 256), or QD 192 over VD 128, MLA's expanded prefill (deepseek-v2:
-// 128 nope + 64 rope columns of q/k, 128 of v).
+// 112, 128, 256), or QD 192 over VD 128, MLA's expanded prefill
+// (deepseek-v2: 128 nope + 64 rope columns of q/k, 128 of v).
 //
 // What bounds it on the H100: the card's least time at the serving shapes
 // (prompts of up to a few thousand tokens, hd 64, 128 and 256) is the
@@ -57,6 +57,12 @@
 // V's 64 fp32 accumulators would spill), two blocks an SM. K tiles are 192
 // wide and V tiles 128; a K row's 24 16-byte chunks do not divide the 128
 // threads, so its copies walk the flat (row, chunk) index.
+// hd 112 (zamba2's shared attention): laid out as hd 128 (one m16 row
+// fragment a warp, 64-key tiles, two stages, Q in registers: 7 k-steps),
+// with V fragments all 7 at once; a 112-wide row is 14 16-byte chunks,
+// which do not divide 128 threads either, so K/V copy passes take 9 rows
+// on 126 threads (Q walks the flat (row, chunk) index). The fp32 body's
+// lanes own 4 output columns, the fourth only on lanes 0-15.
 // Inputs are strided [B, S, heads, QD or VD] views (last dim contiguous);
 // the output is a contiguous [B, Sq, H, VD] tensor the wrapper allocated.
 
@@ -96,7 +102,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           long long v_ss, long long v_sh, int causal, int prefix_len,
           float scale) {
   using L = Smem<QD, VD>;
-  constexpr int kPer = VD / 32;  // output dims per lane
+  constexpr int kPer = (VD + 31) / 32;  // output dims per lane
+  // the lane's output dim lane + 32 * i lies in the row (VD 112: the last
+  // i only on lanes 0-15)
+  auto in_row = [&](int lane, int i) {
+    return VD % 32 == 0 || i < kPer - 1 || lane + 32 * i < VD;
+  };
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   float* Qs = smem + L::q;
@@ -213,7 +224,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
         for (int i = 0; i < kPer; ++i)
-          vv[jj][i] = Vs[(j + jj) * VD + lane + 32 * i];
+          vv[jj][i] = in_row(lane, i) ? Vs[(j + jj) * VD + lane + 32 * i]
+                                      : 0.f;
 #pragma unroll
       for (int rr = 0; rr < L::kRowsPerWarp; ++rr) {
         const float4 p4 = *reinterpret_cast<const float4*>(Pw + rr * kKeys + j);
@@ -234,7 +246,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + ((long long)(b * Sq + qp) * H + h) * VD;
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
-      orow[lane + 32 * i] = from_float<T>(acc[rr][i] / denom);
+      if (in_row(lane, i))
+        orow[lane + 32 * i] = from_float<T>(acc[rr][i] / denom);
   }
 }
 
@@ -257,11 +270,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 // accumulators spill past 255 registers, so Q stays in shared memory as
 // at hd 256 and V's B fragments come 4 at a time; a stage holds a K tile
 // of 192-wide rows and a V tile of 128-wide ones, two blocks an SM.
+// hd 112: as hd 128 (Q's 7 k-steps in registers, three blocks an SM),
+// V's 7 B fragments at once.
 template <int QD, int VD>
 struct MmaCfg {
   static constexpr int kMT = QD == 64 ? 2 : 1;
   static constexpr int kStages = QD == 64 ? 3 : 2;
-  static constexpr int kMinBlocks = QD == 128 ? 3 : QD == 192 ? 2 : 1;
+  static constexpr int kMinBlocks =
+      QD == 112 || QD == 128 ? 3 : QD == 192 ? 2 : 1;
   static constexpr int kTileKeys = QD == 256 ? 32 : 64;  // keys per tile
   static constexpr bool kQSmem = QD >= 192;     // Q fragments from smem
   static constexpr int kVFrags = VD == 256 || QD == 192 ? 4 : VD / 16;
@@ -298,16 +314,22 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   constexpr int kTileKeys = L::kTileKeys;
   constexpr int kVF = L::kVFrags;
   constexpr int kThreads = kWarps * 32;
-  // 16-byte chunks per Q/K row and per V row; where the threads divide a
-  // row's chunks (every width but 192), a thread keeps one chunk column
-  // and walks rows kRowStep apart, else it walks the flat (row, chunk)
-  // index kThreads apart
+  // 16-byte chunks per Q/K row and per V row. A K/V copy pass: a thread
+  // keeps one chunk column and walks rows kRowStep apart; where the
+  // threads do not divide a row's chunks, the last kThreads % kChunks
+  // threads idle (hd 112: 9 rows of 14 chunks a pass, 126 threads) and
+  // the passes end past the tile (8 passes of 9 rows for 64). Q, once, and
+  // K at QD 192 (24 chunks a row) walk the flat (row, chunk) index
+  // kThreads apart instead
   constexpr int kChunks = QD / 8;
   constexpr int kVChunks = VD / 8;
   constexpr bool kEven = kThreads % kChunks == 0;
-  constexpr int kRowStep = kEven ? kThreads / kChunks : 1;
+  constexpr int kRowStep = kThreads / kChunks;
   constexpr int kVRowStep = kThreads / kVChunks;
-  static_assert(kThreads % kVChunks == 0, "V rows split over the threads");
+  constexpr int kPasses = (kTileKeys + kRowStep - 1) / kRowStep;
+  static_assert(kThreads % kVChunks == 0 || QD == VD,
+                "V rows walk apart from K's only where the threads divide "
+                "them");
   constexpr int kNT = kTileKeys / 8;            // n8 score tiles per K tile
   constexpr int kDT = VD / 8;                   // n8 output tiles
   extern __shared__ float4 smem_raw[];
@@ -373,12 +395,16 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     if constexpr (QD == VD) {          // K and V rows in one walk
       const int key0 = tile * kTileKeys + j0;
 #pragma unroll
-      for (int it = 0; it < kTileKeys / kRowStep; ++it) {
-        const bool ok = key0 + it * kRowStep < n_keys;
-        copy_chunk(kd + it * kRowStep * L::kStride, ok ? kp : kbase,
-                   ok ? 8 : 0, kVec);
-        copy_chunk(vd + it * kRowStep * L::kStride, ok ? vp : vbase,
-                   ok ? 8 : 0, kVec);
+      for (int it = 0; it < kPasses; ++it) {
+        // every thread copies, and no pass passes the tile, unless hd 112
+        if (kEven || (j0 + it * kRowStep < kTileKeys &&
+                      tid < kRowStep * kChunks)) {
+          const bool ok = key0 + it * kRowStep < n_keys;
+          copy_chunk(kd + it * kRowStep * L::kStride, ok ? kp : kbase,
+                     ok ? 8 : 0, kVec);
+          copy_chunk(vd + it * kRowStep * L::kStride, ok ? vp : vbase,
+                     ok ? 8 : 0, kVec);
+        }
         kp += k_step;
         vp += v_step;
       }
@@ -658,9 +684,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// The (q/k width, v width) pairs the kernels are built for: hd 64, 128 and
-// 256 for both, and MLA's 192 over 128.
-#define FLASH_WIDTHS(X) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+// The (q/k width, v width) pairs the kernels are built for: hd 64, 112,
+// 128 and 256 for both, and MLA's 192 over 128.
+#define FLASH_WIDTHS(X) \
+  X(64, 64) X(112, 112) X(128, 128) X(256, 256) X(192, 128)
 
 // strides: element strides of q, k, v over (batch, seq, head), 9 values;
 // hd is the q/k width, vd the v (and output) width. Returns the

@@ -64,6 +64,12 @@
 //    the int8 forms (computed by the leader while its copies fly) as one
 //    more partial after the splits. With one split there is no cluster:
 //    the same combine reads the block's own partial.
+// hd 112 (zamba2's shared attention; dense caches only, kernels 2 and 3):
+// the lanes and shared memory are laid out as at hd 128 (kHDP), each row
+// padded to 128 columns in shared memory. The copies of a row's last 16
+// columns (2 of 16 chunks at bf16, 4 of 32 at fp32, 1 of 8 at int8) are
+// predicated off and zero-fill, so they add nothing to QK or PV; q's last
+// lanes load zeros; the combine and the store cover the 112 real columns.
 // So a row's bits depend on its own length, data, capacity and page, never
 // on B or on other rows; and, for capacities up to kMaxSplits x 128 keys
 // (the whole serving range), not on W either: a wider table only adds
@@ -104,24 +110,33 @@ inline Strides strides_from(const long long* s) {
                  s[18]};
 }
 
+// The lane width of a head dim: hd itself, or 128 for hd 112
+constexpr int padded_width(int hd) { return hd == 112 ? 128 : hd; }
+
 // The lane layout and the shared-memory layout of one (cache type, hd).
 template <typename T, int HD>
 struct Cfg {
   static constexpr bool kScaled = sizeof(T) == 1;    // int8 rows + scales
+  // the lanes' and shared memory's row width, HD or past it (zero columns)
+  static constexpr int kHDP = padded_width(HD);
   // QK: kGroup lanes share a key, each holding kPer elements of its row
   // and of the kHeads query rows: 8 (one 16-byte load at bf16, 8 bytes at
   // int8), 4 at fp32 (one float4), 8 at fp32 hd 256 (two float4)
   static constexpr int kPer =
-      sizeof(T) == 4 ? (HD / 32 > 4 ? HD / 32 : 4) : 8;
-  static constexpr int kGroup = HD / kPer;
+      sizeof(T) == 4 ? (kHDP / 32 > 4 ? kHDP / 32 : 4) : 8;
+  static constexpr int kGroup = kHDP / kPer;
   static_assert(kGroup >= 8 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
                 "a key row spans 8, 16 or 32 lanes");
   static constexpr int kKeysPerWarp = 32 / kGroup;
   static constexpr int kKeysPerRound = kWarps * kKeysPerWarp;
   // PV: a lane owns kDL columns of every head, a warp a quarter of the keys
-  static constexpr int kDL = HD / 32;
-  static constexpr int kRow = HD * (int)sizeof(T);   // bytes of a K or V row
-  static constexpr int kChunks = kRow / 16;          // 16-byte copies a row
+  static constexpr int kDL = kHDP / 32;
+  // bytes of a K or V row in shared memory, and its 16-byte copies; of
+  // those, the first kChunksHD hold the row's HD columns
+  static constexpr int kRow = kHDP * (int)sizeof(T);
+  static constexpr int kChunks = kRow / 16;
+  static constexpr int kChunksHD = HD * (int)sizeof(T) / 16;
+  static_assert(HD * (int)sizeof(T) % 16 == 0, "rows of whole 16 bytes");
   // keys a chunk holds: a whole shortest split where kRingBudget allows
   static constexpr int kChunk =
       kRingBudget / (2 * kRow) < kSplitKeys ? kRingBudget / (2 * kRow)
@@ -137,10 +152,10 @@ struct Cfg {
   static constexpr int kv = 0;                       // K chunk, then V chunk
   static constexpr int scales = 2 * kKV;             // int8: K, V scales
   static constexpr int p = scales + (kScaled ? 2 * kChunk * 4 : 0);
-  // a partial state: O [kHeads][HD], then m [kHeads], l [kHeads] (floats)
-  static constexpr int kPart = kHeads * (HD + 2);
+  // a partial state: O [kHeads][kHDP], then m [kHeads], l [kHeads]
+  static constexpr int kPart = kHeads * (kHDP + 2);
   static_assert(kWarps == kHeads, "softmax: one warp a head");
-  static_assert(kWarps * kHeads * HD * 4 <= kKV,
+  static_assert(kWarps * kHeads * kHDP * 4 <= kKV,
                 "the warps' PV sums fit the K chunk");
   static constexpr int corr = p + kChunk * kHeads * 4;  // per-head factors
   // partials: one per split (the leader's receive every split's; another
@@ -150,7 +165,7 @@ struct Cfg {
   // at hd 256 q (kHeads x kPer), a QK step's rows and the PV sums (kHeads x
   // kDL) take 32 registers each: three blocks an SM (168 registers a
   // thread; their ~70 KB of shared memory allows no more)
-  static constexpr int kMinBlocks = HD == 256 ? 3 : paged::kMinBlocks;
+  static constexpr int kMinBlocks = kHDP == 256 ? 3 : paged::kMinBlocks;
 };
 
 // How a call is cut: key splits (the cluster size) and their length, the
@@ -274,6 +289,7 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
                  int n_split, int split_len, float scale_log2) {
   using C = Cfg<T, HD>;
   constexpr int kPer = C::kPer, kGroup = C::kGroup, kDL = C::kDL;
+  constexpr int kHDP = C::kHDP;
   constexpr int kChunk = C::kChunk;
   extern __shared__ float4 smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw);
@@ -323,7 +339,7 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
   float qr[kHeads][kPer];
 #pragma unroll
   for (int g = 0; g < kHeads; ++g) {
-    if (g < ng) {
+    if (g < ng && sl * kPer < HD) {
       load_vec<kPer>(q + b * st.q_b + (h0 + g) * st.q_h + sl * kPer, qr[g]);
     } else {
 #pragma unroll
@@ -365,7 +381,7 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
       for (int j = tid / C::kChunks; j < kChunk; j += kRowStep) {
         const int key = key0 + j;
-        const bool ok = key < k_end;
+        const bool ok = key < k_end && c16 < C::kChunksHD;
         const T* src = base;
         if (ok) {
           long long phys;
@@ -410,8 +426,9 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
       for (int d = lane; d < HD; d += 32)
         x = fmaf(to_float(qh[d]), to_float(kn[d]), x);
       x = warp_sum(x);
-      if (lane == 0) Fresh[kHeads * HD + g] = x;
-      for (int d = lane; d < HD; d += 32) Fresh[g * HD + d] = to_float(vn[d]);
+      if (lane == 0) Fresh[kHeads * kHDP + g] = x;
+      for (int d = lane; d < HD; d += 32)
+        Fresh[g * kHDP + d] = to_float(vn[d]);
     }
   }
 
@@ -442,7 +459,8 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < C::kSteps; ++r)
         row_slice<kPer>(Kc + (j0 + r * C::kKeysPerRound +
-                              warp * C::kKeysPerWarp + sub) * HD + sl * kPer,
+                              warp * C::kKeysPerWarp + sub) * kHDP +
+                            sl * kPer,
                         kv[r]);
 #pragma unroll
       for (int r = 0; r < C::kSteps; ++r) {
@@ -519,7 +537,7 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
         float vsc[C::kBatch];
 #pragma unroll
         for (int u = 0; u < C::kBatch; ++u) {
-          col_slice<kDL>(Vc + (j0 + u) * HD + lane * kDL, vv[u]);
+          col_slice<kDL>(Vc + (j0 + u) * kHDP + lane * kDL, vv[u]);
           p4[u] = *reinterpret_cast<const float4*>(Pr + (j0 + u) * kHeads);
           vsc[u] = C::kScaled ? VSc[j0 + u] : 1.f;
         }
@@ -546,22 +564,23 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
 
   // The block's partial: the warps' PV sums added in warp order (through
   // the K chunk's memory), m and l from the softmax warps.
-  // [kWarps][kHeads][HD]; the K chunk is free since the last QK's barrier
+  // [kWarps][kHeads][kHDP]; the K chunk is free since the last QK's
+  // barrier
   float* Red = reinterpret_cast<float*>(smem + C::kv);
 #pragma unroll
   for (int g = 0; g < kHeads; ++g)
 #pragma unroll
     for (int d = 0; d < kDL; ++d)
-      Red[(warp * kHeads + g) * HD + lane * kDL + d] = acc[g][d];
+      Red[(warp * kHeads + g) * kHDP + lane * kDL + d] = acc[g][d];
   if (lane == 0) {
-    Part[kHeads * HD + warp] = m_run;
-    Part[kHeads * HD + kHeads + warp] = l_run;
+    Part[kHeads * kHDP + warp] = m_run;
+    Part[kHeads * kHDP + kHeads + warp] = l_run;
   }
   __syncthreads();
-  for (int i = tid; i < ng * HD; i += kThreads) {
+  for (int i = tid; i < ng * kHDP; i += kThreads) {
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += Red[w * kHeads * HD + i];
+    for (int w = 0; w < kWarps; ++w) a += Red[w * kHeads * kHDP + i];
     Part[i] = a;
   }
 
@@ -585,8 +604,8 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
   }
 
   // The leader combines the splits' partials (and the fresh token's) in
-  // split order, one thread per (head, column quad), every partial's m, l
-  // and columns loaded first.
+  // split order, one thread per (head, column quad) of the HD real
+  // columns, every partial's m, l and columns loaded first.
   constexpr int kQuads = HD / 4;
   const int n_part = n_split + (has_fresh ? 1 : 0);
   for (int it = tid; it < ng * kQuads; it += kThreads) {
@@ -598,9 +617,9 @@ decode_split_fwd(const Q* __restrict__ q, const T* __restrict__ k,
       ms[sp] = kNegInf, ls[sp] = 0.f, xs[sp] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (sp < n_part) {  // split sp's partial, the fresh token's last
         const float* P = Slots + (sp < n_split ? sp : kMaxSplits) * C::kPart;
-        ms[sp] = P[kHeads * HD + g];
-        ls[sp] = sp < n_split ? P[kHeads * HD + kHeads + g] : 1.f;
-        xs[sp] = *reinterpret_cast<const float4*>(P + g * HD + c4);
+        ms[sp] = P[kHeads * kHDP + g];
+        ls[sp] = sp < n_split ? P[kHeads * kHDP + kHeads + g] : 1.f;
+        xs[sp] = *reinterpret_cast<const float4*>(P + g * kHDP + c4);
       }
     }
     float mt = kNegInf;
@@ -674,7 +693,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaGetLastError();
 }
 
-// The int8-cache instantiations, by the dtype code of q and hd.
+// The int8-cache instantiations, by the dtype code of q and hd (hd 112 for
+// the dense cache only).
 template <bool kPaged>
 int launch_int8(int qdtype, int hd, const void* q, const void* k,
                 const void* v, const void* ks, const void* vs,
@@ -693,12 +713,17 @@ int launch_int8(int qdtype, int hd, const void* q, const void* k,
   RT_INT8_CASE(float, kFloat32, 64)
   RT_INT8_CASE(float, kFloat32, 128)
   RT_INT8_CASE(float, kFloat32, 256)
+  if constexpr (!kPaged) {
+    RT_INT8_CASE(__nv_bfloat16, kBFloat16, 112)
+    RT_INT8_CASE(float, kFloat32, 112)
+  }
 #undef RT_INT8_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 // The cut of a call, by the cache's dtype code and hd (0, or
-// cudaErrorInvalidValue for one no entry point takes).
+// cudaErrorInvalidValue for one no entry point takes; hd 112 only the
+// dense ones).
 inline int plan(int cdtype, int hd, int W, int page, Plan* out) {
 #define RT_PLAN_CASE(T, CODE, HDV)                                           \
   if (cdtype == CODE && hd == HDV) {                                         \
@@ -706,12 +731,15 @@ inline int plan(int cdtype, int hd, int W, int page, Plan* out) {
     return 0;                                                                \
   }
   RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 64)
+  RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 112)
   RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 128)
   RT_PLAN_CASE(__nv_bfloat16, kBFloat16, 256)
   RT_PLAN_CASE(float, kFloat32, 64)
+  RT_PLAN_CASE(float, kFloat32, 112)
   RT_PLAN_CASE(float, kFloat32, 128)
   RT_PLAN_CASE(float, kFloat32, 256)
   RT_PLAN_CASE(int8_t, kInt8, 64)
+  RT_PLAN_CASE(int8_t, kInt8, 112)
   RT_PLAN_CASE(int8_t, kInt8, 128)
   RT_PLAN_CASE(int8_t, kInt8, 256)
 #undef RT_PLAN_CASE

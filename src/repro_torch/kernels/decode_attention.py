@@ -19,8 +19,10 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
 
+# the widths kernels 2 and 3 (the dense caches) are built for
+HEAD_DIMS = (64, 112, 128, 256)
 MAX_SPLITS = 8    # key splits of a row at most: one thread-block cluster
 
 

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.decode_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention import DTYPES
 from repro_torch.kernels.paged_decode_attention import (
     _kernel, _ptr, check_decode, decode_strides)
@@ -22,12 +23,12 @@ from repro_torch.kernels.paged_decode_attention import (
 
 def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths, *,
                           k_new=None, v_new=None):
-    """q: [B,H,hd] (bf16 or fp32); caches [B,S,KVH,hd] int8 (rows 16-byte
-    aligned); scales [B,S,KVH] fp32; lengths [B] int32 cached tokens,
+    """q: [B,H,hd] (bf16 or fp32, hd in ``decode_attention.HEAD_DIMS``);
+    caches [B,S,KVH,hd] int8 (rows 16-byte aligned); scales [B,S,KVH] fp32; lengths [B] int32 cached tokens,
     clamped to [0, S]; k_new/v_new [B,KVH,hd] of q's dtype or None ->
     [B,H,hd]."""
     check_decode("decode_attention_int8", q, k_cache, v_cache, k_scale,
-                 v_scale, lengths, k_new, v_new)
+                 v_scale, lengths, k_new, v_new, HEAD_DIMS)
     if k_cache.shape[0] != q.shape[0]:
         raise ValueError(f"decode_attention_int8: cache batch "
                          f"{k_cache.shape[0]} != {q.shape[0]}")

@@ -6,7 +6,8 @@ prefix). The wrapper checks what the kernel takes, allocates the output and
 launches on PyTorch's current stream; ``flash_attention.launches`` counts
 its launches. q and k share a head dim in ``HEAD_DIMS``, which v shares
 too, except for the pairs of ``VALUE_DIMS``: MLA's expanded prefill, q/k
-192 over v 128. The plain version is ``ref.attention_ref``; ``ops`` chooses
+192 over v 128. Each kernel's wrapper keeps its own widths: hd 112
+(zamba2) is kernel 1's, 2's and 3's, not 4's or 5's. The plain version is ``ref.attention_ref``; ``ops`` chooses
 between the two by the tensors' device.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 # q/k width -> the v width it takes where the two differ
 VALUE_DIMS = {192: 128}
 

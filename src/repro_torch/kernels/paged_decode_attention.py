@@ -26,9 +26,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import MAX_SPLITS, _aligned
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
 
 INT8 = 2          # the C interface's dtype code of an int8 cache
+# the widths kernel 4 (and 4-int8) is built for: no hd 112, which no paged
+# path runs (the hybrid keeps dense caches)
+HEAD_DIMS = (64, 128, 256)
 
 
 @functools.cache
@@ -71,8 +74,10 @@ def _strides(t, n):
     return list(t.stride()[:n]) if t is not None else [0] * n
 
 
-def check_decode(name, q, k, v, k_scale, v_scale, lengths, k_new, v_new):
-    """Checks shared by the paged and the dense int8 decode: q [B,H,hd];
+def check_decode(name, q, k, v, k_scale, v_scale, lengths, k_new, v_new,
+                 widths=HEAD_DIMS):
+    """Checks shared by the paged and the dense int8 decode: q [B,H,hd]
+    with hd in ``widths`` (the entry point's);
     k/v [N,T,KVH,hd] (pages of T tokens, or batch rows of S); scales
     [N,T,KVH] fp32 with int8 caches; lengths [B] int32; k_new/v_new
     [B,KVH,hd] or None. Raises ValueError on what the kernel does not
@@ -87,8 +92,8 @@ def check_decode(name, q, k, v, k_scale, v_scale, lengths, k_new, v_new):
     if k.shape[3] != hd or KVH == 0 or H % KVH:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match cache "
                          f"{tuple(k.shape)} (need H % KVH == 0)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if hd not in widths:
+        raise ValueError(f"{name}: head_dim {hd} not in {widths}")
     if q.dtype not in DTYPES:
         raise ValueError(f"{name}: q dtype {q.dtype}: need one of "
                          f"{list(DTYPES)}")

@@ -17,7 +17,10 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
+
+# the widths kernel 5 is built for: no hd 112, which no paged path runs
+HEAD_DIMS = (64, 128, 256)
 
 
 @functools.cache
@@ -56,6 +59,8 @@ def paged_extend_attention(q, k_pool, v_pool, k_new, v_new, table, pos):
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} new "
                          f"{tuple(k_new.shape)}/{tuple(v_new.shape)}")
     B, C, H, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     P, page, KVH = k_pool.shape[:3]
     if (k_pool.shape[3] != hd or KVH == 0 or H % KVH
             or k_new.shape != (B, C, KVH, hd)):
@@ -70,8 +75,6 @@ def paged_extend_attention(q, k_pool, v_pool, k_new, v_new, table, pos):
             raise ValueError(f"dtype {t.dtype}: need one of {list(DTYPES)}")
         if t.stride(-1) != 1:
             raise ValueError("head dim must be contiguous")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if (table.dim() != 2 or table.shape[0] != B or table.shape[1] < 1
             or table.dtype != torch.int32 or table.device != q.device
             or table.stride(-1) != 1):

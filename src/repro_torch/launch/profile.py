@@ -8,6 +8,7 @@
       --arch paligemma-3b [--paged]
   PYTHONPATH=src python -m repro_torch.launch.profile \
       --arch deepseek-v2-236b --layers 6
+  PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2-7b
 
 Runs ``serve_demo`` at an arch's full width (default llama3.2-1b) and
 published depth, or at ``--layers`` layers (phi3.5-moe needs 8: its 32

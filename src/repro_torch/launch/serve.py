@@ -16,10 +16,14 @@ model on H100 DGX hardware and the wind fleet's first slot of power
       --arch paligemma-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch deepseek-v2-236b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch zamba2-7b
 
-The command line serves an arch's reduced smoke config (``--layers``
-overrides its depth); ``full_width_config`` gives the published width
-that ``chip_smoke.py`` and ``launch/profile.py`` serve on the card.
+The command line serves an arch's reduced smoke config on the CPU and
+its published width (``full_width_config``, as ``chip_smoke.py`` and
+``launch/profile.py`` serve it) on the card, whose kernels take only the
+published head dims; ``--layers`` overrides the depth (phi3.5-moe needs 8
+and deepseek-v2-236b 6 on one 80 GB card).
 """
 from __future__ import annotations
 
@@ -113,12 +117,15 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
                num_pages: Optional[int] = None,
                admit_mode: str = "batched",
                admit_token_budget: Optional[int] = None,
+               params: Optional[dict] = None, reference: bool = False,
                verbose: bool = True) -> dict:
     """Serve ``num_requests`` over ``num_sites`` engines and return the
     summary: completed/submitted counts, wall time, each site's
     ``EngineMetrics.summary()``, the site weights and each completed
     request's tokens by request id. ``cfg=None`` serves
-    the llama3.2-1b smoke config; weights are random, drawn from ``seed``.
+    the llama3.2-1b smoke config; weights are ``params`` (on ``device``)
+    or random, drawn from ``seed``. ``reference`` serves through the
+    kernels' plain versions (``build(cfg, reference=True)``).
     ``site_weights=None`` takes Heron's (``heron_site_weights``).
     ``paged``: every site serves from a paged KV cache of ``num_pages``
     pages (default the dense capacity) of ``page_size`` tokens (families
@@ -127,8 +134,10 @@ def serve_demo(cfg: Optional[ModelConfig] = None, *, num_requests: int = 32,
     """
     cfg = cfg or smoke_config("llama3.2-1b")
     dev = resolve_device(device)
-    model = build(cfg)
-    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    model = build(cfg, reference=reference)
+    if params is None:
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(seed))
     engines = [ServingEngine(model, params, max_batch=max_batch,
                              max_seq=max_seq, seed=seed + i, paged=paged,
                              page_size=page_size, num_pages=num_pages,
@@ -176,9 +185,10 @@ def build_parser(description: str = __doc__) -> argparse.ArgumentParser:
     """The serving command line, shared by ``launch.serve_multisite``."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS),
-                    help="architecture whose smoke config is served")
+                    help="architecture served: its smoke config on the "
+                         "CPU, its published width on the card")
     ap.add_argument("--layers", type=int, default=None,
-                    help="number of layers (default: the smoke config's)")
+                    help="number of layers (default: the served config's)")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--sites", type=int, default=2)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -197,8 +207,12 @@ def build_parser(description: str = __doc__) -> argparse.ArgumentParser:
 
 
 def serve_from_args(args: argparse.Namespace) -> dict:
-    """``serve_demo`` on the smoke config the parsed flags name."""
-    cfg = smoke_config(args.arch)
+    """``serve_demo`` on the config the parsed flags name: the arch's
+    smoke config on the CPU, its published width on the card."""
+    if resolve_device(args.device).type == "cpu":
+        cfg = smoke_config(args.arch)
+    else:
+        cfg = full_width_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     return serve_demo(cfg, num_requests=args.requests, num_sites=args.sites,

@@ -26,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import WKV6_CHUNK
 from repro_torch.models import transformer as T
 
-FAMILIES = ("dense", "moe", "ssm", "encdec", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 @dataclass(frozen=True)

@@ -11,9 +11,15 @@ norm scales ``q_ln``/``kv_ln``; its projections (``w_dq``, ``w_uq``,
 Leaves the reference keeps in fp32 (the MoE router, ``decay_base``,
 ``bonus_u``) stay fp32. An encdec tree's ``encoder`` and ``cross`` stacks become per-layer
 dicts (the cross-attention one inside each decoder layer); an encdec or
-vlm tree's ``frontend_proj`` is a projection like any other. Caches keep the
-reference's layout, but for the paged pools' trash page and ``enc_kv``,
-a (k, v) pair there and a ``{"k", "v"}`` dict here.
+vlm tree's ``frontend_proj`` is a projection like any other. A hybrid
+tree's stacked ``mamba`` and ``mamba_tail`` become per-layer dicts
+(``w_in``/``w_out`` turn, the conv and the fp32 ``A_log``, ``dt_bias``,
+``D`` keep their shapes); its shared block turns like a layer, and the
+LoRA stacks ``lora_a``/``lora_b`` keep their group axis and layout.
+Caches keep the reference's layout, but for the paged pools' trash page,
+``enc_kv`` (a (k, v) pair there and a ``{"k", "v"}`` dict here) and the
+hybrid's state (its ``body`` and ``tail`` stacks there, one stack of every
+layer here, the body's first).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba2 as M2
 from repro_torch.models.rwkv6 import FP32_LEAVES, MATRICES
 from repro_torch.models.transformer import torch_dtype
 
@@ -47,8 +54,26 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     p = {"embed": {"embed": t(emb["embed"])}}
     if "lm_head" in emb:
         p["embed"]["lm_head"] = linear(emb["lm_head"])
-    lay = tree["layers"]
     p["final_norm"] = t(tree["final_norm"])
+    if cfg.family == "hybrid":
+        def mamba(stack):
+            n = len(next(iter(stack.values())))
+            return [{k: (linear(a[i]) if k in M2.MATRICES else
+                         t(a[i], torch.float32) if k in M2.FP32_LEAVES
+                         else t(a[i])) for k, a in stack.items()}
+                    for i in range(n)]
+
+        sh = tree["shared"]
+        p["mamba"] = mamba(tree["mamba"])
+        if "mamba_tail" in tree:
+            p["mamba_tail"] = mamba(tree["mamba_tail"])
+        p["shared"] = {
+            "ln1": t(sh["ln1"]), "ln2": t(sh["ln2"]),
+            "attn": {k: linear(sh["attn"][k]) for k in _ATTN},
+            "mlp": {k: linear(sh["mlp"][k]) for k in _MLP},
+            "lora_a": t(sh["lora_a"]), "lora_b": t(sh["lora_b"])}
+        return p
+    lay = tree["layers"]
     if cfg.family == "ssm":
         p["layers"] = [{
             k: (linear(a[i]) if k in MATRICES else
@@ -99,10 +124,12 @@ def cache_from_numpy(tree: dict, device) -> dict:
     """The reference's decode cache, already converted to numpy arrays, in
     the port's layout on ``device``: dense, int8 (``k_scale``/``v_scale``),
     paged (``table``), an MLA model's latents (``ckv``/``kr``) or an ssm
-    family's recurrent ``state``, and an encdec cache's ``enc_kv``. The
-    leaves keep their shapes and dtypes, except that each paged pool gains
-    the trash page (zeros) after its P pages, whose id P is the
-    reference's sentinel; the ``span`` marker is dropped."""
+    family's recurrent ``state``, a hybrid's ``state`` and ``attn``, and
+    an encdec cache's ``enc_kv``. The leaves keep their shapes and
+    dtypes, except that each paged pool gains the trash page (zeros)
+    after its P pages, whose id P is the reference's sentinel, and that
+    a hybrid's ``body`` and ``tail`` states join along the layer axis;
+    the ``span`` marker is dropped."""
     paged = "table" in tree
 
     def t(a, pool=paged):
@@ -114,10 +141,17 @@ def cache_from_numpy(tree: dict, device) -> dict:
                 device=device, dtype=torch.bfloat16)
         return torch.tensor(a, device=device)   # a copy: caches are written
 
+    pos = torch.tensor(np.asarray(tree["pos"], np.int32), device=device)
+    if "attn" in tree:                  # hybrid: body + tail, one stack
+        st = tree["state"]
+        return {"state": {n: t(np.concatenate(
+                    [st[part][n] for part in ("body", "tail") if part in st]))
+                    for n in st["body"]},
+                "attn": {n: t(a) for n, a in tree["attn"].items()},
+                "pos": pos}
     part = "state" if "state" in tree else "kv"
     out = {part: {name: t(leaf) for name, leaf in tree[part].items()},
-           "pos": torch.tensor(np.asarray(tree["pos"], np.int32),
-                               device=device)}
+           "pos": pos}
     if paged:
         out["table"] = torch.tensor(np.asarray(tree["table"], np.int32),
                                     device=device)

@@ -205,7 +205,8 @@ def _insert_int8(cache, k, v, insert):
 
 def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
                     causal: bool = True, prefix_len: int = 0, cache=None,
-                    pos=None, rows=None, table=None, reference: bool = False):
+                    pos=None, rows=None, table=None, reference: bool = False,
+                    qkv_delta=None):
     """Projections (+ qk-norm) + RoPE + attention (+ cache update), GQA.
 
     Returns (out, kv). ``mode="prefill"``: attention over ``x`` itself
@@ -214,7 +215,9 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
     ``prefix_len`` keys visible to every query (a vlm's patches); ``kv``
     is the layer's (k, v) [B,S,KVH,hd] for the caller's cache. With
     ``cfg.qk_norm`` q and k are RMS-normalised per head (``q_norm``,
-    ``k_norm`` [hd]) before RoPE. The other modes continue from
+    ``k_norm`` [hd]) before RoPE. ``qkv_delta`` (dq, dk, dv) [B,Sq,*],
+    if given, is added to the three projections before qk-norm and RoPE
+    (the hybrid's per-group LoRA). The other modes continue from
     ``cache``, this layer's leaves: {"k", "v"} [B,S,KVH,hd], plus
     {"k_scale", "v_scale"} [B,S,KVH] when int8; with a block ``table``
     [B,W] they are page pools [P+1,page,KVH,...] instead. They continue at
@@ -234,9 +237,12 @@ def attention_block(cfg, p, x, *, positions, mode: str = "prefill",
     hd = cfg.resolved_head_dim
     H, KVH = cfg.num_heads, cfg.num_kv_heads
     B, Sq, _ = x.shape
-    q = F.linear(x, p["wq"]).view(B, Sq, H, hd)
-    k = F.linear(x, p["wk"]).view(B, Sq, KVH, hd)
-    v = F.linear(x, p["wv"]).view(B, Sq, KVH, hd)
+    q, k, v = (F.linear(x, p[w]) for w in ("wq", "wk", "wv"))
+    if qkv_delta is not None:
+        q, k, v = (t + d.to(t.dtype) for t, d in zip((q, k, v), qkv_delta))
+    q = q.view(B, Sq, H, hd)
+    k = k.view(B, Sq, KVH, hd)
+    v = v.view(B, Sq, KVH, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)

@@ -1,8 +1,8 @@
 """Models: parameters, prefill, extend and decode.
 
 Port of the ``"dense"`` (with or without qk-norm), ``"moe"`` (GQA or MLA
-attention), ``"ssm"`` (RWKV6), ``"encdec"`` and ``"vlm"`` families of
-``repro/models/transformer.py``. The
+attention), ``"ssm"`` (RWKV6), ``"hybrid"`` (zamba2), ``"encdec"`` and
+``"vlm"`` families of ``repro/models/transformer.py``. The
 layer stack is a Python loop over a list of per-layer parameter dicts (the
 reference scans a stacked ``[L, ...]`` tree). Parameters live on the
 device of the ``torch.Generator`` that draws them. A moe layer has
@@ -33,6 +33,19 @@ the encoder output, dense per row in every layout and never quantized
 latents instead, ``{"ckv": [L,B,S,kv_lora], "kr": [L,B,S,rope]}``, dense
 in every layout and never quantized. ``extend_fn`` and
 ``decode_fn`` update the cache in place and return it.
+
+The hybrid (zamba2) runs ``groups`` groups of (one shared attention + MLP
+block, with the group's LoRA delta on q/k/v, then ``per`` Mamba2 layers),
+then ``tail`` Mamba2 layers (``_zamba_grouping``). Its parameters:
+``"mamba"`` (groups x per layer dicts, ``models.mamba2``),
+``"mamba_tail"`` (tail of them, when tail > 0) and ``"shared"``: ``ln1``,
+``attn``, ``ln2``, ``mlp`` and the LoRA stacks ``lora_a`` [groups, d, r]
+and ``lora_b`` [groups, r, 3d], which keep the reference's ``x @ W``
+layout (``lora_b`` zero-initialised, as there). Its cache is
+``{"state": {"ssm": [L,B,H,P,N], "conv": [L,B,W-1,d_in+2N]} (fp32, the
+body's layers first, then the tail), "attn": {"k", "v"}
+[groups,B,S,KVH,hd] (int8 with scales as above), "pos"}``; it has no paged
+layout.
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import WKV6_CHUNK
 from repro_torch.models import layers as Lyr
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as RWKV
@@ -86,6 +100,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     def mlp():
         return {"w_gate": _dense(gen, f, d, dt), "w_up": _dense(gen, f, d, dt),
                 "w_down": _dense(gen, d, f, dt)}
+
+    if cfg.family == "hybrid":
+        groups, per, tail = _zamba_grouping(cfg)
+        p["mamba"] = [M2.mamba2_params(cfg, gen, dt)
+                      for _ in range(groups * per)]
+        if tail:
+            p["mamba_tail"] = [M2.mamba2_params(cfg, gen, dt)
+                               for _ in range(tail)]
+        r = cfg.shared_attn_lora_rank
+        p["shared"] = {
+            "ln1": ones(), "attn": attn(), "ln2": ones(), "mlp": mlp(),
+            "lora_a": Lyr.dense_init(gen, (groups, d, r), d, dt),
+            "lora_b": torch.zeros((groups, r, 3 * d), dtype=dt,
+                                  device=gen.device)}
+        p["final_norm"] = ones()
+        return p
 
     layers = []
     for _ in range(cfg.num_layers):
@@ -156,13 +186,71 @@ def _rwkv_forward(cfg, params, x, state: dict, *, rows=None, **scan):
     ``rwkv6.time_mix``'s keywords (``step`` for a decode step)."""
     for i, p in enumerate(params["layers"]):
         x, new = RWKV.rwkv6_block(cfg, p, x, _layer_cache(state, i), **scan)
-        for name, leaf in state.items():
-            if rows is None:
-                leaf[i] = new[name]
-            else:
-                keep = rows.view(-1, *([1] * (leaf.dim() - 2)))
-                leaf[i] = torch.where(keep, new[name], leaf[i])
+        _store_state(state, i, new, rows)
     return x
+
+
+def _store_state(state: dict, i: int, new: dict, rows=None) -> None:
+    """Layer ``i``'s new recurrent state into ``state`` (leaves [L, B,
+    ...]) in place, for the rows ``rows`` [B] bool selects (default all);
+    the others keep theirs bit for bit."""
+    for name, leaf in state.items():
+        if rows is None:
+            leaf[i] = new[name]
+        else:
+            keep = rows.view(-1, *([1] * (leaf.dim() - 2)))
+            leaf[i] = torch.where(keep, new[name], leaf[i])
+
+
+def _zamba_grouping(cfg) -> tuple[int, int, int]:
+    """(groups, Mamba2 layers per group, tail layers) of the hybrid."""
+    per = cfg.shared_attn_every
+    groups = cfg.num_layers // per
+    return groups, per, cfg.num_layers - groups * per
+
+
+def _hybrid_forward(cfg, params, x, positions, state: dict, *,
+                    mode="prefill", attn=None, pos=None, rows=None,
+                    reference=False):
+    """The hybrid's groups, then its tail. Each group: the shared
+    attention over the group's ``attn`` leaves (``attn[name][g]``; in
+    prefill ``attn`` gets each group's fresh (k, v) written in), with the
+    group's LoRA delta on q/k/v, and the shared MLP; then the group's
+    Mamba2 layers. ``state`` (leaves [L, B, ...]) takes each layer's new
+    state in place (``_store_state``)."""
+    groups, per, _tail = _zamba_grouping(cfg)
+    sh = params["shared"]
+
+    def mamba(i, p, x):
+        x, new = M2.mamba2_block(cfg, p, x, _layer_cache(state, i))
+        _store_state(state, i, new, rows)
+        return x
+
+    for g in range(groups):
+        h = Lyr.rmsnorm(sh["ln1"], x, cfg.norm_eps)
+        delta = (h @ sh["lora_a"][g]) @ sh["lora_b"][g]
+        o, kv = Lyr.attention_block(
+            cfg, sh["attn"], h, positions=positions, mode=mode,
+            cache=None if mode == "prefill" else _layer_cache(attn, g),
+            pos=pos, rows=rows, reference=reference,
+            qkv_delta=delta.chunk(3, dim=-1))
+        if kv is not None:
+            for leaf, t in zip(attn.values(), kv):
+                leaf[g] = t
+        x = x + o
+        h = Lyr.rmsnorm(sh["ln2"], x, cfg.norm_eps)
+        x = x + Lyr.mlp(sh["mlp"], h)
+        for j in range(per):
+            x = mamba(g * per + j, params["mamba"][g * per + j], x)
+    for j, p in enumerate(params.get("mamba_tail", [])):
+        x = mamba(groups * per + j, p, x)
+    return x
+
+
+def hybrid_state_init(cfg, batch: int, device) -> dict:
+    """The hybrid's zeroed Mamba2 state, every layer's (the body's first,
+    then the tail's) [L, batch, ...]."""
+    return M2.mamba2_state_init(cfg, batch, cfg.num_layers, device)
 
 
 def _encode(cfg, params, frames, reference):
@@ -218,6 +306,16 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
         x = _rwkv_forward(cfg, params, x, state, reference=reference,
                           wkv_chunk=wkv_chunk)
         return _head(cfg, params, x), {"state": state, "pos": pos}
+    if cfg.family == "hybrid":
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        state = hybrid_state_init(cfg, B, dev)
+        attn = {name: torch.empty((_zamba_grouping(cfg)[0], B, S, *shape),
+                                  dtype=x.dtype, device=dev)
+                for name, shape in _kv_shapes(cfg).items()}
+        x = _hybrid_forward(cfg, params, x, torch.arange(S, device=dev),
+                            state, attn=attn, reference=reference)
+        return _head(cfg, params, x), {"state": state, "attn": attn,
+                                       "pos": pos}
     prefix_len = 0
     if cfg.family == "vlm":
         proj = params["frontend_proj"]
@@ -265,6 +363,11 @@ def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     if cfg.family == "ssm":
         x = _rwkv_forward(cfg, params, x, cache["state"], rows=rows,
                           reference=reference, wkv_chunk=wkv_chunk)
+    elif cfg.family == "hybrid":
+        positions = pos[:, None] + torch.arange(C, device=dev)[None, :]
+        x = _hybrid_forward(cfg, params, x, positions, cache["state"],
+                            mode="extend", attn=cache["attn"], pos=pos,
+                            rows=rows, reference=reference)
     else:
         positions = pos[:, None] + torch.arange(C, device=dev)[None, :]
         kv, table = cache["kv"], cache.get("table")
@@ -292,6 +395,10 @@ def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
     if cfg.family == "ssm":
         x = _rwkv_forward(cfg, params, x, cache["state"], rows=rows,
                           step=True, reference=reference)
+    elif cfg.family == "hybrid":
+        x = _hybrid_forward(cfg, params, x, pos[:, None], cache["state"],
+                            mode="decode", attn=cache["attn"], pos=pos,
+                            rows=rows, reference=reference)
     else:
         kv, table = cache["kv"], cache.get("table")
         enc_len = None
@@ -357,12 +464,19 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
     """Zeroed decode cache for ``batch`` rows of ``max_seq`` tokens;
     ``dtype="int8"`` gives the quantized layout (an MLA model's latents
     have none). The ssm family's is its recurrent state, whatever
-    ``max_seq`` and ``dtype``."""
+    ``max_seq`` and ``dtype``; the hybrid's its Mamba2 state beside one
+    K/V cache a group (``attn``, int8 under ``dtype="int8"``)."""
     if cfg.family == "ssm":
         return {"state": RWKV.rwkv6_state_init(cfg, batch, device),
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
     dtype = dtype or cfg.dtype
+    if cfg.family == "hybrid":
+        lead = (_zamba_grouping(cfg)[0], batch, max_seq)
+        return {"state": hybrid_state_init(cfg, batch, device),
+                "attn": _kv_leaves(cfg, lead, dtype, device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
     lead = (cfg.num_layers, batch, max_seq)
     return _with_enc_kv(cfg, {
         "kv": _kv_leaves(cfg, lead, dtype, device),
@@ -373,9 +487,11 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
 def quantize_decode_cache(cache: dict) -> dict:
     """An fp decode cache (dense or paged) -> a new int8 one with
     per-(token, KV head) scales; ``pos``, the table and an encdec cache's
-    ``enc_kv`` are shared. An MLA cache's latents are left as they are,
-    as the reference leaves them (a new dict over the same leaves)."""
-    if "k" not in cache["kv"]:
+    ``enc_kv`` are shared. An MLA cache's latents, and a cache with no
+    ``kv`` (the ssm family's state, the hybrid's state and ``attn``), are
+    left as they are, as the reference leaves them (a new dict over the
+    same leaves)."""
+    if "k" not in cache.get("kv", {}):
         return dict(cache)
     k, ks = Lyr.quantize_kv(cache["kv"]["k"])
     v, vs = Lyr.quantize_kv(cache["kv"]["v"])

@@ -5,7 +5,8 @@ Port of ``repro/serving/engine.py``:
   * a fixed pool of ``max_batch`` cache slots over one dense cache
     ``[L, max_batch, max_seq, KVH, hd]`` (or, for the recurrent ssm
     family, one state ``[L, max_batch, ...]`` with no sequence axis,
-    overwritten whole when a slot is admitted); every step runs ONE
+    overwritten whole when a slot is admitted; the hybrid holds such a
+    state beside one K/V cache a group, ``attn``); every step runs ONE
     batched decode over all slots, free ones too (a free slot's state
     drifts until its next admission overwrites it), and a finished
     sequence frees its slot at once;
@@ -165,8 +166,9 @@ class Request:
         return (self.finish_s - self.prefill_done_s) / max(len(self.tokens) - 1, 1)
 
 
-# attention KV leaves, recurrent state, an encdec model's encoder K/V
-CACHE_PARTS = ("kv", "state", "enc_kv")
+# attention KV leaves, recurrent state, the hybrid's per-group K/V, an
+# encdec model's encoder K/V
+CACHE_PARTS = ("kv", "state", "attn", "enc_kv")
 
 
 def cache_leaves(cache: dict):

@@ -816,3 +816,168 @@ def test_deepseek_v2_kernel_path_matches_plain_path(gen):
         assert launched == ((0, 0) if reference else (1, 9))
     for a, b in zip(out[False], out[True]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ----------------------------------------------------------- hd 112 (zamba2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix", [
+    (4, 512, 512, 32, 32, True, 0),       # zamba2-7b's prefill: G = 1
+    (2, 77, 77, 32, 32, True, 0),         # ragged: Sq % 64 != 0
+    (3, 1, 1, 4, 4, True, 0),             # one-key rows
+    (2, 130, 130, 8, 2, True, 40),        # G = 4, a prefix past a tile
+    (1, 40, 70, 8, 8, False, 0),          # Sq != Sk, bidirectional
+])
+def test_flash_kernel_hd112_matches_plain(gen, dtype, B, Sq, Sk, H, KVH,
+                                          causal, prefix):
+    """Kernel 1 at hd 112: 14 16-byte chunks a row, copied by the flat
+    (row, chunk) index, V fragments 7 at a time (bf16); lanes 16-31 own
+    no fourth output column (fp32)."""
+    q = _rnd(gen, (B, Sq, H, 112), dtype)
+    k, v = (_rnd(gen, (B, Sk, KVH, 112), dtype) for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    want = ref.attention_ref(q, k, v, causal=causal, prefix_len=prefix)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_flash_kernel_hd112_takes_unaligned_rows_and_views(gen):
+    """hd 112 rows off the 16-byte grid (scalar copies), and strided
+    views of one fused projection (cp.async), batch-independent."""
+    B, S, H, KVH, hd = 2, 70, 8, 2, 112
+    for off in (1, 0):
+        buf = _rnd(gen, (B, S, (H + 2 * KVH) * hd + off), torch.bfloat16)
+        q = buf[..., off:off + H * hd].view(B, S, H, hd)
+        k = buf[..., off + H * hd:off + (H + KVH) * hd].view(B, S, KVH, hd)
+        v = buf[..., off + (H + KVH) * hd:].view(B, S, KVH, hd)
+        assert bool(q.data_ptr() % 16) == bool(off)
+        got = flash_attention(q, k, v, prefix_len=9)
+        torch.testing.assert_close(
+            got.float(), ref.attention_ref(q, k, v, prefix_len=9).float(),
+            **TOL[torch.bfloat16])
+        assert torch.equal(got[1:], flash_attention(q[1:], k[1:], v[1:],
+                                                    prefix_len=9))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,lengths", [
+    (8, 1024, 32, 32, (1, 7, 333, 1024, 1033, 512, 100, 999)),  # zamba2-7b
+    (3, 50, 4, 4, (0, 1, 50)),            # length 0, a one-key row
+    (2, 61, 8, 2, (61, 17)),              # G = 4, S off any split length
+])
+def test_decode_kernel_hd112_matches_plain(gen, dtype, B, S, H, KVH,
+                                           lengths):
+    """Kernel 2 at hd 112: lanes laid out as at 128, the row's last 16
+    columns predicated off."""
+    q = _rnd(gen, (B, H, 112), dtype)
+    kc, vc = (_rnd(gen, (B, S, KVH, 112), dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = decode_attention(q, kc, vc, lens)
+    want = ref.decode_attention_ref(q, kc, vc, lens)
+    live = lens > 0
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,lengths", [
+    (8, 1024, 32, 32, (0, 7, 333, 1024, 1033, 512, 100, 999)),
+    (3, 50, 4, 4, (0, 1, 50)),
+])
+def test_decode_int8_kernel_hd112_matches_plain(gen, dtype, B, S, H, KVH,
+                                                lengths):
+    """Kernel 3 at hd 112 (int8 rows of 7 16-byte chunks, padded to 8 in
+    shared memory) with the fresh token: lengths 0 (the fresh token
+    alone), one key, ragged, full and past the cache."""
+    q = _rnd(gen, (B, H, 112), dtype)
+    kc, ks = Lyr.quantize_kv(_rnd(gen, (B, S, KVH, 112), torch.float32))
+    vc, vs = Lyr.quantize_kv(_rnd(gen, (B, S, KVH, 112), torch.float32))
+    kn, vn = (_rnd(gen, (B, KVH, 112), dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = decode_attention_int8(q, kc, vc, ks, vs, lens, k_new=kn, v_new=vn)
+    want = ref.decode_attention_int8_ref(q, kc, vc, ks, vs, lens, kn, vn)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["dense", "dense_int8"])
+def test_decode_kernels_hd112_rows_do_not_depend_on_the_batch(gen, kind,
+                                                             dtype):
+    """Kernels 2 and 3 at hd 112 (8 splits of 128 keys at S=1024): row 2
+    alone equals row 2 of a B=8 call bit for bit, whatever the other
+    rows' lengths."""
+    x = _decode_inputs(gen, kind, dtype,
+                       [5, 77, 1000, 1024, 0, 300, 12, 640], cap=1024,
+                       hd=112)
+    assert _decode_plan(kind, dtype, 1024, hd=112)["splits"] == 8
+    one = _decode(kind, x, rows=slice(2, 3))
+    for lens in ([5, 77, 1000, 1024, 0, 300, 12, 640],
+                 [900, 3, 1000, 0, 512, 1, 1024, 64]):
+        x["lens"] = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        assert torch.equal(_decode(kind, x)[2:3], one)
+    # the plain dense version spreads a row of length 0 evenly
+    live = (x["lens"] > 0) | (kind == "dense_int8")
+    want = _decode(kind, x, plain=True)
+    torch.testing.assert_close(_decode(kind, x)[live].float(),
+                               want[live].float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["paged", "paged_int8", "extend"])
+def test_paged_kernels_refuse_hd_112(gen, kind):
+    """Kernels 4, 4-int8 and 5 are not built at hd 112 (no paged path
+    runs it): a CUDA tensor there raises, and launches nothing."""
+    before = (paged_decode_attention.launches,
+              paged_decode_attention_int8.launches,
+              paged_extend_attention.launches)
+    with pytest.raises(ValueError, match="112"):
+        if kind == "extend":
+            kp, vp = _pools(gen, 8, 16, 8, 112, torch.bfloat16)
+            q = _rnd(gen, (2, 4, 32, 112), torch.bfloat16)
+            kn, vn = (_rnd(gen, (2, 4, 8, 112), torch.bfloat16)
+                      for _ in range(2))
+            paged_extend_attention(q, kp, vp, kn, vn, _table(gen, 2, 4, 8),
+                                   torch.tensor([3, 0], dtype=torch.int32,
+                                                device="cuda"))
+        else:
+            x = _decode_inputs(gen, kind, torch.bfloat16, (5, 9), 64, hd=112)
+            _decode(kind, x)
+    assert before == (paged_decode_attention.launches,
+                      paged_decode_attention_int8.launches,
+                      paged_extend_attention.launches)
+
+
+def test_zamba2_layer_group_kernel_path_matches_plain_path(gen):
+    """One group of zamba2-7b at its published width, fp32 (the shared
+    attention at hd 112 with its LoRA delta, 6 Mamba2 layers; lora_b and
+    the decay perturbed): a prefill through kernel 1, a plain extend and
+    two decode steps through kernel 2, against the plain versions."""
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=6,
+                              dtype="float32")
+    params = build(cfg).init_params(gen)
+    sh = params["shared"]
+    sh["lora_b"] += 0.02 * _rnd(gen, tuple(sh["lora_b"].shape), torch.float32)
+    for p in params["mamba"]:
+        p["A_log"] += 0.5 * _rnd(gen, tuple(p["A_log"].shape), torch.float32)
+        p["dt_bias"] += _rnd(gen, tuple(p["dt_bias"].shape), torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 42), generator=gen,
+                         device="cuda").to(torch.int32)
+    out = {}
+    for reference in (False, True):
+        m = build(cfg, reference=reference)
+        flash_attention.launches = decode_attention.launches = 0
+        lp, pre = m.prefill_fn(params, {"tokens": toks[:, :32]})
+        cache = T.make_decode_cache(cfg, 2, 64, "cuda")
+        for n in ("k", "v"):
+            cache["attn"][n][:, :, :32] = pre["attn"][n]
+        for n in ("ssm", "conv"):
+            cache["state"][n].copy_(pre["state"][n])
+        cache["pos"][:] = 32
+        le, cache = m.extend_fn(params, {"tokens": toks[:, 32:40]}, cache)
+        ld = []
+        for i in (40, 41):
+            logits, cache = m.decode_fn(params, {"token": toks[:, i]}, cache)
+            ld.append(logits)
+        out[reference] = (lp, le, *ld, cache["state"]["ssm"])
+        launched = (flash_attention.launches, decode_attention.launches)
+        assert launched == ((0, 0) if reference else (1, 2))
+    for a, b in zip(out[False], out[True]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -1,6 +1,7 @@
 """Port serving entry point on the CPU, and the port's import boundary."""
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import smoke_config
-from repro_torch.launch import serve_multisite
+from repro_torch.launch import serve, serve_multisite
 from repro_torch.launch.serve import (FREQ_GRID, LOAD_GRID, full_width_config,
                                       heron_site_weights, main, serve_demo)
 
@@ -77,9 +78,10 @@ def test_serve_demo_paged_returns_every_page():
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "rwkv6-1.6b",
-                                  "qwen3-14b", "seamless-m4t-medium"])
+                                  "qwen3-14b", "seamless-m4t-medium",
+                                  "zamba2-7b"])
 def test_serve_demo_new_families(arch):
-    """The smoke configs of the moe, ssm, qk-norm dense and encdec
+    """The smoke configs of the moe, ssm, qk-norm dense, encdec and hybrid
     families through the entry point; the command line's
     ``--arch``/``--layers`` reach it."""
     out = serve_demo(smoke_config(arch), device="cpu", num_requests=6,
@@ -120,6 +122,27 @@ def test_full_width_config_takes_depth_from_caller():
     assert (cut.num_layers, cut.d_model, cut.moe_d_ff) == (8, 4096, 6400)
 
 
+def test_command_line_serves_published_width_on_the_card(monkeypatch):
+    """The smoke configs' head dim 16 is none the kernels take, so on the
+    card the command line serves the published width (``--layers`` still
+    sets the depth); on the CPU the smoke config."""
+    got = []
+    monkeypatch.setattr(serve, "serve_demo",
+                        lambda cfg, **kw: got.append((cfg, kw)) or {})
+    monkeypatch.setattr(serve, "resolve_device",
+                        lambda d: torch.device(d or "cuda"))
+    args = serve.build_parser().parse_args(["--arch", "zamba2-7b",
+                                            "--layers", "7"])
+    serve.serve_from_args(args)
+    args.device = "cpu"
+    serve.serve_from_args(args)
+    (card, card_kw), (cpu, _) = got
+    assert card == full_width_config("zamba2-7b", 7)
+    assert card.head_dim == 112 and card_kw["device"] is None
+    assert cpu == dataclasses.replace(smoke_config("zamba2-7b"),
+                                      num_layers=7)
+
+
 def test_default_device_is_the_card(monkeypatch):
     """No silent drop to the CPU: the default device is CUDA, and asking
     for it without a card raises."""
@@ -139,6 +162,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.decode_attention_int8\n"
         "import repro_torch.kernels.expert_matmul, repro_torch.kernels.wkv6\n"
         "import repro_torch.models.moe, repro_torch.models.rwkv6\n"
+        "import repro_torch.models.mamba2\n"
         "import repro_torch.launch.profile, repro_torch.configs\n"
         "import repro_torch.models.transformer, repro_torch.serving.engine\n"
         "import repro_torch.launch.cosim, repro_torch.sim.e2e\n"
