@@ -94,6 +94,19 @@ Phases (any failure exits non-zero before the result line):
      fp32, within LOGIT_BOUND_FP32 with argmax equal at every call; an
      int8 attn cache at B=4 (fp32 model) goes through kernel 3; a 7-layer
      fp32 copy (one group, one tail layer) gives the plain path's streams.
+  12. trainer: llama3.2-1b whole at its published width trains 6 steps of
+     the synthetic stream at seq 4096, a global batch of 8 in 4
+     microbatches (``launch/train.py::train_loop`` at its default rate):
+     every loss finite and the last below the first, kernel 1 (with its
+     LSE) and each of its three backward kernels launched once per layer
+     and microbatch, no plain attention call; a 2-layer fp32 copy's loss
+     and every gradient leaf through the kernels match the plain path's;
+     a 2-layer bf16 copy's gradient leaves through the kernels lie no
+     further from the fp32 plain path's than GRAD_FACTOR_BF16 times the
+     bf16 plain path's; a 2-layer bf16 copy trained 4 steps straight and
+     2 + a checkpoint restored into fresh parameters + 2 gives bitwise
+     equal losses and parameters under
+     ``torch.use_deterministic_algorithms(True)``.
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
 mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
@@ -101,13 +114,19 @@ kernel 1 with a 256-position bidirectional prefix), kernel 1 at
 deepseek-v2's q/k 192 over v 128 and kernel 6 at its 160 experts, and
 kernels 1, 2 and 3 at zamba2-7b's hd 112, against their plain versions,
 with times and bounds; phase 2 lists the hd-256, 192/128 and hd-112
-instantiations beside the others.
+instantiations beside the others. Phase 3 ends with kernel 1's output and
+LSE and its backward kernels (D, dK/dV, dQ) against their plain versions at
+the training shape, ragged, prefix and non-causal shapes, bf16 and fp32,
+their determinism, and their times beside their bounds and SDPA's
+backward; phase 2 prints their registers and spills.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -117,6 +136,10 @@ from pathlib import Path
 
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# cuBLAS reads its workspace setting when CUDA initialises; phase 12's
+# restart check runs under torch.use_deterministic_algorithms(True), which
+# needs this one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -140,6 +163,25 @@ LOGIT_BOUND_FP32 = 1e-3
 # multiple of that spread
 SPREAD_FACTOR_BF16 = 2.0
 SEED = 0
+# phase 12's fp32 check: kernel path vs plain path, each gradient leaf's
+# largest difference over its largest magnitude (fp32 sums in another
+# order, through two layers and the backward)
+GRAD_REL_BOUND = 1e-4
+# kernel 1's LSE vs the plain one: fp32 sums in another order (2e-5);
+# at bf16 the kernel sums bf16-rounded probabilities (2e-3 of a row sum)
+LSE_TOL = {"bfloat16": 2e-3, "float32": 2e-5}
+# kernel 1's backward vs its plain version, ||kernel - plain|| / ||plain||
+# over a whole dQ, dK or dV: at bf16 the kernels round P and dS to bf16
+# (unit roundoff 2^-9 ~ 2e-3) before two of their products and each output
+# once, errors of random sign whose norm stays a few units of 2^-9 (TOL's
+# 2e-2 abs floor is near a typical dQ entry at the training shape, so this
+# holds the bulk); at fp32 the same sums in another order
+BWD_REL_NORM = {"bfloat16": 1e-2, "float32": 1e-5}
+# phase 12's bf16 check: each gradient leaf's distance from the fp32 plain
+# path's, ||g - g32|| / ||g32||, through the kernels at most this multiple
+# of the bf16 plain path's own distance (both round the same products to
+# bf16 outside attention)
+GRAD_FACTOR_BF16 = 2.0
 # ~50 us at the H100's 1.98 GHz boost clock (time_ms)
 SPIN_CYCLES = 100_000
 
@@ -190,6 +232,391 @@ def reset(*kernels) -> None:
         k.launches = 0
 
 
+def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
+    """Phase 3's end: kernel 1's LSE output and its three backward kernels
+    against their plain versions (``ref.attention_lse_ref``,
+    ``ref.attention_bwd_ref``) at bf16 and fp32: llama3.2-1b's training
+    shape (B 2, 4096 tokens, 32 heads over 8, hd 64, causal), ragged
+    small shapes, a prefix and a non-causal case; two backward runs
+    bitwise equal; kernel 1's forward time with the LSE on and off, and
+    each backward kernel's time beside its bound, its plain version's and
+    SDPA's backward. Its own generator, so every other input stays as it
+    was."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    H, KVH, hd = 32, 8, 64
+
+    def inputs(B, Sq, Sk, dt, causal, prefix):
+        q, do = (torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((B, Sk, KVH, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        lse = torch.empty((B, H, Sq), device=dev)
+        o = FA.flash_attention(q, k, v, causal=causal, prefix_len=prefix,
+                               lse=lse)
+        return q, k, v, o, lse, do
+
+    def rel_norm(name, got, want, dtype, case):
+        e = ((got.float() - want.float()).norm()
+             / want.float().norm()).item()
+        check(e <= BWD_REL_NORM[dtype], f"{name} {case}: ||kernel - plain|| "
+              f"/ ||plain|| {e:.3g} over {BWD_REL_NORM[dtype]}")
+        print(f"  {name} {case}: ||kernel - plain|| / ||plain|| {e:.3g} "
+              f"(bound {BWD_REL_NORM[dtype]})")
+
+    print("[kernels] flash_attention's output and LSE vs attention_lse_ref; "
+          "backward kernels (D, dK/dV, dQ) vs attention_bwd_ref, on the "
+          "forward kernel's output and LSE")
+    cases = [(2, 4096, 4096, True, 0), (2, 1, 1, True, 0),
+             (2, 63, 63, True, 0), (2, 257, 257, True, 0),
+             (2, 300, 300, True, 70), (2, 200, 300, False, 0)]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for B, Sq, Sk, causal, prefix in cases:
+            case = (f"{dtype} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} "
+                    f"{'causal' if causal else 'non-causal'} prefix={prefix}")
+            kw = dict(causal=causal, prefix_len=prefix)
+            q, k, v, o, lse, do = inputs(B, Sq, Sk, dt, causal, prefix)
+            check(torch.equal(o, FA.flash_attention(q, k, v, **kw)),
+                  f"flash_attention {case}: the LSE changed the output")
+            o_want, lse_want = ref.attention_lse_ref(q, k, v, **kw)
+            compare("flash_attention", o, o_want, dtype, case)
+            err = (lse - lse_want).abs()
+            check(bool((err <= LSE_TOL[dtype] * (1 + lse_want.abs())).all()),
+                  f"flash_attention LSE {case}: max err "
+                  f"{err.max().item():.3g} over {LSE_TOL[dtype]}")
+            print(f"  flash_attention LSE {case}: max |kernel - plain| "
+                  f"{err.max().item():.3g} (bound {LSE_TOL[dtype]} abs + "
+                  f"rel)")
+            del o_want, lse_want, err
+            D = FA.flash_attention_bwd_dot(o, do)
+            compare("flash_attention_bwd_dot", D,
+                    (o.float() * do.float()).sum(-1).transpose(1, 2),
+                    "float32", case)
+            dk, dv = FA.flash_attention_bwd_dkdv(q, k, v, do, lse, D, **kw)
+            dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, D, **kw)
+            want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            compare("flash_attention_bwd_dkdv", dk, want[1], dtype,
+                    case + " dk")
+            compare("flash_attention_bwd_dkdv", dv, want[2], dtype,
+                    case + " dv")
+            compare("flash_attention_bwd_dq", dq, want[0], dtype, case)
+            if Sq > 1:          # at Sq = Sk = 1, dS and so dQ, dK are 0
+                rel_norm("flash_attention_bwd_dkdv", dk, want[1], dtype,
+                         case + " dk")
+                rel_norm("flash_attention_bwd_dkdv", dv, want[2], dtype,
+                         case + " dv")
+                rel_norm("flash_attention_bwd_dq", dq, want[0], dtype, case)
+            del q, k, v, o, lse, do, D, dk, dv, dq, want
+            torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    B, S = 2, 4096
+    q, k, v, o, lse, do = inputs(B, S, S, bf, True, 0)
+    runs = [FA.flash_attention_bwd(q, k, v, o, lse, do) for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "flash_attention_bwd: two runs differ")
+    print(f"  flash_attention_bwd bf16 B={B} S={S}: two runs bitwise equal "
+          f"(dq, dk, dv)")
+    del runs
+
+    print("[kernels] times at the training shape (bf16, CUDA events, "
+          "median of 30, L2 flushed; plain median of 5)")
+    for Bf, Sf in ((4, 512), (B, S)):
+        qf, kf, vf = (q, k, v) if Sf == S else (
+            torch.randn((Bf, Sf, n, hd), generator=g, device=dev).to(bf)
+            for n in (H, KVH, KVH))
+        buf = torch.empty((Bf, H, Sf), device=dev)
+        off = time_ms(lambda: FA.flash_attention(qf, kf, vf), flush)
+        on = time_ms(lambda: FA.flash_attention(qf, kf, vf, lse=buf), flush)
+        plain = time_ms(lambda: ref.attention_lse_ref(qf, kf, vf), flush,
+                        reps=5)
+        # SDPA's forward (its LSE stays inside the library): a yardstick
+        qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        # q, k, v read and the output written (bf16), the LSE written
+        # (fp32); QK^T and PV over the causal half
+        b_ms, b_by = bound(2 * (2 * qf.numel() + kf.numel() + vf.numel())
+                           + 4 * buf.numel(),
+                           4.0 * Bf * H * hd * Sf * (Sf + 1) / 2,
+                           BF16_FLOP_PER_S)
+        print(f"  flash_attention B={Bf} S={Sf} hd={hd} causal: LSE off "
+              f"{off:.4f} ms, on {on:.4f} ms, plain (with its LSE) "
+              f"{plain:.4f}, library (SDPA forward, enable_gqa=True) "
+              f"{lib:.4f}, bound {b_ms:.5f} ({b_by}) -> {b_ms / on:.1%} of "
+              f"bound, kernel / library {on / lib:.2f}")
+        extra_shapes.setdefault("flash_attention", []).append(dict(
+            ms=on, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, lse_off_ms=off,
+            shape=f"bf16 B={Bf} Sq=Sk={Sf} H={H} KVH={KVH} hd={hd} causal, "
+                  f"with the LSE output"))
+        del qt, kt, vt
+    n = q.numel()
+    half = B * H * hd * S * (S + 1) / 2          # the causal half's MACs
+    stats = 2 * 4 * B * H * S                    # lse and D, fp32
+    D = FA.flash_attention_bwd_dot(o, do)
+    timed = {
+        "flash_attention_bwd_dot": (
+            lambda: FA.flash_attention_bwd_dot(o, do),
+            lambda: (o.float() * do.float()).sum(-1).transpose(1, 2),
+            2 * 2 * n + 4 * B * H * S, 2.0 * n),
+        "flash_attention_bwd_dkdv": (
+            lambda: FA.flash_attention_bwd_dkdv(q, k, v, do, lse, D),
+            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do),
+            2 * (2 * n + 4 * k.numel()) + stats, 4 * 2 * half),
+        "flash_attention_bwd_dq": (
+            lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, D),
+            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do),
+            2 * (3 * n + 2 * k.numel()) + stats, 3 * 2 * half)}
+    # SDPA's whole backward (dQ, dK and dV) at the same shape: the
+    # library row of the dK/dV kernel, a yardstick the port never calls
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                              retain_graph=True), flush)
+    total = 0.0
+    for name, (fn, plain_fn, nbytes, flops) in timed.items():
+        ms = time_ms(fn, flush)
+        plain = time_ms(plain_fn, flush, reps=5)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        total += ms
+        library = lib if name == "flash_attention_bwd_dkdv" else None
+        print(f"  {name} B={B} S={S}: kernel {ms:.4f} ms, plain {plain:.4f}"
+              f", bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound"
+              + (f", library (SDPA's whole backward, enable_gqa=True) "
+                 f"{lib:.4f}"
+                 if library else ""))
+        rows[name].update(ms=ms, plain_ms=plain, library_ms=library,
+                          bound_ms=b_ms, bound_by=b_by,
+                          shape=f"bf16 B={B} Sq=Sk={S} H={H} KVH={KVH} "
+                                f"hd={hd} causal")
+    whole, whole_by = bound(2 * (4 * n + 4 * k.numel()) + stats, 5 * 2 * half,
+                            BF16_FLOP_PER_S)
+    print(f"  the whole backward (D + dK/dV + dQ) {total:.4f} ms, bound "
+          f"{whole:.5f} ({whole_by}: 5 causal-half matmuls) -> "
+          f"{whole / total:.1%}; SDPA's backward {lib:.4f} ms, kernels / "
+          f"library {total / lib:.2f}")
+    del q, k, v, o, lse, do, D, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+
+
+def trainer(dev, smi) -> dict:
+    """Phase 12: llama3.2-1b whole trains 6 steps (the main run), a
+    2-layer fp32 copy's gradient is held against the plain path, and a
+    2-layer bf16 copy restarts from a checkpoint bit for bit. Returns the
+    main run's launches of kernel 1's backward kernels."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import full_width_config
+    from repro_torch.launch.train import FULL_WIDTH_LR, train_loop
+    from repro_torch.models.api import build as build_model
+    from repro_torch.training import AdamW, default_schedule, make_train_step
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+
+    kernels = (FA.flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    cfg = full_width_config("llama3.2-1b")
+    steps, B, S, nm = 6, 8, 4096, 4
+    # every plain attention call on the path is counted: there must be none
+    plain = {n: getattr(ref, n) for n in ("attention_ref", "attention_lse_ref",
+                                          "attention_bwd_ref")}
+    plain_calls = []
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            plain_calls.append(name)
+            return fn(*a, **kw)
+        return call
+
+    torch.cuda.empty_cache()
+    for name, fn in plain.items():
+        setattr(ref, name, counted(name, fn))
+    reset(*kernels)
+    try:
+        out = train_loop(arch="llama3.2-1b", steps=steps, global_batch=B,
+                         seq_len=S, num_microbatches=nm, device="cuda",
+                         seed=SEED, log_every=0)
+    finally:
+        for name, fn in plain.items():
+            setattr(ref, name, fn)
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernels}
+    check(out["cfg"] == cfg, "trainer: not llama3.2-1b at its published width")
+    check(out["lr"] == FULL_WIDTH_LR, f"trainer: lr {out['lr']}")
+    want = cfg.num_layers * nm * steps
+    check(all(n == want for n in launched.values()),
+          f"trainer: launches {launched}, want {want} each "
+          f"({cfg.num_layers} layers x {nm} microbatches x {steps} steps)")
+    check(not plain_calls, f"trainer: plain attention on the card's path: "
+          f"{sorted(set(plain_calls))}")
+    losses = out["losses"]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"trainer: losses {losses}")
+    tokens = B * S
+    n_params = out["params"]
+    # model FLOPs a step: 6 N a token for the weights' products, forward and
+    # backward, plus 6 L S H hd a token for causal attention's QK^T and PV
+    # (half of 12 L S H hd), forward and backward
+    flop = tokens * (6 * n_params + 6 * cfg.num_layers * S * cfg.num_heads
+                     * cfg.resolved_head_dim)
+    steady = statistics.median(out["step_seconds"][1:])
+    print(f"[train] llama3.2-1b whole ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, hd "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params, bf16), seq {S}, global batch {B} "
+          f"in {nm} microbatches, AdamW lr {out['lr']} (train_loop's default "
+          f"at a published width) under default_schedule"
+          f"({steps}, warmup=1), {steps} steps")
+    print(f"[train] losses {[round(x, 4) for x in losses]}")
+    print(f"[train] step seconds {[round(x, 3) for x in out['step_seconds']]}"
+          f"; median of steps 2-{steps} {steady:.3f} s, {tokens / steady:.0f} "
+          f"tokens/s; peak memory {out['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[train] model FLOP share: tokens x (6 N + 6 L S H hd) = "
+          f"{flop:.4g} FLOP a step / {steady:.3f} s / 989 TFLOP/s = "
+          f"{flop / steady / BF16_FLOP_PER_S:.1%}")
+    print(f"[train] launches {launched} (= {cfg.num_layers} x {nm} x "
+          f"{steps}); plain attention calls 0")
+    del out
+    torch.cuda.empty_cache()
+
+    # the kernel path's gradient against the plain path's: 2 layers at
+    # full width, fp32 (the FMA bodies of kernel 1 and its backward)
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    params = build_model(cfg32).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = SyntheticLM(vocab_size=cfg32.vocab_size, seq_len=256,
+                        global_batch=2, seed=SEED).batch(0, dev)
+    reset(*kernels)
+    loss, grads = value_and_grad(build_model(cfg32).loss_fn, params, batch)
+    check([k.launches for k in kernels] == [2, 2, 2, 2],
+          f"trainer fp32: launches {[k.launches for k in kernels]}")
+    loss_p, grads_p = value_and_grad(
+        build_model(cfg32, reference=True).loss_fn, params, batch)
+    check([k.launches for k in kernels] == [2, 2, 2, 2],
+          "trainer fp32: the plain path launched a kernel")
+    rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+           for a, b in zip(leaves(grads), leaves(grads_p))]
+    loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+    check(loss_rel <= GRAD_REL_BOUND and max(rel) <= GRAD_REL_BOUND,
+          f"trainer fp32: loss rel {loss_rel:.3g}, worst leaf {max(rel):.3g} "
+          f"(bound {GRAD_REL_BOUND})")
+    print(f"[train] 2-layer fp32 copy at full width, seq 256, B 2: loss "
+          f"{loss.item():.6f} vs plain {loss_p.item():.6f} (rel "
+          f"{loss_rel:.2e}); {len(rel)} gradient leaves, largest |kernel - "
+          f"plain| / max |plain| {max(rel):.2e} (bound {GRAD_REL_BOUND})")
+    del params, grads, grads_p
+    torch.cuda.empty_cache()
+
+    # the same at bf16, through the kernels' tensor-core bodies: 2 layers
+    # at full width, seq 1024, B 2; each gradient leaf's distance from the
+    # fp32 plain path's (the same parameters, upcast), through the kernels
+    # against the bf16 plain path's own
+    cfg16 = dataclasses.replace(cfg, num_layers=2)
+    params = build_model(cfg16).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = SyntheticLM(vocab_size=cfg16.vocab_size, seq_len=1024,
+                        global_batch=2, seed=SEED).batch(0, dev)
+    reset(*kernels)
+    loss_k, g_k = value_and_grad(build_model(cfg16).loss_fn, params, batch)
+    check([k.launches for k in kernels] == [2, 2, 2, 2],
+          f"trainer bf16: launches {[k.launches for k in kernels]}")
+    loss_p, g_p = value_and_grad(
+        build_model(cfg16, reference=True).loss_fn, params, batch)
+    loss_32, g_32 = value_and_grad(
+        build_model(cfg32, reference=True).loss_fn,
+        tree_map(lambda t: t.float(), params), batch)
+    check([k.launches for k in kernels] == [2, 2, 2, 2],
+          "trainer bf16: the plain path launched a kernel")
+
+    def dist(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp(min=1e-30)).item()
+
+    e_k = [dist(a, c) for a, c in zip(leaves(g_k), leaves(g_32))]
+    e_p = [dist(b, c) for b, c in zip(leaves(g_p), leaves(g_32))]
+    kp = max(dist(a, b) for a, b in zip(leaves(g_k), leaves(g_p)))
+    ratio = max(a / b for a, b in zip(e_k, e_p))
+    check(math.isfinite(loss_k.item()) and ratio <= GRAD_FACTOR_BF16,
+          f"trainer bf16: loss {loss_k.item()}; worst leaf's distance from "
+          f"fp32 through the kernels / the plain path's {ratio:.3g} (bound "
+          f"{GRAD_FACTOR_BF16})")
+    print(f"[train] 2-layer bf16 copy at full width, seq 1024, B 2: loss "
+          f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, fp32 plain "
+          f"{loss_32.item():.6f}; over {len(e_k)} gradient leaves ||g - "
+          f"g_fp32|| / ||g_fp32|| at most {max(e_k):.3e} through the "
+          f"kernels and {max(e_p):.3e} through the plain path, worst leaf's "
+          f"ratio {ratio:.3f} (bound {GRAD_FACTOR_BF16}); kernels vs plain "
+          f"at most {kp:.3e}")
+    del params, g_k, g_p, g_32
+    torch.cuda.empty_cache()
+
+    # restart: a 2-layer bf16 copy, 4 steps straight against 2 steps, a
+    # checkpoint, a restore into freshly drawn parameters and state, and 2
+    # more: the losses and final parameters bitwise equal
+    cfgr = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(cfgr)
+    opt = AdamW(lr=FULL_WIDTH_LR)
+    step = make_train_step(model.loss_fn, opt,
+                           schedule=default_schedule(4, warmup=1))
+    data = SyntheticLM(vocab_size=cfgr.vocab_size, seq_len=512,
+                       global_batch=2, seed=SEED)
+
+    def fresh(seed):
+        p = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+        return p, opt.init(p)
+
+    def run(params, state, lo, hi, losses):
+        for i in range(lo, hi):
+            params, state, m = step(params, state, data.batch(i, dev))
+            losses.append(m["loss"].item())
+        return params, state
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, resumed = [], []
+        p_a, _ = run(*fresh(SEED), 0, 4, straight)
+        p_b, s_b = run(*fresh(SEED), 0, 2, resumed)
+        with tempfile.TemporaryDirectory() as d:
+            store = CheckpointStore(d)
+            store.save(2, {"params": p_b, "opt": s_b},
+                       extra={"data_step": 2})
+            del p_b, s_b
+            p_c, s_c = fresh(SEED + 1)
+            restored, extra = store.restore({"params": p_c, "opt": s_c})
+        p_b, _ = run(restored["params"], restored["opt"],
+                     extra["data_step"], 4, resumed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(p_a), leaves(p_b)))
+    check(straight == resumed and same,
+          f"trainer restart: losses {straight} vs {resumed}, final "
+          f"parameters equal: {same}")
+    print(f"[train] restart (2-layer bf16 copy, seq 512, B 2, deterministic "
+          f"algorithms): losses {straight} straight and through a "
+          f"checkpoint at step 2, bitwise equal; final parameters bitwise "
+          f"equal")
+    print(f"[train] card: {smi}")
+    del p_a, p_b, restored
+    torch.cuda.empty_cache()
+    return {k: launched[k] for k in ("flash_attention_bwd_dot",
+                                     "flash_attention_bwd_dkdv",
+                                     "flash_attention_bwd_dq")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -206,7 +633,9 @@ def main() -> int:
     from repro_torch.kernels.expert_matmul import (
         expert_matmul, smem_bytes as expert_smem_bytes)
     from repro_torch.kernels.flash_attention import (
-        flash_attention, smem_bytes as flash_smem_bytes)
+        bwd_smem_bytes, flash_attention, flash_attention_bwd_dkdv,
+        flash_attention_bwd_dot, flash_attention_bwd_dq,
+        smem_bytes as flash_smem_bytes)
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_int8,
         plan as decode_plan)
@@ -227,7 +656,9 @@ def main() -> int:
     kernel_fns = {k.__name__: k for k in (
         flash_attention, decode_attention, decode_attention_int8,
         paged_decode_attention, paged_decode_attention_int8,
-        paged_extend_attention, expert_matmul, wkv6)}
+        paged_extend_attention, expert_matmul, wkv6,
+        flash_attention_bwd_dot, flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq)}
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -244,7 +675,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build(["flash_attention", "decode_attention",
                         "decode_attention_int8", "paged_decode_attention",
-                        "paged_extend_attention", "expert_matmul", "wkv6"])
+                        "paged_extend_attention", "expert_matmul", "wkv6",
+                        "flash_attention_bwd"])
     print(f"[build] {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -292,7 +724,12 @@ def main() -> int:
                 (f"{dt} hd={hd} W=64 page=16", decode_plan(
                     getattr(torch, dt), hd, 32, 8, 64, 16))
                 for dt in ("bfloat16", "float32", "int8")
-                for hd in (64, 128, 256)]}
+                for hd in (64, 128, 256)],
+            # dK/dV and dQ share a layout size; D needs none
+            "flash_attention_bwd": [
+                (f"{dt} hd=64 dK/dV and dQ", bwd_smem_bytes(getattr(torch, dt),
+                                                            64))
+                for dt in ("bfloat16", "float32")]}
     # decode_split_fwd's mangled arguments: q type, cache type, hd, paged
     mangled = {"13__nv_bfloat16": "bf16", "f": "fp32", "a": "int8"}
 
@@ -304,16 +741,21 @@ def main() -> int:
         return (f"{mangled[q_t]}, {mangled.get(c_t, mangled[q_t])}, {hd_}, "
                 f"{'paged' if paged == '1' else 'dense'}")
 
+    # kernel 1 with its LSE output is the same instantiation (a pointer
+    # argument, null when serving): its flash_fwd_mma<64, 64, 1> line is
+    # the training forward's
     for name in ("flash_attention", "expert_matmul", "paged_extend_attention",
                  "wkv6", "decode_attention", "decode_attention_int8",
-                 "paged_decode_attention"):
+                 "paged_decode_attention", "flash_attention_bwd"):
         fn, spill = None, ""
         for line in logs.get(name, "").splitlines():
             if "Compiling entry function" in line:   # mangled template
                 m = re.search(r"(flash_fwd_mma|flash_fwd|expert_gemm_mma|"
                               r"expert_gemm|paged_extend_fwd_mma|"
                               r"paged_extend_fwd|wkv6_chunked|"
-                              r"decode_split_fwd)I(.*?)EEv", line)
+                              r"decode_split_fwd|bwd_dkdv_mma|bwd_dq_mma|"
+                              r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot)I(.*?)EEv",
+                              line)
                 fn = (None if not m else f"{m[1]}<{decode_args(m[2])}>"
                       if m[1] == "decode_split_fwd" else f"{m[1]}<{m[2]}>")
                 fn = fn or line.split("'")[1]
@@ -1268,6 +1710,8 @@ def main() -> int:
         else:
             extra_shapes.setdefault("wkv6", []).append(entry)
         del a
+    torch.cuda.empty_cache()
+    backward_kernels(dev, flush, compare, rows, extra_shapes)
     del l2
     torch.cuda.empty_cache()
 
@@ -2629,8 +3073,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[hybrid] card: {smi}")
 
+    # -------------------------------------------------------- 12. trainer
+    launches.update(trainer(dev, smi))
+
     # ---------------------------------------------------------- report
+    # the backward kernels replace no TPU kernel (the reference takes
+    # attention's gradient from XLA): each names kernel 1, whose backward
+    # it is
+    port_only = {"flash_attention_bwd_dot", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"}
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),
+           **{k: ("flash_attention.py:96", "flash_attention")
+              for k in port_only},
            "decode_attention": ("decode_attention.py:92", "decode_attention"),
            "decode_attention_int8": ("decode_attention.py:139",
                                      "decode_attention_int8"),
@@ -2642,7 +3096,8 @@ def main() -> int:
                                       "paged_extend_attention"),
            "expert_matmul": ("grouped_matmul.py:56", "expert_matmul"),
            "wkv6": ("wkv6.py:74", "wkv6")}
-    csrc = {"paged_decode_attention_int8": "paged_decode_attention"}
+    csrc = {"paged_decode_attention_int8": "paged_decode_attention",
+            **{k: "flash_attention_bwd" for k in port_only}}
     table = []
     for name, r in rows.items():
         tpu_line, fn = src[name]
@@ -2658,6 +3113,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "other_shapes": extra_shapes.get(name, [])})
+        if name in port_only:
+            table[-1]["note"] = (
+                "port-only backward of kernel 1: no TPU kernel computes it "
+                "(the reference differentiates XLA attention, "
+                "src/repro/models/layers.py:137)")
     print(smi)                        # the card, as nvidia-smi gives it
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Serving checkpoints (request transcripts)."""
-from repro_torch.checkpoint.store import (TranscriptSnapshot, load_transcripts,
-                                          save_transcripts)
+"""Checkpoints: serving transcripts and training trees."""
+from repro_torch.checkpoint.store import (CheckpointStore, TranscriptSnapshot,
+                                          load_transcripts, save_transcripts)
 
-__all__ = ["TranscriptSnapshot", "save_transcripts", "load_transcripts"]
+__all__ = ["CheckpointStore", "TranscriptSnapshot", "save_transcripts",
+           "load_transcripts"]

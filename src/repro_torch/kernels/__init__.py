@@ -2,7 +2,10 @@
 (``csrc/``), their wrappers, the plain PyTorch versions (``ref``) and the
 device dispatch (``ops``).
 
-  flash_attention  — prefill attention (repro/kernels/flash_attention.py)
+  flash_attention  — prefill attention (repro/kernels/flash_attention.py),
+                     with an optional log-sum-exp output for training
+  flash_attention_bwd_dot/_dkdv/_dq — its backward (D, dK/dV, dQ; no TPU
+                     kernel: the reference differentiates XLA attention)
   decode_attention — one-token attention over a ragged dense cache
                      (repro/kernels/decode_attention.py)
   decode_attention_int8  — the same over an int8 cache with scales

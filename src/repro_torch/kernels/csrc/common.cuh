@@ -13,6 +13,11 @@ namespace rt {
 // running max over masked scores stays finite.
 constexpr float kNegInf = -1e30f;
 
+// The log-sum-exp that kernel 1 saves for a row with nothing visible:
+// finite, and large enough that exp(s - kLseEmpty) is 0 for any score.
+// The backward masks such a row's every key, so it gets zero gradients.
+constexpr float kLseEmpty = 1e30f;
+
 // dtype codes of the C interface
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;

@@ -65,6 +65,11 @@
 // lanes own 4 output columns, the fourth only on lanes 0-15.
 // Inputs are strided [B, S, heads, QD or VD] views (last dim contiguous);
 // the output is a contiguous [B, Sq, H, VD] tensor the wrapper allocated.
+// lse (optional, the training forward): where non-null, both bodies also
+// write each (row, head)'s log-sum-exp of its scaled scores, fp32 [B, H,
+// Sq], in natural-log units (m * scale + ln l); the backward kernels
+// (flash_attention_bwd.cu) rebuild P from it. A row with nothing visible
+// (Sk = 0) gets kLseEmpty. Serving passes null and writes nothing more.
 
 #include <type_traits>
 
@@ -76,6 +81,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kKeys = 32;  // keys per tile, one per lane (fp32 body)
+constexpr float kLn2 = 0.6931471805599453f;
 
 // the fp32 body's layout: kRowsPerWarp (query, head) rows a warp, 16,
 // or 8 at hd 256, where a lane's 8 output columns of 16 rows would not
@@ -96,11 +102,11 @@ struct Smem {
 template <typename T, int QD, int VD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
-          int KVH, long long q_sb, long long q_ss, long long q_sh,
-          long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-          long long v_ss, long long v_sh, int causal, int prefix_len,
-          float scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+          long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+          long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+          long long v_sh, int causal, int prefix_len, float scale) {
   using L = Smem<QD, VD>;
   constexpr int kPer = (VD + 31) / 32;  // output dims per lane
   // the lane's output dim lane + 32 * i lies in the row (VD 112: the last
@@ -243,6 +249,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     if (fr >= rows_total) continue;
     const int qp = fr / G, h = kvh * G + fr % G;
     const float denom = fmaxf(l[rr], 1e-30f);
+    if (lse && lane == 0)      // scores were scaled with Q: m is too
+      lse[((long long)b * H + h) * Sq + qp] =
+          l[rr] > 0.f ? m[rr] + logf(l[rr]) : kLseEmpty;
     T* orow = o + ((long long)(b * Sq + qp) * H + h) * VD;
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
@@ -303,8 +312,8 @@ __launch_bounds__(kWarps * 32, kVec ? MmaCfg<QD, VD>::kMinBlocks : 1)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KVH,
-              long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              int Sq, int Sk, int H, int KVH, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
               long long k_ss, long long k_sh, long long v_sb, long long v_ss,
               long long v_sh, int causal, int prefix_len, float scale_log2) {
   using bf16 = __nv_bfloat16;
@@ -627,6 +636,11 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       if (fr >= rows_total) continue;
       const int qp = fr / G, h = kvh * G + fr % G;
       const float inv = 1.f / fmaxf(ls, 1e-30f);
+      // m is the raw max: ln(sum) = (m * scale_log2 + log2 l) * ln 2
+      if (lse && (lane & 3) == 0)
+        lse[((long long)b * H + h) * Sq + qp] =
+            ls > 0.f ? (m[mt][h2] * scale_log2 + log2f(ls)) * kLn2
+                     : kLseEmpty;
       bf16* orow =
           o + ((long long)(b * Sq + qp) * H + h) * VD + (lane & 3) * 2;
 #pragma unroll
@@ -643,8 +657,8 @@ size_t smem_bytes() {
 }
 
 template <typename T, int QD, int VD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KVH, const long long* st, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KVH, const long long* st, int causal,
            int prefix_len, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, QD, VD>();
   const int G = H / KVH;
@@ -657,8 +671,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, kWarps * 32, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KVH, st[0],
-        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
+        static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KVH,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
         prefix_len, scale);
   } else {
     // cp.async needs every row start 16-byte aligned: base and strides
@@ -675,8 +689,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid((Sq * G + rows - 1) / rows, B * KVH);
     kern<<<grid, kWarps * 32, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KVH, st[0],
-        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
+        static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KVH,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
         prefix_len, scale * 1.4426950408889634f);
   }
   return (int)cudaGetLastError();
@@ -690,24 +704,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   X(64, 64) X(112, 112) X(128, 128) X(256, 256) X(192, 128)
 
 // strides: element strides of q, k, v over (batch, seq, head), 9 values;
-// hd is the q/k width, vd the v (and output) width. Returns the
+// hd is the q/k width, vd the v (and output) width; lse: null, or a
+// [B, H, Sq] fp32 buffer for each row's log-sum-exp. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int hd,
+                                   const void* v, void* o, void* lse,
+                                   int dtype, int hd,
                                    int vd, int B, int Sq, int Sk, int H,
                                    int KVH, const long long* strides,
                                    int causal, int prefix_len, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
 #define FLASH_LAUNCH(QD, VD)                                                 \
   if (hd == QD && vd == VD) {                                               \
     if (dtype == kBFloat16)                                                 \
-      return launch<__nv_bfloat16, QD, VD>(q, k, v, o, B, Sq, Sk, H, KVH,   \
-                                           strides, causal, prefix_len,     \
-                                           scale, s);                       \
+      return launch<__nv_bfloat16, QD, VD>(q, k, v, o, l, B, Sq, Sk, H,     \
+                                           KVH, strides, causal,            \
+                                           prefix_len, scale, s);           \
     if (dtype == kFloat32)                                                  \
-      return launch<float, QD, VD>(q, k, v, o, B, Sq, Sk, H, KVH, strides,  \
-                                   causal, prefix_len, scale, s);           \
+      return launch<float, QD, VD>(q, k, v, o, l, B, Sq, Sk, H, KVH,        \
+                                   strides, causal, prefix_len, scale, s);  \
   }
   FLASH_WIDTHS(FLASH_LAUNCH)
 #undef FLASH_LAUNCH

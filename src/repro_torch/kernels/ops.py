@@ -1,13 +1,19 @@
 """Dispatch point between the hand-written kernels and their plain versions.
 
-A tensor on the CPU goes to the plain PyTorch version in ``ref``; a CUDA
-tensor goes to the kernel, for every shape, and the kernel's wrapper raises
-on what it does not take. There is no fallback from one to the other: the
-reference package's TPU tiling guards (shapes that do not tile went to the
-XLA version) do not carry over, because the CUDA kernels mask their own
-ragged edges.
+A tensor on the CPU goes to the plain PyTorch version in ``ref`` (which
+autograd differentiates); a CUDA tensor goes to the kernel, for every
+shape, and the kernel's wrapper raises on what it does not take.
+``flash_attention`` on CUDA tensors with grad enabled and an input that
+requires grad goes through ``FlashAttentionFn`` instead: kernel 1 with its
+LSE output forward, its three backward kernels backward. Serving builds no
+graph, so it launches the forward kernel alone. There is no fallback from
+one to the other: the reference package's TPU tiling guards (shapes that
+do not tile went to the XLA version) do not carry over, because the CUDA
+kernels mask their own ragged edges.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
@@ -17,7 +23,7 @@ from repro_torch.kernels.decode_attention_int8 import (
 from repro_torch.kernels.expert_matmul import (
     expert_matmul as _expert_matmul_kernel)
 from repro_torch.kernels.flash_attention import (
-    flash_attention as _flash_kernel)
+    FlashAttentionFn, flash_attention as _flash_kernel)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention as _paged_decode_kernel,
     paged_decode_attention_int8 as _paged_decode_int8_kernel)
@@ -36,10 +42,13 @@ def _on_cpu(t) -> bool:
 
 def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     """q [B,Sq,H,hd], k [B,Sk,KVH,hd], v [B,Sk,KVH,vd] -> [B,Sq,H,vd]
-    (vd = hd, or MLA's 128 under q/k 192)."""
+    (vd = hd, or MLA's 128 under q/k 192). Differentiable on either
+    device."""
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=causal,
                                  prefix_len=prefix_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, prefix_len)
     return _flash_kernel(q, k, v, causal=causal, prefix_len=prefix_len)
 
 

@@ -6,13 +6,43 @@ The attention ones are the direct O(S²) math in fp32 with the reference's
 token-serial definition and the chunked form the model runs. They are what
 a wrapper runs for a tensor on the CPU, what ``chip_smoke.py`` holds each
 kernel against on the card, and the oracle path of the model's reference
-mode.
+mode. ``attention_lse_ref`` and ``attention_bwd_ref`` are the plain
+versions of kernel 1's log-sum-exp output and of its backward kernels;
+on the CPU autograd differentiates ``attention_ref`` itself.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+# the log-sum-exp of a row with nothing visible (kernel 1's kLseEmpty):
+# finite, and exp(s - LSE_EMPTY) is 0 for any score
+LSE_EMPTY = 1e30
+
+
+def _masked_scores(q, k, causal: bool, prefix_len: int):
+    """Scaled fp32 scores [B,KVH,G,Sq,Sk] of q [B,Sq,H,hd] against k
+    [B,Sk,KVH,hd], masked to -1e30 off the visible keys; and the mask
+    [Sq,Sk] (None without ``causal``: every key is visible)."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, Sq, KVH, G, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
+    mask = None
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device)[:, None]
+        k_pos = torch.arange(Sk, device=q.device)[None, :]
+        mask = (q_pos >= k_pos) | (k_pos < prefix_len)
+        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    return s, mask
+
+
+def _heads_out(o, B, Sq, H):
+    """[B,KVH,G,Sq,d] -> [B,Sq,H,d]."""
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, o.shape[-1])
 
 
 def attention_ref(q, k, v, *, causal: bool = True, prefix_len: int = 0):
@@ -22,20 +52,52 @@ def attention_ref(q, k, v, *, causal: bool = True, prefix_len: int = 0):
 
     Under ``causal``, query ``i`` sees keys ``j <= i`` plus every key
     ``j < prefix_len`` (a bidirectional prefix)."""
-    B, Sq, H, hd = q.shape
-    Sk, KVH = k.shape[1], k.shape[2]
-    G = H // KVH
-    qg = q.reshape(B, Sq, KVH, G, hd).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
-    if causal:
-        q_pos = torch.arange(Sq, device=q.device)[:, None]
-        k_pos = torch.arange(Sk, device=q.device)[None, :]
-        mask = (q_pos >= k_pos) | (k_pos < prefix_len)
-        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    B, Sq, H, _ = q.shape
+    s, _ = _masked_scores(q, k, causal, prefix_len)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(
-        q.dtype)
+    return _heads_out(o, B, Sq, H).to(q.dtype)
+
+
+def attention_lse_ref(q, k, v, *, causal: bool = True, prefix_len: int = 0):
+    """``attention_ref``'s output and each (row, head)'s log-sum-exp of
+    its scaled visible scores, fp32 [B,H,Sq] (``LSE_EMPTY`` for a row
+    with no key): what kernel 1 saves for its backward."""
+    B, Sq, H, _ = q.shape
+    s, _ = _masked_scores(q, k, causal, prefix_len)
+    lse = torch.logsumexp(s, dim=-1)                       # [B,KVH,G,Sq]
+    lse = torch.where(torch.isfinite(lse), lse,
+                      torch.tensor(LSE_EMPTY, device=q.device))
+    return (attention_ref(q, k, v, causal=causal, prefix_len=prefix_len),
+            lse.reshape(B, H, Sq))
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      prefix_len: int = 0):
+    """The gradient of ``attention_ref`` from its output ``o`` and saved
+    ``lse`` [B,H,Sq], given the output's gradient ``do`` -> (dq, dk, dv)
+    in the inputs' dtypes, in fp32 math: D = sum(dO * O) over the head
+    dim, P = exp(S - LSE) on the visible keys and exactly 0 elsewhere, dV
+    = P^T dO, dS = P * (dO V^T - D), dQ = dS K / sqrt(hd), dK = dS^T Q /
+    sqrt(hd), dK and dV summed over the G query heads of a KV head."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH, vd = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KVH
+    s, mask = _masked_scores(q, k, causal, prefix_len)
+    p = torch.exp(s - lse.float().reshape(B, KVH, G, Sq, 1))
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dog = do.float().reshape(B, Sq, KVH, G, vd)
+    D = (dog * o.float().reshape(B, Sq, KVH, G, vd)).sum(-1)  # [B,Sq,KVH,G]
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    scale = 1.0 / math.sqrt(hd)
+    dq = torch.einsum("bkgqs,bskd->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().reshape(B, Sq, KVH, G, hd)) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (_heads_out(dq, B, Sq, H).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths):

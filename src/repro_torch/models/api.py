@@ -3,6 +3,8 @@
 ``build(cfg)`` returns a bundle exposing::
 
     init_params(generator)            -> params (on generator.device)
+    loss_fn(params, batch)            -> scalar (the dense family;
+                                         others raise NotImplementedError)
     prefill_fn(params, inputs)        -> (logits, cache)   (+ "frames"
                                                             for encdec,
                                                             "patches"
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import WKV6_CHUNK
@@ -36,6 +38,7 @@ class Model:
     prefill_fn: Callable
     extend_fn: Callable
     decode_fn: Callable
+    loss_fn: Optional[Callable] = None
 
 
 def build(cfg: ModelConfig, *, reference: bool = False,
@@ -52,4 +55,5 @@ def build(cfg: ModelConfig, *, reference: bool = False,
         extend_fn=functools.partial(T.extend_fn, cfg, reference=reference,
                                     wkv_chunk=wkv_chunk),
         decode_fn=functools.partial(T.decode_fn, cfg, reference=reference),
+        loss_fn=functools.partial(T.loss_fn, cfg, reference=reference),
     )

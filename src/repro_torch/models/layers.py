@@ -80,6 +80,22 @@ def logits(p, x, cfg):
     return F.linear(x, p["embed"] if cfg.tie_embeddings else p["lm_head"])
 
 
+def cross_entropy(logit, labels, mask=None):
+    """Next-token cross-entropy of ``logit`` [..., V] against ``labels``
+    [...]: the fp32 log-sum-exp minus the gold logit, averaged (over the
+    positions ``mask`` selects, if given). The reference's one-hot
+    multiply-reduce is a gather here: the same function, without a
+    [..., V] fp32 one-hot on the device."""
+    logit = logit.float()
+    lse = torch.logsumexp(logit, dim=-1)
+    gold = torch.gather(logit, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return nll.mean()
+
+
 def extend_attention(q, k_cache, v_cache, k_new, v_new, pos):
     """Chunk attention against a [B,S,KVH,hd] cache (prefill continuation).
 

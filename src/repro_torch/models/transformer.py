@@ -1,4 +1,4 @@
-"""Models: parameters, prefill, extend and decode.
+"""Models: parameters, the training loss, prefill, extend and decode.
 
 Port of the ``"dense"`` (with or without qk-norm), ``"moe"`` (GQA or MLA
 attention), ``"ssm"`` (RWKV6), ``"hybrid"`` (zamba2), ``"encdec"`` and
@@ -338,6 +338,35 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
         for leaf, t in zip(kv_all.values(), kv):
             leaf[i] = t
     return _head(cfg, params, x), cache
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict, *,
+            reference: bool = False):
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S] against
+    ``batch["labels"]`` [B, S] (masked by ``batch["loss_mask"]`` if
+    given): embed, every layer as in prefill (its K/V not kept), the final
+    norm, the logits. The dense family (qk-norm included) only: its
+    attention goes through ``ops.flash_attention``, which autograd
+    differentiates on the CPU and which runs kernel 1 and its backward
+    kernels on the card. ``reference=True`` attends through the plain
+    version on any device."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: loss_fn is ported for the dense family only; "
+            f"{cfg.family!r} training is not ported yet (it needs the "
+            "backward of its kernels)")
+    dev = _device(params)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    x = Lyr.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=dev)
+    for p in params["layers"]:
+        x, _ = _layer(cfg, p, x, positions, reference=reference)
+    x = Lyr.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    mask = batch.get("loss_mask")
+    return Lyr.cross_entropy(
+        Lyr.logits(params["embed"], x, cfg),
+        torch.as_tensor(batch["labels"], device=dev),
+        None if mask is None else torch.as_tensor(mask, device=dev))
 
 
 def _layer_cache(kv: dict, i: int) -> dict:

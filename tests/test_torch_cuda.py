@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.configs import (get_config, llama32_1b, phi35_moe_42b,
                                  reduced, rwkv6_1b6)
-from repro_torch.kernels import ref
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_int8 import decode_attention_int8
 from repro_torch.kernels.expert_matmul import expert_matmul
@@ -981,3 +982,173 @@ def test_zamba2_layer_group_kernel_path_matches_plain_path(gen):
         assert launched == ((0, 0) if reference else (1, 2))
     for a, b in zip(out[False], out[True]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------- kernel 1's LSE and backward
+
+BWD_SHAPES = [          # B, Sq, Sk, H, KVH, causal, prefix (hd 64)
+    (2, 1, 1, 32, 8, True, 0),
+    (2, 63, 63, 32, 8, True, 0),
+    (1, 257, 257, 32, 8, True, 0),
+    (2, 300, 300, 32, 8, True, 70),     # a prefix past the first tile
+    (1, 200, 200, 8, 2, True, 130),     # the prefix's edge inside a tile
+    (1, 100, 150, 8, 2, False, 0),      # non-causal, Sq != Sk
+    (1, 130, 130, 4, 4, True, 0),       # G = 1
+    (1, 96, 96, 6, 2, True, 0),         # G = 3
+    (2, 512, 512, 32, 8, True, 0),
+]
+
+
+def _bwd_inputs(gen, dtype, B, Sq, Sk, H, KVH, causal, prefix, hd=64):
+    """q, k, v and a random output gradient; the output and LSE from
+    kernel 1, which both sides of a backward comparison take."""
+    q, do = (_rnd(gen, (B, Sq, H, hd), dtype) for _ in range(2))
+    k, v = (_rnd(gen, (B, Sk, KVH, hd), dtype) for _ in range(2))
+    lse = torch.empty((B, H, Sq), device="cuda")
+    o = flash_attention(q, k, v, causal=causal, prefix_len=prefix, lse=lse)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix", BWD_SHAPES)
+def test_flash_kernel_lse_matches_plain(gen, dtype, B, Sq, Sk, H, KVH,
+                                        causal, prefix):
+    """Kernel 1's LSE output against ``attention_lse_ref`` (fp32 LSE:
+    2e-5 at fp32; at bf16 the kernel sums bf16-rounded probabilities,
+    2e-3 relative to a row sum), and its output bit for bit the same as
+    without the LSE."""
+    q, k, v, o, lse, _ = _bwd_inputs(gen, dtype, B, Sq, Sk, H, KVH, causal,
+                                     prefix)
+    _, want = ref.attention_lse_ref(q, k, v, causal=causal,
+                                    prefix_len=prefix)
+    tol = 2e-5 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(lse, want, atol=tol, rtol=tol)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                          prefix_len=prefix))
+
+
+def test_flash_kernel_lse_of_rows_with_no_key(gen):
+    q = _rnd(gen, (1, 5, 8, 64), torch.bfloat16)
+    k = v = torch.zeros((1, 0, 2, 64), dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros((1, 8, 5), device="cuda")
+    o = flash_attention(q, k, v, lse=lse)
+    assert torch.equal(o, torch.zeros_like(o))
+    assert torch.equal(lse, torch.full_like(lse, ref.LSE_EMPTY))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix", BWD_SHAPES)
+def test_flash_bwd_kernels_match_plain(gen, dtype, B, Sq, Sk, H, KVH,
+                                       causal, prefix):
+    """Each backward kernel against ``attention_bwd_ref`` on the same
+    inputs (the forward kernel's output and LSE): D to 2e-5 (fp32 sums in
+    another order), dq/dk/dv to the bounds of the file's header."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, B, Sq, Sk, H, KVH,
+                                      causal, prefix)
+    kw = dict(causal=causal, prefix_len=prefix)
+    D = FA.flash_attention_bwd_dot(o, do)
+    torch.testing.assert_close(
+        D, (o.float() * do.float()).sum(-1).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
+    dk, dv = FA.flash_attention_bwd_dkdv(q, k, v, do, lse, D, **kw)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, D, **kw)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), w.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_are_deterministic(gen, dtype):
+    """No float atomics: two backward passes are bitwise equal."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, 2, 700, 700, 32, 8, True,
+                                      0)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("causal,prefix", [(True, 0), (True, 20),
+                                           (False, 0)])
+def test_flash_attention_fn_grads_match_plain_path(gen, causal, prefix):
+    """Autograd through ``ops.flash_attention`` on the card (kernel 1 with
+    its LSE, then the three backward kernels, each launched once) against
+    autograd through the plain version, fp32 to 2e-5."""
+    B, S, H, KVH, hd = 2, 77, 8, 2, 64
+    ins = [_rnd(gen, s, torch.float32) for s in
+           ((B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd))]
+    do = _rnd(gen, (B, S, H, hd), torch.float32)
+    kernels = (flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    out = {}
+    for name, attend in (("kernel", ops.flash_attention),
+                         ("plain", ref.attention_ref)):
+        ts = [t.clone().requires_grad_() for t in ins]
+        o = attend(*ts, causal=causal, prefix_len=prefix)
+        out[name] = (o, *torch.autograd.grad(o, ts, do))
+    assert [fn.launches for fn in kernels] == [1, 1, 1, 1]
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+def test_ops_flash_attention_builds_no_graph_without_grad(gen):
+    """Serving's dispatch: under ``torch.no_grad()``, or with no input
+    that requires grad, ``ops.flash_attention`` launches the forward
+    kernel alone and builds no graph."""
+    q = _rnd(gen, (1, 40, 8, 64), torch.bfloat16).requires_grad_()
+    k, v = (_rnd(gen, (1, 40, 2, 64), torch.bfloat16) for _ in range(2))
+    kernels = (flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    with torch.no_grad():
+        o1 = ops.flash_attention(q, k, v)
+    o2 = ops.flash_attention(q.detach(), k, v)
+    assert o1.grad_fn is None and o2.grad_fn is None
+    assert [fn.launches for fn in kernels] == [2, 0, 0, 0]
+    assert torch.equal(o1, o2)
+
+
+def test_flash_attention_fn_refuses_widths_without_a_backward(gen):
+    q = _rnd(gen, (1, 8, 4, 128), torch.bfloat16).requires_grad_()
+    k = _rnd(gen, (1, 8, 4, 128), torch.bfloat16)
+    with pytest.raises(ValueError, match="backward kernels are built for"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="built for"):
+        FA.flash_attention_bwd_dot(q.detach(), q.detach())
+
+
+def test_dense_loss_grads_kernel_path_match_plain_path(gen):
+    """``loss_fn`` and its gradient at a small fp32 dense model with head
+    dim 64 (2 layers, d 256, 4 heads over 2): the kernel path against the
+    plain path (``build(cfg, reference=True)``), every leaf to 1e-4."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves
+    cfg = reduced(llama32_1b, d_model=256, num_heads=4, num_kv_heads=2,
+                  head_dim=64, d_ff=512, vocab_size=512, dtype="float32")
+    params = build(cfg).init_params(gen)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=96,
+                        global_batch=2).batch(0, "cuda")
+    flash_attention.launches = FA.flash_attention_bwd_dq.launches = 0
+    got = value_and_grad(build(cfg).loss_fn, params, batch)
+    assert (flash_attention.launches,
+            FA.flash_attention_bwd_dq.launches) == (2, 2)
+    want = value_and_grad(build(cfg, reference=True).loss_fn, params, batch)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5
+    for a, b in zip(leaves(got[1]), leaves(want[1])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_train_config_refuses_head_dims_without_a_backward(gen):
+    """``launch/train.py`` on the card: the published width trains (hd
+    64); ``--d-model 768`` over the reduced config's 4 heads is hd 192,
+    which the backward kernels do not take, and is refused up front."""
+    from repro_torch.launch.train import train_config
+    assert train_config("llama3.2-1b", "cuda").resolved_head_dim == 64
+    assert train_config("llama3.2-1b", "cuda",
+                        d_model=256).resolved_head_dim == 64
+    with pytest.raises(ValueError, match="head dim 192"):
+        train_config("llama3.2-1b", "cuda", d_model=768)
