@@ -116,9 +116,10 @@ kernels 1, 2 and 3 at zamba2-7b's hd 112, against their plain versions,
 with times and bounds; phase 2 lists the hd-256, 192/128 and hd-112
 instantiations beside the others. Phase 3 ends with kernel 1's output and
 LSE and its backward kernels (D, dK/dV, dQ) against their plain versions at
-the training shape, ragged, prefix and non-causal shapes, bf16 and fp32,
-their determinism, and their times beside their bounds and SDPA's
-backward; phase 2 prints their registers and spills.
+the training shape, ragged, prefix and non-causal shapes, the edges of the
+bf16 bodies' tiles (lengths and prefixes at 127-129, G = 1 and 8), bf16
+and fp32, their determinism, and their times beside their bounds and
+SDPA's backward; phase 2 prints their registers and spills.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -250,12 +251,12 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
     H, KVH, hd = 32, 8, 64
 
-    def inputs(B, Sq, Sk, dt, causal, prefix):
-        q, do = (torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
+    def inputs(B, Sq, Sk, dt, causal, prefix, h=H, kvh=KVH):
+        q, do = (torch.randn((B, Sq, h, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
-        k, v = (torch.randn((B, Sk, KVH, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, Sk, kvh, hd), generator=g, device=dev).to(dt)
                 for _ in range(2))
-        lse = torch.empty((B, H, Sq), device=dev)
+        lse = torch.empty((B, h, Sq), device=dev)
         o = FA.flash_attention(q, k, v, causal=causal, prefix_len=prefix,
                                lse=lse)
         return q, k, v, o, lse, do
@@ -271,16 +272,27 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
     print("[kernels] flash_attention's output and LSE vs attention_lse_ref; "
           "backward kernels (D, dK/dV, dQ) vs attention_bwd_ref, on the "
           "forward kernel's output and LSE")
-    cases = [(2, 4096, 4096, True, 0), (2, 1, 1, True, 0),
-             (2, 63, 63, True, 0), (2, 257, 257, True, 0),
-             (2, 300, 300, True, 70), (2, 200, 300, False, 0)]
+    # B, Sq, Sk, causal, prefix, H, KVH; then the bf16 bodies' tile edges
+    # (128 keys or query rows a block, 64 a warpgroup and a streamed tile):
+    # lengths and prefixes at 128 and either side, G = 1 and G = 8, and
+    # Sq != Sk without the mask
+    cases = [(2, 4096, 4096, True, 0, H, KVH), (2, 1, 1, True, 0, H, KVH),
+             (2, 63, 63, True, 0, H, KVH), (2, 257, 257, True, 0, H, KVH),
+             (2, 300, 300, True, 70, H, KVH), (2, 200, 300, False, 0, H, KVH),
+             (2, 127, 127, True, 0, H, KVH), (2, 128, 128, True, 0, H, KVH),
+             (2, 129, 129, True, 0, H, KVH), (1, 300, 300, True, 127, H, KVH),
+             (1, 300, 300, True, 128, H, KVH),
+             (1, 300, 300, True, 129, H, KVH), (1, 300, 300, True, 64, H, KVH),
+             (2, 257, 257, True, 0, 8, 8), (2, 257, 257, True, 0, H, 4),
+             (1, 129, 127, False, 0, H, KVH), (2, 127, 385, False, 0, H, KVH)]
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for B, Sq, Sk, causal, prefix in cases:
-            case = (f"{dtype} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} "
+        for B, Sq, Sk, causal, prefix, h, kvh in cases:
+            case = (f"{dtype} B={B} Sq={Sq} Sk={Sk} H={h} KVH={kvh} hd={hd} "
                     f"{'causal' if causal else 'non-causal'} prefix={prefix}")
             kw = dict(causal=causal, prefix_len=prefix)
-            q, k, v, o, lse, do = inputs(B, Sq, Sk, dt, causal, prefix)
+            q, k, v, o, lse, do = inputs(B, Sq, Sk, dt, causal, prefix, h,
+                                         kvh)
             check(torch.equal(o, FA.flash_attention(q, k, v, **kw)),
                   f"flash_attention {case}: the LSE changed the output")
             o_want, lse_want = ref.attention_lse_ref(q, k, v, **kw)
@@ -725,7 +737,10 @@ def main() -> int:
                     getattr(torch, dt), hd, 32, 8, 64, 16))
                 for dt in ("bfloat16", "float32", "int8")
                 for hd in (64, 128, 256)],
-            # dK/dV and dQ share a layout size; D needs none
+            # dK/dV and dQ share a layout size; D needs none. The bf16
+            # bodies' ptxas count is their launch's (384 threads); after
+            # setmaxnreg the two consumer warpgroups hold 232 and the
+            # producer's 40
             "flash_attention_bwd": [
                 (f"{dt} hd=64 dK/dV and dQ", bwd_smem_bytes(getattr(torch, dt),
                                                             64))
@@ -753,7 +768,7 @@ def main() -> int:
                 m = re.search(r"(flash_fwd_mma|flash_fwd|expert_gemm_mma|"
                               r"expert_gemm|paged_extend_fwd_mma|"
                               r"paged_extend_fwd|wkv6_chunked|"
-                              r"decode_split_fwd|bwd_dkdv_mma|bwd_dq_mma|"
+                              r"decode_split_fwd|bwd_dkdv_wgmma|bwd_dq_wgmma|"
                               r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot)I(.*?)EEv",
                               line)
                 fn = (None if not m else f"{m[1]}<{decode_args(m[2])}>"

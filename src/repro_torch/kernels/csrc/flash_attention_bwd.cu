@@ -13,34 +13,78 @@
 //   dK = dS^T Q / sqrt(hd), summed over the G query heads of a KV head.
 // Three kernels, FlashAttention-2's split:
 //  (a) bwd_dot: D[b, h, i] = sum_d dO . O in fp32, one warp a row;
-//  (b) bwd_dkdv: one block per (tile of keys, b * KVH + kvh). It loops over
+//  (b) bwd_dkdv: a tile of keys of one (b, kvh) at a time. It loops over
 //      the G query heads and, for each, over the query tiles from the key
 //      tile's causal start (tile 0 where the key tile lies in the prefix,
 //      or without the mask), recomputing S^T = K Q^T and P^T from the LSE
 //      and dP^T = V dO^T, and keeps dK and dV in fp32 registers, written
 //      once: the sum over G needs no atomics;
-//  (c) bwd_dq: one block per (tile of (query, grouped head) rows, b * KVH
-//      + kvh), laid out as the forward: the key loop stops at the causal
-//      diagonal of the block's last query, or at the prefix; dQ in fp32
-//      registers, written once.
+//  (c) bwd_dq: a tile of query rows of one (b, h) at a time: the key loop
+//      stops at the causal diagonal of the tile's last query, or at the
+//      prefix; dQ in fp32 registers, written once (a dQ summed across
+//      (b)'s key tiles would need float atomics, so (c) recomputes S and
+//      dP: 7 products in all, not 5).
 // No float atomics anywhere: two runs on the same inputs are bitwise equal.
 // A masked key gets P = 0 exactly by the predicate, never through
 // exp(-1e30 - LSE), so the LSE sentinel of a row with nothing visible
 // (kLseEmpty) gives zero gradients.
 // What bounds it on the H100: at llama3.2-1b's training shape (B 2, 4096
 // tokens, 32 heads over 8, hd 64, causal) the 7 Sq * Sk * hd products of
-// (b) and (c) on the tensor cores; (a) is bound by the bytes of dO and O.
-// bf16 (the training path): four warps; mma.sync m16n8k16 with fp32
-// accumulation, fragments by ldmatrix from shared-memory tiles padded 16
-// bytes a row (kernel 1's helpers, common.cuh); P and dS are rounded to
-// bf16 in registers as A operands, as FlashAttention-2 does. In (b) each
-// warp owns 16 keys and holds their K and V fragments in registers; the
-// query tiles (Q, dO, and the tile's LSE and D) come into two stages by
-// cp.async, the next tile's copies in flight during this tile's math. In
-// (c) each warp owns 16 rows and holds their Q and dO fragments; K/V tiles
-// come into two stages the same way. Tiles that some row or key of the
-// block sees only in part (the diagonal, the prefix's edge, ragged Sq and
-// Sk) take a masked instantiation of the tile's body.
+// (b) and (c) on the tensor cores (989 TFLOP/s in bf16 only through
+// wgmma); (a) is bound by the bytes of dO and O.
+// bf16 (the training path), both (b) and (c): one persistent block an SM
+// of three warpgroups. Warpgroups 0 and 1 compute on wgmma m64n64k16
+// (fp32 accumulators in registers), 64 keys (b) or 64 query rows (c)
+// each; warpgroup 2 drops to 40 registers (setmaxnreg) so the two take
+// 232, and its first warp produces with TMA under mbarriers: a 2-slot
+// ring of the tiles a block keeps for one output tile (K and V of 128
+// keys in (b), Q and dO of 128 rows of one head in (c)), so the next
+// tile's loads overlap this one's steps, and a 4-slot ring of the tiles
+// it streams (64 queries of Q, dO, LSE and D in (b); 64 keys of K and V
+// in (c)); the 32 lanes copy (b)'s LSE and D rows by cp.async, arriving
+// on the same barrier, since a ragged Sq breaks TMA's 16-byte stride rule
+// for them. No thread that computes issues a copy. In (b), each warp
+// takes its 16 keys of K and V from the 128-byte swizzled tile into A
+// fragments once a tile (ldmatrix), and S^T = K Q^T and dP^T = V dO^T
+// read only the Q and dO tiles (B) from shared memory: at N = 64 a
+// product with both operands in shared memory moves 4 KB in its 32
+// tensor-core clocks, all of shared memory's 128 bytes a clock, and
+// register A halves that (faster on the card than K and V as shared-memory
+// descriptors).
+// P^T and dS^T go from those accumulators straight into bf16 A fragments
+// (the accumulator layout is the A layout) for dV += P^T dO and dK +=
+// dS^T Q, where dO and Q are B read MN-major through the descriptor's
+// transpose bit. In (c) likewise Q and dO are register A for S = Q K^T
+// and dP = dO V^T, then dQ += dS K with K as an MN-major B. Within a step
+// (b)'s LSE and D come from shared memory while S^T and dP^T run, and the
+// exponentials of P overlap the dP product (wgmma.wait_group 1).
+// Tried and dropped (each slower on the card): issuing the next step's
+// S and dP before the last dV/dK retire, and the FlashAttention-3
+// ping-pong of the two warpgroups over named barriers (ptxas then
+// serialises the wgmma for want of registers).
+// Work order: the causal mask gives key tile n of (b) Sq / 64 - 2n query
+// tiles and query tile m of (c) 2 (m + 1) key tiles, so an item pairs
+// tile p with tile n - 1 - p of one (b, head) row: every item holds the
+// same work, and block x takes items x, x + gridDim.x, ... (256 items
+// for (b) and 1024 for (c) on 132 SMs at the training shape). A tile that
+// a warpgroup sees in no part is skipped; one it sees only in part (the
+// diagonal, the prefix's edge, ragged Sq and Sk) takes the masked
+// instantiation of the step; TMA reads rows past Sq or Sk as zeros. The
+// launcher encodes the four TMA maps (cuTensorMapEncodeTiled, reached
+// through cudaGetDriverEntryPoint: no -lcuda, no change of build flags)
+// once a call, passed as __grid_constant__ parameters. No library kernel
+// (no cuBLAS, cuDNN or CUTLASS GEMM): the PTX is in hopper.cuh.
+// hd 128 (not built: BWD_WIDTHS has one line, X(64)): a position is two
+// 128-byte swizzle rows, so each tile is two TMA boxes of 64 columns, a
+// k-step past column 64 moves to the second box, and load_a_sw128 reads
+// 8 k-steps. Registers of a consumer thread in (b) as built: dK and dV 64
+// + 64 fp32, K and V fragments 32 + 32, S^T and dP^T 32 + 32, P^T and
+// dS^T 16 + 16 = 288, over 232: K and V go back to shared memory as A
+// descriptors, and S^T and dP^T to 32 queries a step (wgmma m64n32k16:
+// 16 + 16, P^T and dS^T 8 + 8: 176). Shared memory in (b): K, V 2 x 2 x
+// 32 KB + 4 x (32 KB + 512 B) = 258 KB, over 227: 2 inner stages (193
+// KB). (c): dQ 64, Q and dO fragments 32 + 32, S and dP 32 + 32, dS 16 =
+// 208: fits; Q, dO 2 x 2 x 32 KB + 4 x 32 KB = 256 KB: 2 stages (192 KB).
 // fp32 (the checks' path): FMAs on the CUDA cores, tiles of 32 keys and 32
 // rows in shared memory (the tensor cores' fp32 input type is TF32, too
 // coarse for the fp32 checks), as kernel 1's fp32 body.
@@ -48,9 +92,10 @@
 // dk, dv [B, Sk, KVH, hd]; lse and D [B, H, Sq] fp32. Head dims: HD 64
 // (BWD_WIDTHS below: one line a width).
 
+#include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 using namespace rt;
 
@@ -85,353 +130,496 @@ bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
   }
 }
 
-// ------------------------------------------------------------ bf16: mma
-// 64 keys (b) or 64 rows (c) a block, 16 a warp; tiles of 64 queries (b)
-// or 64 keys (c). Shared memory: six [64, HD] bf16 tiles, rows padded 16
-// bytes: (b) K, V, then two stages of (Q, dO), then two stages of the
-// query tile's LSE (times log2 e) and D; (c) Q, dO, then two stages of
-// (K, V).
+// ------------------------------------------------------------ bf16: wgmma
+// One persistent block an SM, three warpgroups: warpgroups 0 and 1 compute
+// on wgmma, 64 keys (b) or 64 rows (c) each; warpgroup 2 gives up its
+// registers (setmaxnreg) and its first warp produces. Two rings of tiles
+// under mbarriers, filled by TMA (128-byte swizzled rows of 64 bf16): an
+// outer ring of 2 slots for the tiles a block keeps while it works on one
+// output tile (K and V of 128 keys in (b), Q and dO of 128 rows in (c),
+// read once into A fragments), loaded by one lane, and an inner ring of
+// kStages slots for the tiles it streams (64 queries of Q and dO in (b),
+// with their LSE and D copied by the warp's 32 lanes by cp.async; 64 keys
+// of K and V in (c)), read by wgmma through shared-memory descriptors. A
+// consumer thread releases an inner slot once its warpgroup's last wgmma
+// on it has completed, an outer slot at the end of its tile.
 template <int HD>
-struct MmaBwd {
-  static constexpr int kTileRows = 64;
-  static constexpr int kStride = HD + 8;
-  static constexpr int kTile = kTileRows * kStride;
-  static constexpr size_t bytes =
-      6 * kTile * sizeof(__nv_bfloat16) + 4 * kTileRows * sizeof(float);
+struct Wg {
+  static_assert(HD == 64, "a position is one 128-byte swizzle row");
+  static constexpr int kThreads = 3 * 128;
+  static constexpr int kConsumers = 2 * 128;
+  static constexpr int kStages = 4;
+  static constexpr int kOuter = 128;   // keys (b) or rows (c) a block
+  static constexpr int kInner = 64;    // queries (b) or keys (c) a tile
+  static constexpr int kRow = HD * 2;  // bytes
+  static constexpr int kOuterTile = kOuter * kRow;   // one tensor's tile
+  static constexpr int kInnerTile = kInner * kRow;
+  // byte offsets from the 1024-byte aligned base: 2 outer slots of two
+  // tiles, kStages inner slots of two tiles, kStages (LSE, D) rows of
+  // kInner floats ((b) only), the barriers
+  static constexpr int kInnerAt = 2 * 2 * kOuterTile;
+  static constexpr int kStatsAt = kInnerAt + kStages * 2 * kInnerTile;
+  static constexpr int kBarsAt = kStatsAt + kStages * 2 * kInner * 4;
+  static constexpr int kBars = 2 * kStages + 4;
+  static constexpr size_t bytes = 1024 + kBarsAt + kBars * 8;
+
+  __device__ static uint8_t* outer(uint8_t* sm, int slot) {
+    return sm + slot * 2 * kOuterTile;
+  }
+  __device__ static uint8_t* inner(uint8_t* sm, int st) {
+    return sm + kInnerAt + st * 2 * kInnerTile;
+  }
+  __device__ static float* stats(uint8_t* sm, int st) {
+    return reinterpret_cast<float*>(sm + kStatsAt) + st * 2 * kInner;
+  }
 };
 
-// a [64, HD] tile of rows src(r) (null: past the edge, zero-filled) into
-// shared memory, 16-byte cp.async chunks
-template <int HD, typename Src>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, Src src,
-                                          const __nv_bfloat16* any) {
-  constexpr int kChunks = HD / 8;
-#pragma unroll
-  for (int it = 0; it < MmaBwd<HD>::kTileRows * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks * 8;
-    const __nv_bfloat16* s = src(r);
-    cp_async16(dst + r * MmaBwd<HD>::kStride + c, s ? s + c : any, s != nullptr);
-  }
-}
-
-// acc[nt] (+)= A (16 rows: a[kk] fragments over HD) . B^T, B's 64 rows in
-// shared memory as the col-major operand (row n of B is column n): S^T =
-// K Q^T and dP^T = V dO^T in (b), S = Q K^T and dP = dO V^T in (c)
-template <int HD>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const uint32_t (&a)[HD / 16][4],
-                                        const __nv_bfloat16* Bs, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t bb[4][4];
-#pragma unroll
-    for (int np = 0; np < 4; ++np)
-      ldmatrix_x4(bb[np], Bs + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                   MmaBwd<HD>::kStride +
-                              kk * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      mma_bf16(acc[2 * np], a[kk], bb[np][0], bb[np][1]);
-      mma_bf16(acc[2 * np + 1], a[kk], bb[np][2], bb[np][3]);
+// a ring's slot and the parity of its current round
+struct Ring {
+  int st = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++st == n) {
+      st = 0;
+      ph ^= 1;
     }
   }
-}
+};
 
-// out[dt] += X . B, X the 16 x 64 accumulator tile x (rounded to bf16 as
-// the A operand), B [64, HD] row-major in shared memory (hence .trans):
-// dV += P^T dO, dK += dS^T Q in (b), dQ += dS K in (c)
+// full[kStages], empty[kStages], outer full[2], outer empty[2]: an inner
+// slot is full after `full_count` arrivals and its bytes, empty after
+// every consumer thread's arrival; an outer slot likewise with one
+// arrival
 template <int HD>
-__device__ __forceinline__ void mma_xb(float (&out)[HD / 8][4],
-                                       const float (&x)[8][4],
-                                       const __nv_bfloat16* Bs, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t xa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      uint32_t bb[4];
-      ldmatrix_x4_trans(bb, Bs + (kk * 16 + (lane & 7) +
-                                  ((lane >> 3) & 1) * 8) * MmaBwd<HD>::kStride +
-                                dp * 16 + (lane >> 4) * 8);
-      mma_bf16(out[2 * dp], xa, bb[0], bb[1]);
-      mma_bf16(out[2 * dp + 1], xa, bb[2], bb[3]);
+__device__ __forceinline__ uint64_t* init_bars(uint8_t* sm,
+                                               uint32_t full_count) {
+  using L = Wg<HD>;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBarsAt);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(bars + s, full_count);
+      mbar_init(bars + L::kStages + s, L::kConsumers);
     }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bars + 2 * L::kStages + s, 1);
+      mbar_init(bars + 2 * L::kStages + 2 + s, L::kConsumers);
+    }
+    mbar_fence_init();
   }
-}
-
-// the warp's 16 rows of a [64, HD] shared-memory tile as A fragments
-template <int HD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4],
-                                       const __nv_bfloat16* s, int warp,
-                                       int lane) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    ldmatrix_x4(a[kk], s + (warp * 16 + (lane & 15)) * MmaBwd<HD>::kStride +
-                           kk * 16 + (lane >> 4) * 8);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
-             const __nv_bfloat16* __restrict__ dO,
-             const float* __restrict__ lse, const float* __restrict__ D,
-             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-             int Sq, int Sk, int H, int KVH, int causal, int prefix_len,
-             float scale_log2, float scale) {
-  using bf16 = __nv_bfloat16;
-  using L = MmaBwd<HD>;
-  constexpr int kR = L::kTileRows;
-  extern __shared__ float4 smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
-  float* fsm = reinterpret_cast<float*>(sm + 6 * L::kTile);
-  const int G = H / KVH;
-  // (b, kvh) fastest; key tile 0, which the most query tiles see under the
-  // causal mask, first
-  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
-  const int bh = lin % gridDim.y;
-  const int b = bh / KVH, kvh = bh % KVH;
-  const int j0 = lin / gridDim.y * kR;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  // query tiles: from the key tile's causal start to Sq, for each g
-  const int n_qt = (Sq + kR - 1) / kR;
-  const int qt0 = causal && j0 >= prefix_len ? j0 / kR : 0;
-  const int nq = max(n_qt - qt0, 0);
-  const int items = G * nq;
-
-  auto kv_row = [&](const bf16* base) {
-    return [=](int r) -> const bf16* {
-      return j0 + r < Sk ? base + row_off(b, Sk, j0 + r, KVH, kvh, HD)
-                         : nullptr;
-    };
-  };
-  copy_tile<HD>(sm, kv_row(k), k);
-  copy_tile<HD>(sm + L::kTile, kv_row(v), v);
-  auto load_item = [&](int it, int st) {
-    const int g = it / nq, i0 = (qt0 + it % nq) * kR, h = kvh * G + g;
-    auto q_row = [&](const bf16* base) {
-      return [=](int r) -> const bf16* {
-        return i0 + r < Sq ? base + row_off(b, Sq, i0 + r, H, h, HD)
-                           : nullptr;
-      };
-    };
-    copy_tile<HD>(sm + (2 + 2 * st) * L::kTile, q_row(q), q);
-    copy_tile<HD>(sm + (3 + 2 * st) * L::kTile, q_row(dO), dO);
-    if (tid < kR) {   // plain loads: the next barrier publishes them
-      const bool ok = i0 + tid < Sq;
-      const long long at = ((long long)b * H + h) * Sq + i0 + tid;
-      fsm[st * 2 * kR + tid] = ok ? lse[at] * kLog2e : 0.f;
-      fsm[st * 2 * kR + kR + tid] = ok ? D[at] : 0.f;
-    }
-  };
-  if (items > 0) load_item(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
+  return bars;
+}
 
-  uint32_t kf[HD / 16][4], vf[HD / 16][4];
-  load_a<HD>(kf, sm, warp, lane);
-  load_a<HD>(vf, sm + L::kTile, warp, lane);
-  float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[d][i] = dva[d][i] = 0.f;
-  // this lane's keys: accumulator rows lane / 4 and lane / 4 + 8
-  const int jw = j0 + warp * 16 + lane / 4;
+// The work order, both kernels: item `it` pairs outer tile p with tile
+// n - 1 - p (one tile where the two meet) of one (b, head) row, so under
+// the causal mask every item holds the same work (the long tile of one
+// end with the short of the other); block x takes items x, x + gridDim.x,
+// ... The two tiles of item p: tile_of(p, n, 0) and tile_of(p, n, 1), < 0
+// where there is no second one.
+__device__ __forceinline__ int tile_of(int p, int n, int half) {
+  const int t = half ? n - 1 - p : p;
+  return half && t == p ? -1 : t;
+}
 
-  auto item = [&](int it, auto kMask) {
-    const int st = it & 1;
-    if (it > 0) {
-      cp_async_wait<0>();   // item it landed; every warp is done with it - 1
-      __syncthreads();
-    }
-    if (it + 1 < items) load_item(it + 1, st ^ 1);
-    cp_async_commit();
-    const bf16* Qs = sm + (2 + 2 * st) * L::kTile;
-    const bf16* Os = sm + (3 + 2 * st) * L::kTile;
-    const float* Ls = fsm + st * 2 * kR;
-    const float* Ds = Ls + kR;
-    const int i0 = (qt0 + it % nq) * kR;
+// (b): S^T = K Q^T and dP^T = V dO^T with the warp's K and V rows as A
+// fragments in registers and the Q and dO tiles as K-major B; P^T and
+// dS^T from those accumulators, rounded to bf16 in registers, as A of
+// dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (the transpose
+// bit).
+template <int HD>
+__global__ void __launch_bounds__(Wg<HD>::kThreads, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const float* __restrict__ lse, const float* __restrict__ D,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int B, int Sq, int Sk, int H, int KVH, int causal,
+               int prefix_len, float scale_log2, float scale) {
+  using L = Wg<HD>;
+  constexpr int kN = L::kOuter, kM = L::kInner;
+  extern __shared__ float4 smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  // the TMA lane's arrival with its bytes, and the 32 lanes' cp.async
+  uint64_t* full = init_bars<HD>(sm, 1 + 32);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* ofull = empty + L::kStages;
+  uint64_t* oempty = ofull + 2;
+  const int G = H / KVH;
+  const int n_kt = (Sk + kN - 1) / kN, n_pair = (n_kt + 1) / 2;
+  const int n_qt = (Sq + kM - 1) / kM;
+  const int items = n_pair * B * KVH;
+  const int tid = threadIdx.x;
+  // query tiles of key tile j0: from its causal start (0 inside the
+  // prefix, or without the mask) to Sq, for each of the G heads
+  auto first_qt = [&](int j0) {
+    return causal && j0 >= prefix_len ? j0 / kM : 0;
+  };
 
-    float s[8][4], dp[8][4];
-    mma_abt<HD>(s, kf, Qs, lane);      // S^T: keys x queries
-    mma_abt<HD>(dp, vf, Os, lane);     // dP^T
+  if (tid >= L::kConsumers) {   // ---------------------------- producer
+    setmaxnreg_dec<40>();
+    if (tid < L::kConsumers + 32) {
+      const int lane = tid & 31;
+      Ring in, out;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int p = it % n_pair, bh = it / n_pair;
+        const int b = bh / KVH, kvh = bh % KVH;
+        for (int half = 0; half < 2; ++half) {
+          const int n = tile_of(p, n_kt, half);
+          if (n < 0) break;
+          const int j0 = n * kN;
+          mbar_wait(&oempty[out.st], out.ph ^ 1);
+          if (lane == 0) {
+            uint8_t* kv = L::outer(sm, out.st);
+            mbar_expect_tx(&ofull[out.st], 2 * L::kOuterTile);
+            tma_load_4d(kv, &tk, &ofull[out.st], 0, kvh, j0, b);
+            tma_load_4d(kv + L::kOuterTile, &tv, &ofull[out.st], 0, kvh, j0,
+                        b);
+          }
+          out.next(2);
+          for (int g = 0; g < G; ++g) {
+            const int h = kvh * G + g;
+            const long long row = ((long long)b * H + h) * Sq;
+            for (int qt = first_qt(j0); qt < n_qt; ++qt) {
+              const int i0 = qt * kM;
+              mbar_wait(&empty[in.st], in.ph ^ 1);
+              if (lane == 0) {
+                uint8_t* qo = L::inner(sm, in.st);
+                mbar_expect_tx(&full[in.st], 2 * L::kInnerTile);
+                tma_load_4d(qo, &tq, &full[in.st], 0, h, i0, b);
+                tma_load_4d(qo + L::kInnerTile, &tdo, &full[in.st], 0, h, i0,
+                            b);
+              }
+              float* ls = L::stats(sm, in.st);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + (lane & 3) * 2 + (e & 1);
-        bool ok = true;
-        if constexpr (decltype(kMask)::value) {
-          const int j = jw + 8 * (e >> 1), i = i0 + c;
-          ok = j < Sk && i < Sq && (!causal || j <= i || j < prefix_len);
+              for (int r = lane; r < kM; r += 32) {   // zeros past Sq
+                const bool ok = i0 + r < Sq;
+                cp_async4(ls + r, ok ? lse + row + i0 + r : lse, ok);
+                cp_async4(ls + kM + r, ok ? D + row + i0 + r : D, ok);
+              }
+              mbar_arrive_cp_async(&full[in.st]);
+              in.next(L::kStages);
+            }
+          }
         }
-        const float p = ok ? ex2(fmaf(s[nt][e], scale_log2, -Ls[c])) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - Ds[c]);
       }
-    mma_xb<HD>(dva, s, Os, lane);      // dV += P^T dO
-    mma_xb<HD>(dka, dp, Qs, lane);     // dK += dS^T Q
-  };
-  for (int it = 0; it < items; ++it) {
-    const int i0 = (qt0 + it % nq) * kR;
-    const bool whole = j0 + kR <= Sk && i0 + kR <= Sq &&
-                       (!causal || j0 + kR - 1 <= i0 || j0 + kR <= prefix_len);
-    if (whole) item(it, std::false_type{});
-    else item(it, std::true_type{});
-  }
-  cp_async_wait<0>();   // nothing in flight at exit
+      cp_async_wait<0>();
+    }
+  } else {                      // ---------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int r0 = warp * 16 + (lane >> 2);   // accumulator rows r0, r0 + 8
+    const int c0 = (lane & 3) * 2;            // columns 8 j + c0 (+ 1)
+    Ring in, out;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int p = it % n_pair, bh = it / n_pair;
+      const int b = bh / KVH, kvh = bh % KVH;
+      for (int half = 0; half < 2; ++half) {
+        const int n = tile_of(p, n_kt, half);
+        if (n < 0) break;
+        const int j0 = n * kN, jw0 = j0 + wg * 64;   // this warpgroup's keys
+        mbar_wait(&ofull[out.st], out.ph);
+        const uint8_t* Ks = L::outer(sm, out.st) + wg * 64 * L::kRow;
+        // this warp's 16 keys of K and V as A fragments, for the whole tile
+        uint32_t kf[HD / 16][4], vf[HD / 16][4];
+        load_a_sw128(kf, Ks, warp, lane);
+        load_a_sw128(vf, Ks + L::kOuterTile, warp, lane);
+        float dka[32], dva[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+
+        auto step = [&](const uint8_t* qo, const float* ls, int i0,
+                        auto kMask) {
+          float s[32], dp[32];
+          const uint64_t qd = desc_k_major(qo);
+          const uint64_t od = desc_k_major(qo + L::kInnerTile);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_rs<0>(s, kf[kk], qd + 2 * kk, kk);            // S^T
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_rs<0>(dp, vf[kk], od + 2 * kk, kk);           // dP^T
+          wgmma_commit();
+          // this thread's queries' LSE (times log2 e) and D, read while the
+          // products run
+          float l2[16], dd[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int c = 8 * (j / 2) + c0 + (j & 1);
+            l2[j] = ls[c] * kLog2e;
+            dd[j] = ls[kM + c];
+          }
+          wgmma_wait<1>();
+          fence_regs(s);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int c = 8 * (i / 4) + c0 + (i & 1);         // query i0 + c
+            bool ok = true;
+            if constexpr (decltype(kMask)::value) {
+              const int j = jw0 + r0 + 8 * ((i >> 1) & 1), q = i0 + c;
+              ok = j < Sk && q < Sq && (!causal || j <= q || j < prefix_len);
+            }
+            s[i] = ok ? ex2(fmaf(s[i], scale_log2, -l2[2 * (i / 4) + (i & 1)]))
+                      : 0.f;
+          }
+          wgmma_wait<0>();
+          fence_regs(dp);
+          uint32_t pa[4][4], da[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int i = 8 * kk + 2 * r, j = 2 * (i / 4);
+              pa[kk][r] = pack_bf16(s[i], s[i + 1]);
+              da[kk][r] = pack_bf16(s[i] * (dp[i] - dd[j]),
+                                    s[i + 1] * (dp[i + 1] - dd[j + 1]));
+            }
+          const uint64_t qt_ = desc_mn_major(qo);
+          const uint64_t ot = desc_mn_major(qo + L::kInnerTile);
+          wgmma_fence();
+          fence_regs(dva);
+          fence_regs(dka);
+#pragma unroll
+          for (int kk = 0; kk < kM / 16; ++kk)
+            wgmma_rs<1>(dva, pa[kk], ot + 128 * kk, 1);           // dV += P^T dO
+#pragma unroll
+          for (int kk = 0; kk < kM / 16; ++kk)
+            wgmma_rs<1>(dka, da[kk], qt_ + 128 * kk, 1);          // dK += dS^T Q
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dva);
+          fence_regs(dka);
+          fence_regs(pa);
+          fence_regs(da);
+          fence_regs(kf);   // see load_a_sw128
+          fence_regs(vf);
+        };
+
+        for (int g = 0; g < G; ++g) {
+          for (int qt = first_qt(j0); qt < n_qt; ++qt) {
+            const int i0 = qt * kM;
+            mbar_wait(&full[in.st], in.ph);
+            // some key of this warpgroup sees some query of the tile
+            const bool seen = jw0 < Sk && (!causal || jw0 < prefix_len ||
+                                           i0 + kM - 1 >= jw0);
+            if (seen) {
+              const uint8_t* qo = L::inner(sm, in.st);
+              const float* ls = L::stats(sm, in.st);
+              const bool whole = jw0 + 64 <= Sk && i0 + kM <= Sq &&
+                                 (!causal || jw0 + 63 <= i0 ||
+                                  jw0 + 64 <= prefix_len);
+              if (whole) step(qo, ls, i0, std::false_type{});
+              else step(qo, ls, i0, std::true_type{});
+            }
+            mbar_arrive(&empty[in.st]);
+            in.next(L::kStages);
+          }
+        }
+        mbar_arrive(&oempty[out.st]);
+        out.next(2);
 
 #pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int j = jw + 8 * h2;
-    if (j >= Sk) continue;
-    const long long at = row_off(b, Sk, j, KVH, kvh, HD) + (lane & 3) * 2;
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int j = jw0 + r0 + 8 * h2;
+          if (j >= Sk) continue;
+          const long long at = row_off(b, Sk, j, KVH, kvh, HD) + c0;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      *reinterpret_cast<uint32_t*>(dk + at + d * 8) =
-          pack_bf16(dka[d][2 * h2] * scale, dka[d][2 * h2 + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at + d * 8) =
-          pack_bf16(dva[d][2 * h2], dva[d][2 * h2 + 1]);
+          for (int d = 0; d < HD / 8; ++d) {
+            *reinterpret_cast<uint32_t*>(dk + at + d * 8) =
+                pack_bf16(dka[4 * d + 2 * h2] * scale,
+                          dka[4 * d + 2 * h2 + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + at + d * 8) =
+                pack_bf16(dva[4 * d + 2 * h2], dva[4 * d + 2 * h2 + 1]);
+          }
+        }
+      }
     }
   }
 }
 
+// (c): S = Q K^T and dP = dO V^T with the warp's Q and dO rows as A
+// fragments in registers and the K and V tiles as K-major B; dS from
+// those accumulators, rounded to bf16 in registers, as A of dQ += dS K,
+// K read MN-major. Rows are 128
+// queries of one head (64 a warpgroup); the key loop stops at the causal
+// diagonal of the block's last query, or at the prefix.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v,
-           const __nv_bfloat16* __restrict__ dO,
-           const float* __restrict__ lse, const float* __restrict__ D,
-           __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int KVH,
-           int causal, int prefix_len, float scale_log2, float scale) {
-  using bf16 = __nv_bfloat16;
-  using L = MmaBwd<HD>;
-  constexpr int kR = L::kTileRows;
+__global__ void __launch_bounds__(Wg<HD>::kThreads, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const float* __restrict__ lse, const float* __restrict__ D,
+             __nv_bfloat16* __restrict__ dq, int B, int Sq, int Sk, int H,
+             int KVH, int causal, int prefix_len, float scale_log2,
+             float scale) {
+  using L = Wg<HD>;
+  constexpr int kM = L::kOuter, kN = L::kInner;
   extern __shared__ float4 smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* full = init_bars<HD>(sm, 1);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* ofull = empty + L::kStages;
+  uint64_t* oempty = ofull + 2;
   const int G = H / KVH;
-  // as the forward: (b, kvh) fastest, the longest causal row blocks first
-  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
-  const int bh = lin % gridDim.y;
-  const int b = bh / KVH, kvh = bh % KVH;
-  const int rows_total = Sq * G;
-  const int r0 = (gridDim.x - 1 - lin / gridDim.y) * kR;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int last_q = (min(r0 + kR, rows_total) - 1) / G;
-  const int n_keys = causal ? min(Sk, max(last_q + 1, prefix_len)) : Sk;
-  const int n_tiles = (n_keys + kR - 1) / kR;
-
-  // rows (query fr / G, head kvh * G + fr % G)
-  auto q_row = [&](const bf16* base) {
-    return [=](int r) -> const bf16* {
-      const int fr = r0 + r;
-      return fr < rows_total
-                 ? base + row_off(b, Sq, fr / G, H, kvh * G + fr % G, HD)
-                 : nullptr;
-    };
+  const int n_mt = (Sq + kM - 1) / kM, n_pair = (n_mt + 1) / 2;
+  const int items = n_pair * B * H;
+  const int tid = threadIdx.x;
+  // the keys that rows below `end` (and the prefix) see
+  auto keys_below = [&](int end) {
+    return causal ? min(Sk, max(min(end, Sq), prefix_len)) : Sk;
   };
-  copy_tile<HD>(sm, q_row(q), q);
-  copy_tile<HD>(sm + L::kTile, q_row(dO), dO);
-  auto load_kv = [&](int t, int st) {
-    auto kv_row = [&](const bf16* base) {
-      return [=](int r) -> const bf16* {
-        const int j = t * kR + r;
-        return j < n_keys ? base + row_off(b, Sk, j, KVH, kvh, HD) : nullptr;
-      };
-    };
-    copy_tile<HD>(sm + (2 + 2 * st) * L::kTile, kv_row(k), k);
-    copy_tile<HD>(sm + (3 + 2 * st) * L::kTile, kv_row(v), v);
-  };
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
 
-  // this lane's rows: accumulator rows lane / 4 and lane / 4 + 8; each
-  // sees the keys below lim (none past the last row)
-  float lse2[2], Dr[2];
-  int lim[2];
-#pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int fr = r0 + warp * 16 + lane / 4 + 8 * h2;
-    lse2[h2] = Dr[h2] = 0.f;
-    lim[h2] = 0;
-    if (fr < rows_total) {
-      const int qp = fr / G, h = kvh * G + fr % G;
-      const long long at = ((long long)b * H + h) * Sq + qp;
-      lse2[h2] = lse[at] * kLog2e;
-      Dr[h2] = D[at];
-      lim[h2] = causal ? min(n_keys, max(qp + 1, prefix_len)) : n_keys;
-    }
-  }
-  auto row_lim = [&](int fr) {
-    return causal ? min(n_keys, max(fr / G + 1, prefix_len)) : n_keys;
-  };
-  const int n_whole =
-      min(n_tiles, (r0 + kR <= rows_total ? row_lim(r0) : 0) / kR);
-
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[HD / 16][4], of[HD / 16][4];
-  load_a<HD>(qf, sm, warp, lane);
-  load_a<HD>(of, sm + L::kTile, warp, lane);
-  float dqa[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dqa[d][i] = 0.f;
-
-  auto tile = [&](int t, auto kMask) {
-    const int st = t & 1;
-    if (t > 0) {
-      cp_async_wait<0>();   // tile t landed; every warp is done with t - 1
-      __syncthreads();
-    }
-    if (t + 1 < n_tiles) load_kv(t + 1, st ^ 1);
-    cp_async_commit();
-    const bf16* Ks = sm + (2 + 2 * st) * L::kTile;
-    const bf16* Vs = sm + (3 + 2 * st) * L::kTile;
-    float s[8][4], dp[8][4];
-    mma_abt<HD>(s, qf, Ks, lane);      // S: rows x keys
-    mma_abt<HD>(dp, of, Vs, lane);     // dP
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bool ok = true;
-        if constexpr (decltype(kMask)::value)
-          ok = t * kR + nt * 8 + (lane & 3) * 2 + (e & 1) < lim[e >> 1];
-        const float p =
-            ok ? ex2(fmaf(s[nt][e], scale_log2, -lse2[e >> 1])) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - Dr[e >> 1]);
+  if (tid >= L::kConsumers) {   // ---------------------------- producer
+    setmaxnreg_dec<40>();
+    if (tid == L::kConsumers) {
+      Ring in, out;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int p = it % n_pair, bh = it / n_pair;
+        const int b = bh / H, h = bh % H, kvh = h / G;
+        for (int half = 0; half < 2; ++half) {
+          const int m = tile_of(p, n_mt, half);
+          if (m < 0) break;
+          const int i0 = m * kM;
+          mbar_wait(&oempty[out.st], out.ph ^ 1);
+          uint8_t* qo = L::outer(sm, out.st);
+          mbar_expect_tx(&ofull[out.st], 2 * L::kOuterTile);
+          tma_load_4d(qo, &tq, &ofull[out.st], 0, h, i0, b);
+          tma_load_4d(qo + L::kOuterTile, &tdo, &ofull[out.st], 0, h, i0, b);
+          out.next(2);
+          const int n_t = (keys_below(i0 + kM) + kN - 1) / kN;
+          for (int t = 0; t < n_t; ++t) {
+            mbar_wait(&empty[in.st], in.ph ^ 1);
+            uint8_t* kv = L::inner(sm, in.st);
+            mbar_expect_tx(&full[in.st], 2 * L::kInnerTile);
+            tma_load_4d(kv, &tk, &full[in.st], 0, kvh, t * kN, b);
+            tma_load_4d(kv + L::kInnerTile, &tv, &full[in.st], 0, kvh, t * kN,
+                        b);
+            in.next(L::kStages);
+          }
+        }
       }
-    mma_xb<HD>(dqa, dp, Ks, lane);     // dQ += dS K
-  };
-  for (int t = 0; t < n_whole; ++t) tile(t, std::false_type{});
-  for (int t = n_whole; t < n_tiles; ++t) tile(t, std::true_type{});
-  cp_async_wait<0>();
+    }
+  } else {                      // ---------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int r0 = warp * 16 + (lane >> 2);   // accumulator rows r0, r0 + 8
+    const int c0 = (lane & 3) * 2;            // columns 8 j + c0 (+ 1)
+    Ring in, out;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int p = it % n_pair, bh = it / n_pair;
+      const int b = bh / H, h = bh % H;
+      for (int half = 0; half < 2; ++half) {
+        const int m = tile_of(p, n_mt, half);
+        if (m < 0) break;
+        const int i0 = m * kM, iw0 = i0 + wg * 64;   // this warpgroup's rows
+        // this lane's rows: their LSE (times log2 e), D and key limit
+        float lse2[2], Dr[2];
+        int lim[2];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int i = iw0 + r0 + 8 * h2;
+          lse2[h2] = Dr[h2] = 0.f;
+          lim[h2] = 0;
+          if (i < Sq) {
+            const long long at = ((long long)b * H + h) * Sq + i;
+            lse2[h2] = lse[at] * kLog2e;
+            Dr[h2] = D[at];
+            lim[h2] = causal ? min(Sk, max(i + 1, prefix_len)) : Sk;
+          }
+        }
+        // tiles from wg_end on are masked for every row of the warpgroup;
+        // those below whole_end are seen by all of them
+        const int wg_end = iw0 < Sq ? keys_below(iw0 + 64) : 0;
+        const int whole_end = causal ? min(Sk, max(iw0 + 1, prefix_len)) : Sk;
+        const int n_t = (keys_below(i0 + kM) + kN - 1) / kN;
+        mbar_wait(&ofull[out.st], out.ph);
+        const uint8_t* Qs = L::outer(sm, out.st) + wg * 64 * L::kRow;
+        // this warp's 16 rows of Q and dO as A fragments, for the whole tile
+        uint32_t qf[HD / 16][4], of[HD / 16][4];
+        load_a_sw128(qf, Qs, warp, lane);
+        load_a_sw128(of, Qs + L::kOuterTile, warp, lane);
+        float dqa[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+
+        auto step = [&](const uint8_t* kv, int t0, auto kMask) {
+          float s[32], dp[32];
+          const uint64_t kd = desc_k_major(kv);
+          const uint64_t vd = desc_k_major(kv + L::kInnerTile);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_rs<0>(s, qf[kk], kd + 2 * kk, kk);            // S
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_rs<0>(dp, of[kk], vd + 2 * kk, kk);           // dP
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int h2 = (i >> 1) & 1;
+            bool ok = true;
+            if constexpr (decltype(kMask)::value)
+              ok = t0 + 8 * (i / 4) + c0 + (i & 1) < lim[h2];
+            s[i] = ok ? ex2(fmaf(s[i], scale_log2, -lse2[h2])) : 0.f;
+          }
+          wgmma_wait<0>();
+          fence_regs(dp);
+          uint32_t da[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int i = 8 * kk + 2 * r, h2 = r & 1;
+              da[kk][r] = pack_bf16(s[i] * (dp[i] - Dr[h2]),
+                                    s[i + 1] * (dp[i + 1] - Dr[h2]));
+            }
+          const uint64_t kt = desc_mn_major(kv);
+          wgmma_fence();
+          fence_regs(dqa);
+#pragma unroll
+          for (int kk = 0; kk < kN / 16; ++kk)
+            wgmma_rs<1>(dqa, da[kk], kt + 128 * kk, 1);           // dQ += dS K
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dqa);
+          fence_regs(da);
+          fence_regs(qf);   // see load_a_sw128
+          fence_regs(of);
+        };
+
+        for (int t = 0; t < n_t; ++t) {
+          const int t0 = t * kN;
+          mbar_wait(&full[in.st], in.ph);
+          if (t0 < wg_end) {
+            const uint8_t* kv = L::inner(sm, in.st);
+            if (t0 + kN <= whole_end) step(kv, t0, std::false_type{});
+            else step(kv, t0, std::true_type{});
+          }
+          mbar_arrive(&empty[in.st]);
+          in.next(L::kStages);
+        }
+        mbar_arrive(&oempty[out.st]);
+        out.next(2);
 
 #pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int fr = r0 + warp * 16 + lane / 4 + 8 * h2;
-    if (fr >= rows_total) continue;
-    const long long at =
-        row_off(b, Sq, fr / G, H, kvh * G + fr % G, HD) + (lane & 3) * 2;
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int i = iw0 + r0 + 8 * h2;
+          if (i >= Sq) continue;
+          const long long at = row_off(b, Sq, i, H, h, HD) + c0;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<uint32_t*>(dq + at + d * 8) =
-          pack_bf16(dqa[d][2 * h2] * scale, dqa[d][2 * h2 + 1] * scale);
+          for (int d = 0; d < HD / 8; ++d)
+            *reinterpret_cast<uint32_t*>(dq + at + d * 8) =
+                pack_bf16(dqa[4 * d + 2 * h2] * scale,
+                          dqa[4 * d + 2 * h2 + 1] * scale);
+        }
+      }
+    }
   }
 }
 
@@ -648,12 +836,13 @@ int set_smem(Kern kern, size_t bytes) {
 template <typename T, int HD>
 size_t smem_bytes() {
   if constexpr (std::is_same<T, float>::value) return FmaBwd<HD>::bytes;
-  else return MmaBwd<HD>::bytes;
+  else return Wg<HD>::bytes;
 }
 
-template <typename T>
-constexpr int tile_rows() {
-  return std::is_same<T, float>::value ? FmaBwd<64>::kN : MmaBwd<64>::kTileRows;
+// bf16 [B, S, heads, hd] outputs of zeros: the gradient where the other
+// side has no position (Sq = 0 for dK/dV, Sk = 0 for dQ)
+inline int zero(void* p, long long n, cudaStream_t stream) {
+  return (int)cudaMemsetAsync(p, 0, n * sizeof(__nv_bfloat16), stream);
 }
 
 template <typename T, int HD>
@@ -661,9 +850,9 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dO,
                 const float* lse, const float* D, void* dk, void* dv, int B,
                 int Sq, int Sk, int H, int KVH, int causal, int prefix_len,
                 float scale, cudaStream_t stream) {
-  const dim3 grid((Sk + tile_rows<T>() - 1) / tile_rows<T>(), B * KVH);
   const size_t smem = smem_bytes<T, HD>();
   if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid((Sk + FmaBwd<HD>::kN - 1) / FmaBwd<HD>::kN, B * KVH);
     int e = set_smem(bwd_dkdv_fma<HD>, smem);
     if (e) return e;
     bwd_dkdv_fma<HD><<<grid, kThreads, smem, stream>>>(
@@ -672,13 +861,26 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dO,
         static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, KVH,
         causal, prefix_len, scale);
   } else {
-    int e = set_smem(bwd_dkdv_mma<HD>, smem);
+    using L = Wg<HD>;
+    if (Sq == 0) {
+      const long long n = (long long)B * Sk * KVH * HD;
+      const int e = zero(dk, n, stream);
+      return e ? e : zero(dv, n, stream);
+    }
+    CUtensorMap tq, tdo, tk, tv;
+    if (!encode_rows(&tq, q, HD, H, Sq, B, L::kInner) ||
+        !encode_rows(&tdo, dO, HD, H, Sq, B, L::kInner) ||
+        !encode_rows(&tk, k, HD, KVH, Sk, B, L::kOuter) ||
+        !encode_rows(&tv, v, HD, KVH, Sk, B, L::kOuter))
+      return (int)cudaErrorInvalidValue;
+    const int n_kt = (Sk + L::kOuter - 1) / L::kOuter;
+    const int items = (n_kt + 1) / 2 * B * KVH;
+    int e = set_smem(bwd_dkdv_wgmma<HD>, smem);
     if (e) return e;
-    bwd_dkdv_mma<HD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dO), lse, D,
-        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, causal,
-        prefix_len, scale * kLog2e, scale);
+    bwd_dkdv_wgmma<HD><<<std::min(items, sm_count()), L::kThreads, smem,
+                         stream>>>(
+        tq, tdo, tk, tv, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), B,
+        Sq, Sk, H, KVH, causal, prefix_len, scale * kLog2e, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -688,10 +890,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
               const float* lse, const float* D, void* dq, int B, int Sq,
               int Sk, int H, int KVH, int causal, int prefix_len, float scale,
               cudaStream_t stream) {
-  const int rows = Sq * (H / KVH);
-  const dim3 grid((rows + tile_rows<T>() - 1) / tile_rows<T>(), B * KVH);
   const size_t smem = smem_bytes<T, HD>();
   if constexpr (std::is_same<T, float>::value) {
+    const int rows = Sq * (H / KVH);
+    const dim3 grid((rows + FmaBwd<HD>::kN - 1) / FmaBwd<HD>::kN, B * KVH);
     int e = set_smem(bwd_dq_fma<HD>, smem);
     if (e) return e;
     bwd_dq_fma<HD><<<grid, kThreads, smem, stream>>>(
@@ -699,13 +901,22 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
         static_cast<const float*>(v), static_cast<const float*>(dO), lse, D,
         static_cast<float*>(dq), Sq, Sk, H, KVH, causal, prefix_len, scale);
   } else {
-    int e = set_smem(bwd_dq_mma<HD>, smem);
+    using L = Wg<HD>;
+    if (Sk == 0) return zero(dq, (long long)B * Sq * H * HD, stream);
+    CUtensorMap tq, tdo, tk, tv;
+    if (!encode_rows(&tq, q, HD, H, Sq, B, L::kOuter) ||
+        !encode_rows(&tdo, dO, HD, H, Sq, B, L::kOuter) ||
+        !encode_rows(&tk, k, HD, KVH, Sk, B, L::kInner) ||
+        !encode_rows(&tv, v, HD, KVH, Sk, B, L::kInner))
+      return (int)cudaErrorInvalidValue;
+    const int n_mt = (Sq + L::kOuter - 1) / L::kOuter;
+    const int items = (n_mt + 1) / 2 * B * H;
+    int e = set_smem(bwd_dq_wgmma<HD>, smem);
     if (e) return e;
-    bwd_dq_mma<HD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dO), lse, D,
-        static_cast<T*>(dq), Sq, Sk, H, KVH, causal, prefix_len,
-        scale * kLog2e, scale);
+    bwd_dq_wgmma<HD><<<std::min(items, sm_count()), L::kThreads, smem,
+                       stream>>>(
+        tq, tdo, tk, tv, lse, D, static_cast<T*>(dq), B, Sq, Sk, H, KVH,
+        causal, prefix_len, scale * kLog2e, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,278 @@
+// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
+// loads, warpgroup MMA (wgmma m64n64k16, bf16 in, fp32 accumulate) with A
+// fragments in registers and B read through a shared-memory descriptor,
+// setmaxnreg;
+// and, on the host, a TMA tensor map encoded through the driver's entry
+// point (cudaGetDriverEntryPoint: no -lcuda, no new dependency).
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace rt {
+
+// ------------------------------------------------------------ mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// one arrival, made once every cp.async this thread issued has landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` has completed. No wait of a
+// working pipeline lasts a millisecond; one that lasts 4 s is a fault of
+// the pipeline and traps, so it fails the launch instead of hanging the
+// card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (uint32_t spin = 1;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      const uint64_t t = global_ns();
+      if (t0 == 0) t0 = t;
+      else if (t - t0 > 4000000000ull) __trap();
+    }
+  }
+}
+
+// ------------------------------------------------------------ TMA
+
+// the box of a 4-d tensor map at coordinates (c0 innermost .. c3) into
+// shared memory; completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------ wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator (or A
+// fragment) across the asynchronous wgmma that uses it. No memory clobber:
+// shared-memory reads may move past it (the mbarrier waits and arrivals
+// order them), so a step's loads can run while its products do.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]));
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The descriptor of a bf16 tile in shared memory laid out by a TMA load
+// with 128-byte swizzle: rows of 64 elements (128 bytes), 8-row groups of
+// 1024 bytes, the tile 1024-byte aligned. K-major (the reduction runs
+// along the row): LBO unused (1), SBO the 8-row group, 1024 bytes; a
+// k-step of 16 elements adds 32 bytes (2 in the address field).
+// MN-major (the reduction runs down the rows, read through the transpose
+// bit): the 8-row groups along K are 1024 bytes apart, and a 64-wide N
+// is one swizzle atom, so both offsets are 1024 bytes; a k-step of 16
+// rows adds 2048 bytes (128).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo) << 16 | static_cast<uint64_t>(sbo) << 32 |
+         1ull << 62;
+}
+__device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
+  return sw128_desc(tile, 1, 64);
+}
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
+  return sw128_desc(tile, 64, 64);
+}
+
+#define RT_ACC32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define RT_D32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (+)= A . B over k 16: A [64, 16] from registers (the mma.sync m16n8k16
+// A fragment of each warp's 16 rows, as load_a_sw128 gives it, or as an
+// accumulator packs into bf16 pairs: register i of d holds row 16 (warp %
+// 4) + lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i %
+// 2), B [16, 64] in shared memory: K-major (kTransB 0: its 64 rows of n, k
+// contiguous) or MN-major (kTransB 1: its 16 rows of k, n contiguous,
+// read through the transpose bit). `accumulate` 0 overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         uint32_t accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RT_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : RT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// The A fragments (k 0 .. 16 KS) of this warp's 16 rows of a 64-row slice
+// of a 128-byte swizzled tile (the slice 1024-byte aligned), by ldmatrix:
+// row r's 16-byte chunk c lies at chunk c ^ (r % 8). Fragments that feed
+// the wgmma of several loop iterations need fence_regs after each
+// iteration's last wgmma_wait: without it ptxas (CUDA 12.9) takes the
+// registers of a wgmma's A operand as free once the wgmma has run, and
+// the SASS reuses them for the next values packed in the loop.
+template <int KS>
+__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[KS][4],
+                                             const uint8_t* slice, int warp,
+                                             int lane) {
+  const int r = warp * 16 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 2 + (lane >> 4);
+    ldmatrix_x4(a[kk], slice + r * 128 + ((c ^ (r & 7)) << 4));
+  }
+}
+
+#undef RT_D32
+#undef RT_ACC32
+
+// the 1024-byte aligned start of dynamic shared memory (the launch asks
+// for 1024 bytes more than its layout)
+__device__ __forceinline__ uint8_t* align1024(void* p) {
+  return static_cast<uint8_t*>(p) + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// ------------------------------------------------------------ host
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 [B, S, heads, hd] tensor as a 4-d TMA map (hd
+// innermost) read in boxes of `rows` consecutive positions of one head,
+// 128-byte swizzled; positions past S read as zeros. hd * 2 bytes must
+// be one swizzle row (hd 64). False if the map cannot be encoded.
+inline bool encode_rows(CUtensorMap* map, const void* base, int hd, int heads,
+                        int S, int B, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the device's SM count, asked once per device
+inline int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev] > 0 ? count[dev] : 132;
+}
+
+}  // namespace rt

@@ -997,6 +997,21 @@ BWD_SHAPES = [          # B, Sq, Sk, H, KVH, causal, prefix (hd 64)
     (1, 96, 96, 6, 2, True, 0),         # G = 3
     (2, 512, 512, 32, 8, True, 0),
 ]
+# the bf16 backward's tiles (128 keys or query rows a block, 64 a
+# warpgroup, 64 a streamed tile): lengths and prefixes at their edges
+BWD_EDGES = [
+    (1, 127, 127, 8, 2, True, 0),
+    (1, 128, 128, 8, 2, True, 0),
+    (1, 129, 129, 8, 2, True, 0),
+    (1, 300, 300, 8, 2, True, 127),
+    (1, 300, 300, 8, 2, True, 128),
+    (1, 300, 300, 8, 2, True, 129),
+    (1, 300, 300, 8, 2, True, 64),
+    (1, 257, 257, 8, 1, True, 0),       # G = 8
+    (1, 256, 256, 4, 4, True, 0),       # G = 1, whole tiles
+    (1, 129, 127, 8, 2, False, 0),      # non-causal, Sq > Sk
+    (2, 127, 385, 8, 2, False, 0),      # non-causal, Sq < Sk
+]
 
 
 def _bwd_inputs(gen, dtype, B, Sq, Sk, H, KVH, causal, prefix, hd=64):
@@ -1037,7 +1052,8 @@ def test_flash_kernel_lse_of_rows_with_no_key(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix", BWD_SHAPES)
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix",
+                         BWD_SHAPES + BWD_EDGES)
 def test_flash_bwd_kernels_match_plain(gen, dtype, B, Sq, Sk, H, KVH,
                                        causal, prefix):
     """Each backward kernel against ``attention_bwd_ref`` on the same
