@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result line):
   2. build: every CUDA kernel with nvcc, from src/repro_torch/kernels/csrc,
      one nvcc per source, started together; the registers, shared memory
      and spills of the flash attention, expert GEMM, paged extend, WKV6
-     and decode (kernels 2, 3, 4, 4-int8: one body) kernels;
+     and decode (kernels 2, 3, 4, 4-int8: one body) kernels, and of the
+     backward kernels of kernels 1 (hd 64 and 128) and 6;
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes (the paged ones with all-sentinel rows and lengths past
      the table), with its time, the plain version's, one library call's
@@ -107,6 +108,19 @@ Phases (any failure exits non-zero before the result line):
      2 + a checkpoint restored into fresh parameters + 2 gives bitwise
      equal losses and parameters under
      ``torch.use_deterministic_algorithms(True)``.
+  13. moe trainer: phi3.5-moe at its published width, 2 of its 32 layers
+     (a third layer's weights and AdamW state would pass 80 GB), trains 6
+     steps at seq 4096, a global batch of 4 in 4 microbatches: every loss
+     finite and the last below the first, kernel 1 (hd 128, G = 4) and its
+     three backward kernels launched once per layer and microbatch, kernel
+     6 and its dX and dW kernels three times, no plain kernel call; step
+     seconds, tokens/s, peak memory beside its reckoning, the model-FLOP
+     share; a 2-layer fp32 copy's loss and every gradient leaf through the
+     kernels match the plain path's; a 2-layer bf16 copy's gradient leaves
+     lie no further from the fp32 plain path's than GRAD_FACTOR_BF16 times
+     the bf16 plain path's (tokens whose top-2 set differs from the fp32
+     plain path's are counted); two runs of one step from the same state
+     give bitwise-equal parameters.
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
 mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
@@ -119,12 +133,18 @@ LSE and its backward kernels (D, dK/dV, dQ) against their plain versions at
 the training shape, ragged, prefix and non-causal shapes, the edges of the
 bf16 bodies' tiles (lengths and prefixes at 127-129, G = 1 and 8), bf16
 and fp32, their determinism, and their times beside their bounds and
-SDPA's backward; phase 2 prints their registers and spills.
+SDPA's backward (D beside ``torch.linalg.vecdot``); the same at hd 128
+(phi3.5-moe's B 1 x 4096 and qwen3-14b's G = 5 at B 1 x 2048, and the
+hd-128 bodies' 32-position tiles' edges); and kernel 6's backward (dX,
+dW) against its plain version at its fill and tile edges, 160 experts
+top-6 and phi3.5-moe's training microbatch, timed there beside its bound
+and ``torch.bmm``; phase 2 prints their registers and spills.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -238,11 +258,14 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
     against their plain versions (``ref.attention_lse_ref``,
     ``ref.attention_bwd_ref``) at bf16 and fp32: llama3.2-1b's training
     shape (B 2, 4096 tokens, 32 heads over 8, hd 64, causal), ragged
-    small shapes, a prefix and a non-causal case; two backward runs
-    bitwise equal; kernel 1's forward time with the LSE on and off, and
-    each backward kernel's time beside its bound, its plain version's and
-    SDPA's backward. Its own generator, so every other input stays as it
-    was."""
+    small shapes, a prefix and a non-causal case; at hd 128 phi3.5-moe's
+    training shape (B 1, 4096 tokens, 32 heads over 8), qwen3-14b's G = 5
+    (B 1, 2048 tokens, 40 heads over 8) and the hd-128 bodies' tile edges;
+    two backward runs bitwise equal at each width; kernel 1's forward time
+    with the LSE on and off, and each backward kernel's time beside its
+    bound, its plain version's and its library call's (SDPA's backward;
+    for D, ``torch.linalg.vecdot``). Its own generator, so every other
+    input stays as it was."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -251,7 +274,7 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
     H, KVH, hd = 32, 8, 64
 
-    def inputs(B, Sq, Sk, dt, causal, prefix, h=H, kvh=KVH):
+    def inputs(B, Sq, Sk, dt, causal, prefix, h=H, kvh=KVH, hd=hd):
         q, do = (torch.randn((B, Sq, h, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn((B, Sk, kvh, hd), generator=g, device=dev).to(dt)
@@ -285,14 +308,29 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
              (1, 300, 300, True, 129, H, KVH), (1, 300, 300, True, 64, H, KVH),
              (2, 257, 257, True, 0, 8, 8), (2, 257, 257, True, 0, H, 4),
              (1, 129, 127, False, 0, H, KVH), (2, 127, 385, False, 0, H, KVH)]
-    for dtype in ("bfloat16", "float32"):
+    # hd 128: phi3.5-moe's training shape, qwen3-14b's G = 5, and
+    # the hd-128 bf16 bodies' edges (a streamed tile of 32 queries or keys
+    # beside the 128 keys or rows a block)
+    cases128 = [(1, 4096, 4096, True, 0, H, KVH),
+                (1, 2048, 2048, True, 0, 40, 8),
+                (1, 31, 31, True, 0, H, KVH), (1, 33, 33, True, 0, H, KVH),
+                (1, 127, 127, True, 0, H, KVH), (1, 128, 128, True, 0, H, KVH),
+                (1, 129, 129, True, 0, H, KVH),
+                (1, 300, 300, True, 31, H, KVH),
+                (1, 300, 300, True, 64, H, KVH),
+                (1, 300, 300, True, 129, H, KVH), (1, 257, 257, True, 0, 8, 8),
+                (1, 257, 257, True, 0, H, 4), (1, 129, 127, False, 0, H, KVH),
+                (1, 127, 385, False, 0, H, KVH)]
+    for dtype, (hd_, case_list) in ((d, c) for c in ((hd, cases),
+                                                     (128, cases128))
+                                    for d in ("bfloat16", "float32")):
         dt = getattr(torch, dtype)
-        for B, Sq, Sk, causal, prefix, h, kvh in cases:
-            case = (f"{dtype} B={B} Sq={Sq} Sk={Sk} H={h} KVH={kvh} hd={hd} "
+        for B, Sq, Sk, causal, prefix, h, kvh in case_list:
+            case = (f"{dtype} B={B} Sq={Sq} Sk={Sk} H={h} KVH={kvh} hd={hd_} "
                     f"{'causal' if causal else 'non-causal'} prefix={prefix}")
             kw = dict(causal=causal, prefix_len=prefix)
             q, k, v, o, lse, do = inputs(B, Sq, Sk, dt, causal, prefix, h,
-                                         kvh)
+                                         kvh, hd_)
             check(torch.equal(o, FA.flash_attention(q, k, v, **kw)),
                   f"flash_attention {case}: the LSE changed the output")
             o_want, lse_want = ref.attention_lse_ref(q, k, v, **kw)
@@ -327,14 +365,16 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
             torch.cuda.empty_cache()
 
     bf = torch.bfloat16
+    for Bd, hd_ in ((1, 128), (2, hd)):
+        q, k, v, o, lse, do = inputs(Bd, 4096, 4096, bf, True, 0, hd=hd_)
+        runs = [FA.flash_attention_bwd(q, k, v, o, lse, do) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"flash_attention_bwd hd={hd_}: two runs differ")
+        print(f"  flash_attention_bwd bf16 B={Bd} S=4096 hd={hd_}: two runs "
+              f"bitwise equal (dq, dk, dv)")
+        del runs, q, k, v, o, lse, do
     B, S = 2, 4096
     q, k, v, o, lse, do = inputs(B, S, S, bf, True, 0)
-    runs = [FA.flash_attention_bwd(q, k, v, o, lse, do) for _ in range(2)]
-    check(all(torch.equal(a, b) for a, b in zip(*runs)),
-          "flash_attention_bwd: two runs differ")
-    print(f"  flash_attention_bwd bf16 B={B} S={S}: two runs bitwise equal "
-          f"(dq, dk, dv)")
-    del runs
 
     print("[kernels] times at the training shape (bf16, CUDA events, "
           "median of 30, L2 flushed; plain median of 5)")
@@ -368,56 +408,192 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
             shape=f"bf16 B={Bf} Sq=Sk={Sf} H={H} KVH={KVH} hd={hd} causal, "
                   f"with the LSE output"))
         del qt, kt, vt
-    n = q.numel()
-    half = B * H * hd * S * (S + 1) / 2          # the causal half's MACs
-    stats = 2 * 4 * B * H * S                    # lse and D, fp32
-    D = FA.flash_attention_bwd_dot(o, do)
-    timed = {
-        "flash_attention_bwd_dot": (
-            lambda: FA.flash_attention_bwd_dot(o, do),
-            lambda: (o.float() * do.float()).sum(-1).transpose(1, 2),
-            2 * 2 * n + 4 * B * H * S, 2.0 * n),
-        "flash_attention_bwd_dkdv": (
-            lambda: FA.flash_attention_bwd_dkdv(q, k, v, do, lse, D),
-            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do),
-            2 * (2 * n + 4 * k.numel()) + stats, 4 * 2 * half),
-        "flash_attention_bwd_dq": (
-            lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, D),
-            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do),
-            2 * (3 * n + 2 * k.numel()) + stats, 3 * 2 * half)}
-    # SDPA's whole backward (dQ, dK and dV) at the same shape: the
-    # library row of the dK/dV kernel, a yardstick the port never calls
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
-    dot = do.transpose(1, 2)
-    lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                              retain_graph=True), flush)
-    total = 0.0
-    for name, (fn, plain_fn, nbytes, flops) in timed.items():
-        ms = time_ms(fn, flush)
-        plain = time_ms(plain_fn, flush, reps=5)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        total += ms
-        library = lib if name == "flash_attention_bwd_dkdv" else None
-        print(f"  {name} B={B} S={S}: kernel {ms:.4f} ms, plain {plain:.4f}"
-              f", bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound"
-              + (f", library (SDPA's whole backward, enable_gqa=True) "
-                 f"{lib:.4f}"
-                 if library else ""))
-        rows[name].update(ms=ms, plain_ms=plain, library_ms=library,
-                          bound_ms=b_ms, bound_by=b_by,
-                          shape=f"bf16 B={B} Sq=Sk={S} H={H} KVH={KVH} "
-                                f"hd={hd} causal")
-    whole, whole_by = bound(2 * (4 * n + 4 * k.numel()) + stats, 5 * 2 * half,
-                            BF16_FLOP_PER_S)
-    print(f"  the whole backward (D + dK/dV + dQ) {total:.4f} ms, bound "
-          f"{whole:.5f} ({whole_by}: 5 causal-half matmuls) -> "
-          f"{whole / total:.1%}; SDPA's backward {lib:.4f} ms, kernels / "
-          f"library {total / lib:.2f}")
-    del q, k, v, o, lse, do, D, qt, kt, vt, out, dot
-    torch.cuda.empty_cache()
+    # each backward kernel at llama3.2-1b's training shape (the table's
+    # row), then at hd 128: phi3.5-moe's (B 1 x 4096, 32 heads over 8) and
+    # qwen3-14b's G = 5 (B 1 x 2048, 40 heads over 8)
+    for Bt, St, Ht, KVHt, hdt in ((B, S, H, KVH, hd), (1, 4096, H, KVH, 128),
+                                  (1, 2048, 40, 8, 128)):
+        if hdt != hd:
+            q, k, v, o, lse, do = inputs(Bt, St, St, bf, True, 0, Ht, KVHt,
+                                         hdt)
+        shape = (f"bf16 B={Bt} Sq=Sk={St} H={Ht} KVH={KVHt} hd={hdt} "
+                 f"causal")
+        n = q.numel()
+        half = Bt * Ht * hdt * St * (St + 1) / 2     # the causal half's MACs
+        stats = 2 * 4 * Bt * Ht * St                 # lse and D, fp32
+        D = FA.flash_attention_bwd_dot(o, do)
+        # SDPA's whole backward (dQ, dK and dV) at the same shape: the
+        # library row of the dK/dV kernel; vecdot reads o and dO and
+        # reduces over hd, as D: the library row of (a). Yardsticks the
+        # port never calls
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                  retain_graph=True), flush)
+        timed = {
+            "flash_attention_bwd_dot": (
+                lambda: FA.flash_attention_bwd_dot(o, do),
+                lambda: (o.float() * do.float()).sum(-1).transpose(1, 2),
+                lambda: torch.linalg.vecdot(o, do, dim=-1),
+                2 * 2 * n + 4 * Bt * Ht * St, 2.0 * n),
+            "flash_attention_bwd_dkdv": (
+                lambda: FA.flash_attention_bwd_dkdv(q, k, v, do, lse, D),
+                lambda: ref.attention_bwd_ref(q, k, v, o, lse, do), None,
+                2 * (2 * n + 4 * k.numel()) + stats, 4 * 2 * half),
+            "flash_attention_bwd_dq": (
+                lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, D),
+                lambda: ref.attention_bwd_ref(q, k, v, o, lse, do), None,
+                2 * (3 * n + 2 * k.numel()) + stats, 3 * 2 * half)}
+        total = 0.0
+        for name, (fn, plain_fn, lib_fn, nbytes, flops) in timed.items():
+            ms = time_ms(fn, flush)
+            plain = time_ms(plain_fn, flush, reps=5)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            total += ms
+            library = (time_ms(lib_fn, flush) if lib_fn
+                       else lib if name == "flash_attention_bwd_dkdv"
+                       else None)
+            what = ("torch.linalg.vecdot(o, do, dim=-1)" if lib_fn
+                    else "SDPA's whole backward, enable_gqa=True")
+            print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain:.4f}"
+                  f", bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound"
+                  + (f", library ({what}) {library:.4f}" if library else ""))
+            entry = dict(ms=ms, plain_ms=plain, library_ms=library,
+                         bound_ms=b_ms, bound_by=b_by, shape=shape)
+            if hdt == hd:
+                rows[name].update(entry)
+            else:
+                extra_shapes.setdefault(name, []).append(entry)
+        whole, whole_by = bound(2 * (4 * n + 4 * k.numel()) + stats,
+                                5 * 2 * half, BF16_FLOP_PER_S)
+        print(f"  the whole backward (D + dK/dV + dQ) at {shape}: "
+              f"{total:.4f} ms, bound {whole:.5f} ({whole_by}: 5 causal-half "
+              f"matmuls) -> {whole / total:.1%}; SDPA's backward {lib:.4f} "
+              f"ms, kernels / library {total / lib:.2f}")
+        del q, k, v, o, lse, do, D, qt, kt, vt, out, dot
+        torch.cuda.empty_cache()
+
+
+def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
+    """Phase 3: kernel 6's backward (dX and dW) against its plain version
+    (``ref.expert_matmul_bwd_ref``) at bf16 and fp32, by element and by
+    relative norm: fill 0, 1, ragged and C, D and F not multiples of 8, C
+    at the bf16 body's 128-row tile and either side, 160 experts top-6;
+    then at phi3.5-moe's training microbatch (E 16, C = T = 4096, top-2
+    fills from a seeded routing, D 4096, F 6400), gate/up and down, bf16:
+    two runs bitwise equal and each kernel's time beside its bound, the
+    plain version's (dX and dW together) and ``torch.bmm`` over every
+    row. Its own generator, so every other input stays as it was."""
+    import torch
+    from repro_torch.kernels import expert_matmul as EM
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    bf = torch.bfloat16
+
+    def routed_fill(E, T, k):
+        idx = torch.topk(torch.rand((T, E), generator=g, device=dev), k,
+                         dim=-1).indices
+        return torch.bincount(idx.reshape(-1), minlength=E).to(torch.int32)
+
+    def inputs(E, C, D, F, fill, dt):
+        xe = torch.randn((E, C, D), generator=g, device=dev).to(dt)
+        w = (torch.randn((E, D, F), generator=g, device=dev)
+             / D ** 0.5).to(dt)
+        dy = torch.randn((E, C, F), generator=g, device=dev).to(dt)
+        f = torch.tensor(fill, dtype=torch.int32, device=dev) if isinstance(
+            fill, list) else fill
+        return xe, w, f, dy
+
+    def check_pair(xe, w, f, dy, dtype, case):
+        dxe = EM.expert_matmul_bwd_dx(dy, w, f)
+        dw = EM.expert_matmul_bwd_dw(xe, dy, f)
+        want = ref.expert_matmul_bwd_ref(xe, w, f, dy)
+        C = xe.shape[1]
+        rows_past = torch.arange(C, device=dev)[None, :] >= f[:, None]
+        check(not dxe[rows_past].any(), f"expert_matmul_bwd_dx {case}: rows "
+              "past fill are not zero")
+        check(not dw[f == 0].any(), f"expert_matmul_bwd_dw {case}: an empty "
+              "expert's dw is not zero")
+        for name, got, wt in (("expert_matmul_bwd_dx", dxe, want[0]),
+                              ("expert_matmul_bwd_dw", dw, want[1])):
+            compare(name, got, wt, dtype, case)
+            if wt.any():
+                e = ((got.float() - wt.float()).norm()
+                     / wt.float().norm()).item()
+                check(e <= BWD_REL_NORM[dtype], f"{name} {case}: ||kernel - "
+                      f"plain|| / ||plain|| {e:.3g} over "
+                      f"{BWD_REL_NORM[dtype]}")
+                print(f"  {name} {case}: ||kernel - plain|| / ||plain|| "
+                      f"{e:.3g} (bound {BWD_REL_NORM[dtype]})")
+
+    print("[kernels] expert_matmul_bwd_dx / _dw vs expert_matmul_bwd_ref")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for E, C, D, F_, fill in (
+                (16, 128, 512, 640, [0, 1, 128, 64, 127, 2, 0, 100, 5, 128,
+                                     33, 1, 0, 77, 128, 9]),
+                (4, 127, 203, 300, [0, 1, 64, 127]),
+                (4, 129, 256, 384, [0, 1, 129, 100]),
+                (2, 64, 64, 64, [0, 0]),
+                (160, 48, 512, 384, routed_fill(160, 8, 6))):
+            xe, w, f, dy = inputs(E, C, D, F_, fill, dt)
+            check_pair(xe, w, f, dy, dtype,
+                       f"{dtype} E={E} C={C} D={D} F={F_} fill={f.tolist()}")
+            del xe, w, dy
+
+    E, T, D, F_ = 16, 4096, 4096, 6400
+    fill = routed_fill(E, T, 2)
+    live, live_e = int(fill.sum()), int((fill > 0).sum())
+    print(f"[kernels] kernel 6's backward at phi3.5-moe's training "
+          f"microbatch: E={E} C=T={T} top-2 fill {fill.tolist()} (bf16; "
+          f"times by CUDA events, median of 30, L2 flushed; plain median of "
+          f"5)")
+    for label, Din, Dout in (("gate/up", D, F_), ("down", F_, D)):
+        xe, w, f, dy = inputs(E, T, Din, Dout, fill, bf)
+        rows_past = torch.arange(T, device=dev)[None, :] >= f[:, None]
+        xe[rows_past] = 0          # as the buckets hold them
+        dy[rows_past] = 0
+        case = (f"bfloat16 E={E} C=T={T} D={Din} F={Dout} top-2 ({live} "
+                f"live rows, {live_e} experts) {label}")
+        check_pair(xe, w, f, dy, "bfloat16", case)
+        for fn, args in ((EM.expert_matmul_bwd_dx, (dy, w, f)),
+                         (EM.expert_matmul_bwd_dw, (xe, dy, f))):
+            check(torch.equal(fn(*args), fn(*args)),
+                  f"{fn.__name__} {case}: two runs differ")
+        print(f"  expert_matmul_bwd_dx / _dw {case}: two runs bitwise equal")
+        plain = time_ms(lambda: ref.expert_matmul_bwd_ref(xe, w, f, dy),
+                        flush, reps=5)
+        flops = 2.0 * live * Din * Dout
+        for name, fn, lib_fn, nbytes in (
+                ("expert_matmul_bwd_dx",
+                 lambda: EM.expert_matmul_bwd_dx(dy, w, f),
+                 lambda: torch.bmm(dy, w.transpose(1, 2)),
+                 # live rows of dy, live experts' w, the whole output
+                 2 * (live * Dout + live_e * Din * Dout + E * T * Din)),
+                ("expert_matmul_bwd_dw",
+                 lambda: EM.expert_matmul_bwd_dw(xe, dy, f),
+                 lambda: torch.bmm(xe.transpose(1, 2), dy),
+                 # live rows of xe and dy, the whole output
+                 2 * (live * (Din + Dout) + E * Din * Dout))):
+            ms = time_ms(fn, flush)
+            lib = time_ms(lib_fn, flush)
+            b_ms, b_by = bound(nbytes + 4 * E, flops, BF16_FLOP_PER_S)
+            print(f"  {name} {label}: kernel {ms:.4f} ms, plain (dX and dW) "
+                  f"{plain:.4f}, library (bmm, every row) {lib:.4f}, bound "
+                  f"{b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound, kernel "
+                  f"/ library {ms / lib:.2f}")
+            entry = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, shape=case)
+            if label == "gate/up":
+                rows[name].update(entry)
+            else:
+                extra_shapes.setdefault(name, []).append(entry)
+        del xe, w, dy
+        torch.cuda.empty_cache()
 
 
 def trainer(dev, smi) -> dict:
@@ -629,6 +805,259 @@ def trainer(dev, smi) -> dict:
                                      "flash_attention_bwd_dq")}
 
 
+def moe_trainer(dev, smi) -> dict:
+    """Phase 13: phi3.5-moe at its published width, 2 of its 32 layers,
+    trains 6 steps (the main run); a 2-layer fp32 copy's gradient is held
+    against the plain path, a 2-layer bf16 copy's against the fp32 plain
+    path beside the bf16 plain path's, and two runs of one step from the
+    same state give bitwise-equal parameters. Returns the main run's
+    launches of kernel 6's backward kernels."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import expert_matmul as EM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import full_width_config
+    from repro_torch.launch.train import FULL_WIDTH_LR, train_loop
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.api import build as build_model
+    from repro_torch.training import AdamW, make_train_step
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+
+    arch = "phi3.5-moe-42b-a6.6b"
+    # 2 of 32 layers: a layer's weights and optimizer state take 20.8 GB
+    # (1.300 B parameters at 16 bytes), a third would pass 80 GB
+    L, steps, B, S, nm = 2, 6, 4, 4096, 4
+    cfg = full_width_config(arch, L)
+    attn = (FA.flash_attention, FA.flash_attention_bwd_dot,
+            FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    experts = (EM.expert_matmul, EM.expert_matmul_bwd_dx,
+               EM.expert_matmul_bwd_dw)
+    kernels = attn + experts
+    names = ("attention_ref", "attention_lse_ref", "attention_bwd_ref",
+             "expert_matmul_ref", "expert_matmul_bwd_ref")
+    # earlier phases' engines and caches may sit in reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe-train] device memory allocated before the run: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    plain = {n: getattr(ref, n) for n in names}
+    plain_calls = []
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            plain_calls.append(name)
+            return fn(*a, **kw)
+        return call
+
+    torch.cuda.empty_cache()
+    for name, fn in plain.items():
+        setattr(ref, name, counted(name, fn))
+    reset(*kernels)
+    try:
+        out = train_loop(arch=arch, steps=steps, global_batch=B, seq_len=S,
+                         num_microbatches=nm, device="cuda", num_layers=L,
+                         seed=SEED, log_every=0)
+    finally:
+        for name, fn in plain.items():
+            setattr(ref, name, fn)
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernels}
+    check(out["cfg"] == cfg, f"moe trainer: not {arch} at its published "
+          f"width and {L} layers")
+    check(out["lr"] == FULL_WIDTH_LR, f"moe trainer: lr {out['lr']}")
+    want = {k.__name__: (1 if k in attn else 3) * L * nm * steps
+            for k in kernels}
+    check(launched == want, f"moe trainer: launches {launched}, want {want} "
+          f"(one attention call and 3 expert GEMMs a layer and microbatch)")
+    check(not plain_calls, f"moe trainer: plain kernels on the card's path: "
+          f"{sorted(set(plain_calls))}")
+    losses = out["losses"]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"moe trainer: losses {losses}")
+    tokens = B * S
+    torch.cuda.empty_cache()
+    # the parameters the later checks start from (the main run's draw);
+    # active parameters a token: every weight but the embedding table (a
+    # lookup), each expert stack at k / E of its size
+    params = build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    k_e = cfg.experts_per_token / cfg.num_experts
+    active = sum(t.numel() * (k_e if path[-1] in ("w_gate", "w_up", "w_down")
+                              and "moe" in path else 1)
+                 for path, t in flatten_with_path(params)
+                 if path != ("embed", "embed"))
+    # model FLOPs a step: 6 N_active a token for the weights' products,
+    # forward and backward, plus 6 L S H hd a token for causal attention's
+    # QK^T and PV (half of 12 L S H hd), forward and backward
+    flop = tokens * (6 * active + 6 * L * S * cfg.num_heads
+                     * cfg.resolved_head_dim)
+    steady = statistics.median(out["step_seconds"][1:])
+    n_params = out["params"]
+    print(f"[moe-train] {arch} at its published width, {L} of its 32 "
+          f"layers (d {cfg.d_model}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, {cfg.num_experts}"
+          f" experts top-{cfg.experts_per_token} of F {cfg.resolved_moe_d_ff},"
+          f" vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params, "
+          f"{active / 1e9:.3f} B active a token, bf16), seq {S}, global "
+          f"batch {B} in {nm} microbatches ({tokens} tokens a step), AdamW lr "
+          f"{out['lr']} under default_schedule({steps}, warmup=1), {steps} "
+          f"steps")
+    print(f"[moe-train] memory reckoning: {n_params / 1e9:.3f} B params x 16 "
+          f"bytes (bf16 params and grads, the fp32 accumulator, fp32 mu/nu) "
+          f"= {16 * n_params / 1e9:.1f} GB; activations ~3.9 GB a layer "
+          f"(the C = T buckets autograd keeps: xe 0.54 GB, gate, up, silu "
+          f"and their product 0.84 GB each), logits and their fp32 loss "
+          f"~1.3 GB: ~{16 * n_params / 1e9 + 3.9 * L + 1.3:.0f} GB; measured "
+          f"peak {out['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[moe-train] losses {[round(x, 4) for x in losses]}")
+    step_s = [round(x, 3) for x in out["step_seconds"]]
+    print(f"[moe-train] step seconds {step_s}; median of steps 2-{steps} "
+          f"{steady:.3f} s, {tokens / steady:.0f} tokens/s; peak memory "
+          f"{out['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[moe-train] model FLOP share: tokens x (6 N_active + 6 L S H hd) "
+          f"= {flop:.4g} FLOP a step / {steady:.3f} s / 989 TFLOP/s = "
+          f"{flop / steady / BF16_FLOP_PER_S:.1%}")
+    print(f"[moe-train] launches {launched} (a step: "
+          f"{ {k: v // steps for k, v in launched.items()} }); plain kernel "
+          f"calls 0")
+    del out
+    torch.cuda.empty_cache()
+
+    # routing of each path's layers, recorded by wrapping _route: how many
+    # tokens pick another top-2 set than the fp32 plain path's
+    routes = []
+    route = MOE._route
+
+    def recording(*a, **kw):
+        w_, idx, aux = route(*a, **kw)
+        routes.append(idx.sort(dim=-1).values)
+        return w_, idx, aux
+
+    def routed(fn, *a):
+        routes.clear()
+        MOE._route = recording
+        try:
+            got = fn(*a)
+        finally:
+            MOE._route = route
+        return got, list(routes)
+
+    def flips(ra, rb):
+        return sum(int((a != b).any(-1).sum()) for a, b in zip(ra, rb))
+
+    # the kernel path's gradient against the plain path's: 2 layers at
+    # full width, fp32 (the FMA bodies of kernels 1 and 6 and their
+    # backward kernels)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = build_model(cfg32).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = SyntheticLM(vocab_size=cfg32.vocab_size, seq_len=256,
+                        global_batch=2, seed=SEED).batch(0, dev)
+    reset(*kernels)
+    (loss, grads), r_k = routed(value_and_grad, build_model(cfg32).loss_fn,
+                                p32, batch)
+    n_k = [k.launches for k in kernels]
+    check(n_k == [L] * 4 + [3 * L] * 3, f"moe trainer fp32: launches {n_k}")
+    (loss_p, grads_p), r_p = routed(value_and_grad, build_model(
+        cfg32, reference=True).loss_fn, p32, batch)
+    check([k.launches for k in kernels] == n_k,
+          "moe trainer fp32: the plain path launched a kernel")
+    rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+           for a, b in zip(leaves(grads), leaves(grads_p))]
+    loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"[moe-train] 2-layer fp32 copy at full width, seq 256, B 2: loss "
+          f"{loss.item():.6f} vs plain {loss_p.item():.6f} (rel "
+          f"{loss_rel:.2e}); {len(rel)} gradient leaves, largest |kernel - "
+          f"plain| / max |plain| {max(rel):.2e} (bound {GRAD_REL_BOUND}); "
+          f"tokens routed to another top-2 set than the plain path's: "
+          f"{flips(r_k, r_p)} of {sum(len(r) for r in r_p)}")
+    check(loss_rel <= GRAD_REL_BOUND and max(rel) <= GRAD_REL_BOUND,
+          f"moe trainer fp32: loss rel {loss_rel:.3g}, worst leaf "
+          f"{max(rel):.3g} (bound {GRAD_REL_BOUND})")
+    del p32, grads, grads_p
+    torch.cuda.empty_cache()
+
+    # the same at bf16, through the kernels' tensor-core bodies: 2 layers
+    # at full width, seq 1024, B 2; each gradient leaf's distance from the
+    # fp32 plain path's (the same parameters, upcast), through the kernels
+    # against the bf16 plain path's own
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=1024,
+                        global_batch=2, seed=SEED).batch(0, dev)
+    reset(*kernels)
+    (loss_k, g_k), r_k = routed(value_and_grad, build_model(cfg).loss_fn,
+                                params, batch)
+    check([k.launches for k in kernels] == n_k,
+          f"moe trainer bf16: launches {[k.launches for k in kernels]}")
+    (loss_p, g_p), r_p = routed(value_and_grad, build_model(
+        cfg, reference=True).loss_fn, params, batch)
+    params32 = tree_map(lambda t: t.float(), params)
+    (loss_32, g_32), r_32 = routed(value_and_grad, build_model(
+        cfg32, reference=True).loss_fn, params32, batch)
+    del params32
+    check([k.launches for k in kernels] == n_k,
+          "moe trainer bf16: the plain path launched a kernel")
+
+    def dist(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp(min=1e-30)).item()
+
+    e_k = [dist(a, c) for a, c in zip(leaves(g_k), leaves(g_32))]
+    e_p = [dist(b, c) for b, c in zip(leaves(g_p), leaves(g_32))]
+    kp = max(dist(a, b) for a, b in zip(leaves(g_k), leaves(g_p)))
+    ratio = max(a / b for a, b in zip(e_k, e_p))
+    worst = max(range(len(e_k)), key=lambda i: e_k[i] / e_p[i])
+    n_tok = sum(len(r) for r in r_32)
+    print(f"[moe-train] 2-layer bf16 copy at full width, seq 1024, B 2: loss "
+          f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, fp32 plain "
+          f"{loss_32.item():.6f}; over {len(e_k)} gradient leaves ||g - "
+          f"g_fp32|| / ||g_fp32|| at most {max(e_k):.3e} through the "
+          f"kernels and {max(e_p):.3e} through the plain path, worst leaf's "
+          f"ratio {ratio:.3f} (leaf {worst}: {e_k[worst]:.3e} vs "
+          f"{e_p[worst]:.3e}; bound {GRAD_FACTOR_BF16}); kernels vs plain at "
+          f"most {kp:.3e}; tokens (x layers) routed to another top-2 set "
+          f"than the fp32 plain path's: {flips(r_k, r_32)} through the "
+          f"kernels, {flips(r_p, r_32)} through the bf16 plain path, of "
+          f"{n_tok}")
+    check(math.isfinite(loss_k.item()) and ratio <= GRAD_FACTOR_BF16,
+          f"moe trainer bf16: loss {loss_k.item()}; worst leaf's distance "
+          f"from fp32 through the kernels / the plain path's {ratio:.3g} "
+          f"(bound {GRAD_FACTOR_BF16})")
+    del g_k, g_p, g_32
+    torch.cuda.empty_cache()
+
+    # two runs of one step (one microbatch) from the same parameters and a
+    # fresh optimizer state: bitwise-equal parameters. The hand-written
+    # kernels use no atomics; deterministic algorithms pin PyTorch's own
+    # (cuBLAS, the scatter and gather backwards)
+    opt = AdamW(lr=FULL_WIDTH_LR)
+    step = make_train_step(build_model(cfg).loss_fn, opt)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            p_, _, m_ = step(params, opt.init(params), batch)
+            runs.append((p_, m_["loss"].item()))
+            del p_, m_
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(runs[0][0]),
+                                                 leaves(runs[1][0])))
+    check(same and runs[0][1] == runs[1][1],
+          f"moe trainer: two runs of one step differ (losses "
+          f"{runs[0][1]}, {runs[1][1]}; parameters equal: {same})")
+    print(f"[moe-train] two runs of one step (2-layer bf16 at full width, "
+          f"seq 1024, B 2, deterministic algorithms) from the same state: "
+          f"losses {runs[0][1]} and {runs[1][1]}, parameters bitwise equal")
+    print(f"[moe-train] card: {smi}")
+    del params, runs
+    torch.cuda.empty_cache()
+    return {k: launched[k] for k in ("expert_matmul_bwd_dx",
+                                     "expert_matmul_bwd_dw")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -643,7 +1072,9 @@ def main() -> int:
     from repro_torch.kernels.decode_attention_int8 import (
         decode_attention_int8)
     from repro_torch.kernels.expert_matmul import (
-        expert_matmul, smem_bytes as expert_smem_bytes)
+        bwd_smem_bytes as expert_bwd_smem_bytes, expert_matmul,
+        expert_matmul_bwd_dw, expert_matmul_bwd_dx,
+        smem_bytes as expert_smem_bytes)
     from repro_torch.kernels.flash_attention import (
         bwd_smem_bytes, flash_attention, flash_attention_bwd_dkdv,
         flash_attention_bwd_dot, flash_attention_bwd_dq,
@@ -670,7 +1101,7 @@ def main() -> int:
         paged_decode_attention, paged_decode_attention_int8,
         paged_extend_attention, expert_matmul, wkv6,
         flash_attention_bwd_dot, flash_attention_bwd_dkdv,
-        flash_attention_bwd_dq)}
+        flash_attention_bwd_dq, expert_matmul_bwd_dx, expert_matmul_bwd_dw)}
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -688,7 +1119,7 @@ def main() -> int:
     logs = build.build(["flash_attention", "decode_attention",
                         "decode_attention_int8", "paged_decode_attention",
                         "paged_extend_attention", "expert_matmul", "wkv6",
-                        "flash_attention_bwd"])
+                        "flash_attention_bwd", "expert_matmul_bwd"])
     print(f"[build] {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -742,9 +1173,13 @@ def main() -> int:
             # setmaxnreg the two consumer warpgroups hold 232 and the
             # producer's 40
             "flash_attention_bwd": [
-                (f"{dt} hd=64 dK/dV and dQ", bwd_smem_bytes(getattr(torch, dt),
-                                                            64))
-                for dt in ("bfloat16", "float32")]}
+                (f"{dt} hd={hd} dK/dV and dQ",
+                 bwd_smem_bytes(getattr(torch, dt), hd))
+                for dt in ("bfloat16", "float32") for hd in (64, 128)],
+            # kernel 6's backward: the bf16 bodies' rings (fp32: static)
+            "expert_matmul_bwd": [
+                (f"bfloat16 {what}", expert_bwd_smem_bytes(torch.bfloat16, dw))
+                for what, dw in (("dX", False), ("dW", True))]}
     # decode_split_fwd's mangled arguments: q type, cache type, hd, paged
     mangled = {"13__nv_bfloat16": "bf16", "f": "fp32", "a": "int8"}
 
@@ -756,12 +1191,21 @@ def main() -> int:
         return (f"{mangled[q_t]}, {mangled.get(c_t, mangled[q_t])}, {hd_}, "
                 f"{'paged' if paged == '1' else 'dense'}")
 
+    # expert_bwd_mma's mangled arguments: the tile, dW or dX, vector or
+    # scalar copies
+    def expert_bwd_args(m):
+        hit = re.search(r"ELb([01])ELb([01])E$", m)
+        return m if not hit else (f"{'dW' if hit[1] == '1' else 'dX'}, "
+                                  f"{'16-byte' if hit[2] == '1' else 'scalar'}"
+                                  f" copies")
+
     # kernel 1 with its LSE output is the same instantiation (a pointer
     # argument, null when serving): its flash_fwd_mma<64, 64, 1> line is
     # the training forward's
     for name in ("flash_attention", "expert_matmul", "paged_extend_attention",
                  "wkv6", "decode_attention", "decode_attention_int8",
-                 "paged_decode_attention", "flash_attention_bwd"):
+                 "paged_decode_attention", "flash_attention_bwd",
+                 "expert_matmul_bwd"):
         fn, spill = None, ""
         for line in logs.get(name, "").splitlines():
             if "Compiling entry function" in line:   # mangled template
@@ -769,10 +1213,13 @@ def main() -> int:
                               r"expert_gemm|paged_extend_fwd_mma|"
                               r"paged_extend_fwd|wkv6_chunked|"
                               r"decode_split_fwd|bwd_dkdv_wgmma|bwd_dq_wgmma|"
-                              r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot)I(.*?)EEv",
+                              r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot|"
+                              r"expert_bwd_mma|expert_bwd_fma)I(.*?)EEv",
                               line)
                 fn = (None if not m else f"{m[1]}<{decode_args(m[2])}>"
-                      if m[1] == "decode_split_fwd" else f"{m[1]}<{m[2]}>")
+                      if m[1] == "decode_split_fwd" else
+                      f"{m[1]}<{expert_bwd_args(m[2])}>"
+                      if m[1] == "expert_bwd_mma" else f"{m[1]}<{m[2]}>")
                 fn = fn or line.split("'")[1]
             elif "spill stores" in line:
                 spill = line.strip()
@@ -1727,6 +2174,7 @@ def main() -> int:
         del a
     torch.cuda.empty_cache()
     backward_kernels(dev, flush, compare, rows, extra_shapes)
+    expert_backward_kernels(dev, flush, compare, rows, extra_shapes)
     del l2
     torch.cuda.empty_cache()
 
@@ -3091,15 +3539,21 @@ def main() -> int:
     # -------------------------------------------------------- 12. trainer
     launches.update(trainer(dev, smi))
 
+    # ---------------------------------------------------- 13. moe trainer
+    launches.update(moe_trainer(dev, smi))
+
     # ---------------------------------------------------------- report
     # the backward kernels replace no TPU kernel (the reference takes
     # attention's gradient from XLA): each names kernel 1, whose backward
     # it is
     port_only = {"flash_attention_bwd_dot", "flash_attention_bwd_dkdv",
                  "flash_attention_bwd_dq"}
+    expert_bwd = {"expert_matmul_bwd_dx", "expert_matmul_bwd_dw"}
     src = {"flash_attention": ("flash_attention.py:96", "flash_attention"),
            **{k: ("flash_attention.py:96", "flash_attention")
               for k in port_only},
+           **{k: ("grouped_matmul.py:56", "expert_matmul")
+              for k in expert_bwd},
            "decode_attention": ("decode_attention.py:92", "decode_attention"),
            "decode_attention_int8": ("decode_attention.py:139",
                                      "decode_attention_int8"),
@@ -3112,7 +3566,8 @@ def main() -> int:
            "expert_matmul": ("grouped_matmul.py:56", "expert_matmul"),
            "wkv6": ("wkv6.py:74", "wkv6")}
     csrc = {"paged_decode_attention_int8": "paged_decode_attention",
-            **{k: "flash_attention_bwd" for k in port_only}}
+            **{k: "flash_attention_bwd" for k in port_only},
+            **{k: "expert_matmul_bwd" for k in expert_bwd}}
     table = []
     for name, r in rows.items():
         tpu_line, fn = src[name]
@@ -3133,6 +3588,11 @@ def main() -> int:
                 "port-only backward of kernel 1: no TPU kernel computes it "
                 "(the reference differentiates XLA attention, "
                 "src/repro/models/layers.py:137)")
+        if name in expert_bwd:
+            table[-1]["note"] = (
+                "port-only backward of kernel 6: no TPU kernel computes it "
+                "(the reference differentiates the expert FFN's einsums in "
+                "XLA, src/repro/models/moe.py:64)")
     print(smi)                        # the card, as nvidia-smi gives it
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

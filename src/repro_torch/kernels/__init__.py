@@ -15,5 +15,7 @@ device dispatch (``ops``).
                      (repro/kernels/flash_attention.py)
   expert_matmul    — capacity-bucketed MoE expert GEMM
                      (repro/kernels/grouped_matmul.py)
+  expert_matmul_bwd_dx/_dw — its backward (no TPU kernel: the reference
+                     differentiates the expert FFN's einsums in XLA)
   wkv6             — chunked RWKV6 recurrence (repro/kernels/wkv6.py)
 """

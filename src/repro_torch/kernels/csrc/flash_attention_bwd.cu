@@ -12,7 +12,17 @@
 //   dV = P^T dO,  dS = P o (dO V^T - D),  dQ = dS K / sqrt(hd),
 //   dK = dS^T Q / sqrt(hd), summed over the G query heads of a KV head.
 // Three kernels, FlashAttention-2's split:
-//  (a) bwd_dot: D[b, h, i] = sum_d dO . O in fp32, one warp a row;
+//  (a) bwd_dot: D[b, h, i] = sum_d dO . O in fp32: a block takes P
+//      positions of one b and every head, whose rows lie contiguous in o
+//      and dO, and reads them as 16-byte vectors, 4 of each tensor in
+//      flight a thread (32 KB a block; one warp a row with 2-byte loads,
+//      its first design, kept 256 bytes in flight a warp). P (4 to 16)
+//      is as many positions as one such round of loads covers, so a
+//      block waits for memory about once; the hd / 8 (bf16) lanes of a
+//      row reduce by shuffles into shared memory at [position][head], and
+//      the block writes D transposed, P consecutive i of each head at a
+//      time (one lane a row wrote one float Sq floats from its
+//      neighbour's);
 //  (b) bwd_dkdv: a tile of keys of one (b, kvh) at a time. It loops over
 //      the G query heads and, for each, over the query tiles from the key
 //      tile's causal start (tile 0 where the key tile lies in the prefix,
@@ -34,8 +44,9 @@
 // wgmma); (a) is bound by the bytes of dO and O.
 // bf16 (the training path), both (b) and (c): one persistent block an SM
 // of three warpgroups. Warpgroups 0 and 1 compute on wgmma m64n64k16
-// (fp32 accumulators in registers), 64 keys (b) or 64 query rows (c)
-// each; warpgroup 2 drops to 40 registers (setmaxnreg) so the two take
+// (fp32 accumulators in registers; m64n32k16 for hd 128's S and dP, see
+// below), 64 keys (b) or 64 query rows (c) each; warpgroup 2 drops to 40
+// registers (setmaxnreg) so the two take
 // 232, and its first warp produces with TMA under mbarriers: a 2-slot
 // ring of the tiles a block keeps for one output tile (K and V of 128
 // keys in (b), Q and dO of 128 rows of one head in (c)), so the next
@@ -74,23 +85,28 @@
 // through cudaGetDriverEntryPoint: no -lcuda, no change of build flags)
 // once a call, passed as __grid_constant__ parameters. No library kernel
 // (no cuBLAS, cuDNN or CUTLASS GEMM): the PTX is in hopper.cuh.
-// hd 128 (not built: BWD_WIDTHS has one line, X(64)): a position is two
-// 128-byte swizzle rows, so each tile is two TMA boxes of 64 columns, a
-// k-step past column 64 moves to the second box, and load_a_sw128 reads
-// 8 k-steps. Registers of a consumer thread in (b) as built: dK and dV 64
-// + 64 fp32, K and V fragments 32 + 32, S^T and dP^T 32 + 32, P^T and
-// dS^T 16 + 16 = 288, over 232: K and V go back to shared memory as A
-// descriptors, and S^T and dP^T to 32 queries a step (wgmma m64n32k16:
-// 16 + 16, P^T and dS^T 8 + 8: 176). Shared memory in (b): K, V 2 x 2 x
-// 32 KB + 4 x (32 KB + 512 B) = 258 KB, over 227: 2 inner stages (193
-// KB). (c): dQ 64, Q and dO fragments 32 + 32, S and dP 32 + 32, dS 16 =
-// 208: fits; Q, dO 2 x 2 x 32 KB + 4 x 32 KB = 256 KB: 2 stages (192 KB).
+// hd 128: a position is two 128-byte swizzle rows, so each tile is two
+// TMA boxes of 64 columns (rows x 128 bytes apart), a k-step past column
+// 64 moves to the second box, and load_a_sw128 reads 8 k-steps; dK, dV
+// and dQ are two 64-column accumulators each, one wgmma m64n64k16 a box.
+// At hd 64's layout a consumer thread of (b) would hold dK and dV 64 + 64
+// fp32, K and V fragments 32 + 32, S^T and dP^T 32 + 32, P^T and dS^T 16
+// + 16 = 288 registers, over 232, and its shared memory would be 258 KB,
+// over 227. So the streamed tile shrinks to 32 queries (b) or 32 keys (c)
+// and S (S^T) and dP (dP^T) run on wgmma m64n32k16: 16 + 16 registers,
+// P^T and dS^T 8 + 8; in (b) K and V stay in shared memory as A
+// descriptors (both operands in shared memory: 3 KB a k-step in 16
+// tensor-core clocks, over shared memory's 128 bytes a clock, but the
+// registers of K and V do not fit beside dK and dV); (c) keeps Q and dO
+// as register A (dQ 64 + 32 + 32 + 16 + 16 + 8 = 168). Shared memory,
+// both: 2 outer slots of 2 x 32 KB and 4 inner slots of 2 x 8 KB (193 KB
+// with (b)'s LSE and D rows).
 // fp32 (the checks' path): FMAs on the CUDA cores, tiles of 32 keys and 32
 // rows in shared memory (the tensor cores' fp32 input type is TF32, too
 // coarse for the fp32 checks), as kernel 1's fp32 body.
 // Inputs and outputs are contiguous: q, o, dO, dq [B, Sq, H, hd], k, v,
 // dk, dv [B, Sk, KVH, hd]; lse and D [B, H, Sq] fp32. Head dims: HD 64
-// (BWD_WIDTHS below: one line a width).
+// and 128 (BWD_WIDTHS below: one line a width).
 
 #include <algorithm>
 #include <type_traits>
@@ -111,22 +127,77 @@ __device__ __forceinline__ long long row_off(int b, int S, int i, int heads,
 }
 
 // ------------------------------------------------------------ (a) D
-template <typename T, int HD>
-__global__ void __launch_bounds__(256)
-bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
-        float* __restrict__ D, int rows, int Sq, int H) {
-  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  const T* orow = o + (long long)r * HD;
-  const T* drow = dO + (long long)r * HD;
+constexpr int kDotThreads = 256;
+constexpr int kDotUnroll = 4;     // 16-byte vectors of each tensor in flight
+
+// sum of the products of two 16-byte vectors of T, in fp32
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, float) {
+  return __uint_as_float(a.x) * __uint_as_float(b.x) +
+         __uint_as_float(a.y) * __uint_as_float(b.y) +
+         __uint_as_float(a.z) * __uint_as_float(b.z) +
+         __uint_as_float(a.w) * __uint_as_float(b.w);
+}
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, __nv_bfloat16) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
   float s = 0.f;
 #pragma unroll
-  for (int d = lane; d < HD; d += 32) s += to_float(orow[d]) * to_float(drow[d]);
-  s = warp_sum(s);
-  if (lane == 0) {                     // row r is (b, i, h) -> D[b, h, i]
-    const int h = r % H, bi = r / H;
-    D[((long long)(bi / Sq) * H + h) * Sq + bi % Sq] = s;
+  for (int j = 0; j < 4; ++j) {
+    const float2 u = __bfloat1622float2(x[j]), v = __bfloat1622float2(y[j]);
+    s = fmaf(u.x, v.x, s);
+    s = fmaf(u.y, v.y, s);
+  }
+  return s;
+}
+
+// D[b, h, i] for P positions of one b and all H heads: their rows
+// (position-major, head-minor) lie contiguous in o and dO. Vector v of the
+// block's run belongs to row v / kV; its kV lanes (a power of two that
+// divides 32, aligned) reduce by shuffles. Sums go to shared memory at
+// [position][head] (rows padded by one float) and out transposed.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDotThreads)
+bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
+        float* __restrict__ D, int Sq, int H, int P, int tiles) {
+  constexpr int kV = HD * sizeof(T) / 16;   // vectors a row
+  static_assert(kV <= 32 && 32 % kV == 0, "a row's lanes within a warp");
+  extern __shared__ float sums[];           // [P][H + 1]
+  const int b = blockIdx.x / tiles, i0 = (blockIdx.x % tiles) * P;
+  const int n_pos = min(P, Sq - i0);
+  const int nvec = n_pos * H * kV;
+  const long long at = ((long long)b * Sq + i0) * H * HD;
+  const uint4* ov = reinterpret_cast<const uint4*>(o + at);
+  const uint4* dv = reinterpret_cast<const uint4*>(dO + at);
+  const int tid = threadIdx.x;
+  for (int v0 = 0; v0 < nvec; v0 += kDotThreads * kDotUnroll) {
+    uint4 x[kDotUnroll], y[kDotUnroll];
+#pragma unroll
+    for (int u = 0; u < kDotUnroll; ++u) {
+      const int v = v0 + u * kDotThreads + tid;
+      x[u] = y[u] = make_uint4(0, 0, 0, 0);
+      if (v < nvec) {
+        x[u] = ov[v];
+        y[u] = dv[v];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDotUnroll; ++u) {
+      float s = dot16(x[u], y[u], T());
+#pragma unroll
+      for (int off = kV / 2; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      const int v = v0 + u * kDotThreads + tid;
+      if (v < nvec && tid % kV == 0) {
+        const int r = v / kV;               // position r / H, head r % H
+        sums[(r / H) * (H + 1) + r % H] = s;
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < H * P; idx += kDotThreads) {
+    const int h = idx / P, il = idx % P;
+    if (il < n_pos)
+      D[((long long)b * H + h) * Sq + i0 + il] = sums[il * (H + 1) + h];
   }
 }
 
@@ -145,15 +216,22 @@ bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
 // on it has completed, an outer slot at the end of its tile.
 template <int HD>
 struct Wg {
-  static_assert(HD == 64, "a position is one 128-byte swizzle row");
+  static_assert(HD == 64 || HD == 128, "a position is 1 or 2 swizzle rows");
   static constexpr int kThreads = 3 * 128;
   static constexpr int kConsumers = 2 * 128;
   static constexpr int kStages = 4;
   static constexpr int kOuter = 128;   // keys (b) or rows (c) a block
-  static constexpr int kInner = 64;    // queries (b) or keys (c) a tile
+  // queries (b) or keys (c) a streamed tile, and the N of S and dP
+  static constexpr int kInner = HD == 64 ? 64 : 32;
+  static constexpr int kBoxes = HD / 64;   // 64-column TMA boxes a tile
+  // (b): K and V as A fragments in registers (hd 64), or read by wgmma
+  // from shared memory (hd 128)
+  static constexpr bool kKvSmem = HD > 64;
   static constexpr int kRow = HD * 2;  // bytes
   static constexpr int kOuterTile = kOuter * kRow;   // one tensor's tile
   static constexpr int kInnerTile = kInner * kRow;
+  // a tile's second box (columns 64 ..) lies one box of rows x 128 bytes on
+  static constexpr int kOuterBox = kOuter * 128, kInnerBox = kInner * 128;
   // byte offsets from the 1024-byte aligned base: 2 outer slots of two
   // tiles, kStages inner slots of two tiles, kStages (LSE, D) rows of
   // kInner floats ((b) only), the barriers
@@ -221,11 +299,23 @@ __device__ __forceinline__ int tile_of(int p, int n, int half) {
   return half && t == p ? -1 : t;
 }
 
+// the kBoxes TMA loads of one tile of `rows` positions from position `at`
+// of head `head`, all counted on `bar`
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int head,
+                                         int at, int b) {
+#pragma unroll
+  for (int x = 0; x < Wg<HD>::kBoxes; ++x)
+    tma_load_4d(dst + x * rows * 128, map, bar, 64 * x, head, at, b);
+}
+
 // (b): S^T = K Q^T and dP^T = V dO^T with the warp's K and V rows as A
-// fragments in registers and the Q and dO tiles as K-major B; P^T and
+// fragments in registers (hd 64) or the warpgroup's K and V as K-major A
+// in shared memory (hd 128), and the Q and dO tiles as K-major B; P^T and
 // dS^T from those accumulators, rounded to bf16 in registers, as A of
 // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (the transpose
-// bit).
+// bit), one 64-column box of dK and dV at a time.
 template <int HD>
 __global__ void __launch_bounds__(Wg<HD>::kThreads, 1)
 bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -272,9 +362,9 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           if (lane == 0) {
             uint8_t* kv = L::outer(sm, out.st);
             mbar_expect_tx(&ofull[out.st], 2 * L::kOuterTile);
-            tma_load_4d(kv, &tk, &ofull[out.st], 0, kvh, j0, b);
-            tma_load_4d(kv + L::kOuterTile, &tv, &ofull[out.st], 0, kvh, j0,
-                        b);
+            tma_tile<HD>(kv, &tk, &ofull[out.st], kN, kvh, j0, b);
+            tma_tile<HD>(kv + L::kOuterTile, &tv, &ofull[out.st], kN, kvh,
+                         j0, b);
           }
           out.next(2);
           for (int g = 0; g < G; ++g) {
@@ -286,9 +376,9 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
               if (lane == 0) {
                 uint8_t* qo = L::inner(sm, in.st);
                 mbar_expect_tx(&full[in.st], 2 * L::kInnerTile);
-                tma_load_4d(qo, &tq, &full[in.st], 0, h, i0, b);
-                tma_load_4d(qo + L::kInnerTile, &tdo, &full[in.st], 0, h, i0,
-                            b);
+                tma_tile<HD>(qo, &tq, &full[in.st], kM, h, i0, b);
+                tma_tile<HD>(qo + L::kInnerTile, &tdo, &full[in.st], kM, h,
+                             i0, b);
               }
               float* ls = L::stats(sm, in.st);
 #pragma unroll
@@ -319,34 +409,57 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         if (n < 0) break;
         const int j0 = n * kN, jw0 = j0 + wg * 64;   // this warpgroup's keys
         mbar_wait(&ofull[out.st], out.ph);
-        const uint8_t* Ks = L::outer(sm, out.st) + wg * 64 * L::kRow;
-        // this warp's 16 keys of K and V as A fragments, for the whole tile
-        uint32_t kf[HD / 16][4], vf[HD / 16][4];
-        load_a_sw128(kf, Ks, warp, lane);
-        load_a_sw128(vf, Ks + L::kOuterTile, warp, lane);
-        float dka[32], dva[32];
+        const uint8_t* Ks = L::outer(sm, out.st) + wg * 64 * 128;
+        const uint8_t* Vs = Ks + L::kOuterTile;
+        // hd 64: this warp's 16 keys of K and V as A fragments, for the
+        // whole tile; hd 128: the warpgroup's 64 keys as A descriptors
+        constexpr int kKf = L::kKvSmem ? 1 : HD / 16;
+        uint32_t kf[kKf][4], vf[kKf][4];
+        if constexpr (!L::kKvSmem) {
+          load_a_sw128(kf, Ks, warp, lane);
+          load_a_sw128(vf, Vs, warp, lane);
+        }
+        const uint64_t kad = desc_k_major(Ks), vad = desc_k_major(Vs);
+        constexpr int kB = L::kBoxes;
+        float dka[kB][32], dva[kB][32];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+        for (int x = 0; x < kB; ++x)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) dka[x][i] = dva[x][i] = 0.f;
 
         auto step = [&](const uint8_t* qo, const float* ls, int i0,
                         auto kMask) {
-          float s[32], dp[32];
+          float s[kM / 2], dp[kM / 2];
           const uint64_t qd = desc_k_major(qo);
           const uint64_t od = desc_k_major(qo + L::kInnerTile);
+          // k-step kk of a K-major tile: box kk / 4, 32 bytes a step
+          auto ks = [](uint64_t d, int kk, int box) {
+            return d + (kk / 4) * (box >> 4) + 2 * (kk % 4);
+          };
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            wgmma_rs<0>(s, kf[kk], qd + 2 * kk, kk);            // S^T
+          for (int kk = 0; kk < HD / 16; ++kk) {               // S^T
+            if constexpr (L::kKvSmem)
+              wgmma_ss(s, ks(kad, kk, L::kOuterBox), ks(qd, kk, L::kInnerBox),
+                       kk);
+            else
+              wgmma_rs<0>(s, kf[kk], ks(qd, kk, L::kInnerBox), kk);
+          }
           wgmma_commit();
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            wgmma_rs<0>(dp, vf[kk], od + 2 * kk, kk);           // dP^T
+          for (int kk = 0; kk < HD / 16; ++kk) {               // dP^T
+            if constexpr (L::kKvSmem)
+              wgmma_ss(dp, ks(vad, kk, L::kOuterBox), ks(od, kk, L::kInnerBox),
+                       kk);
+            else
+              wgmma_rs<0>(dp, vf[kk], ks(od, kk, L::kInnerBox), kk);
+          }
           wgmma_commit();
           // this thread's queries' LSE (times log2 e) and D, read while the
           // products run
-          float l2[16], dd[16];
+          float l2[kM / 4], dd[kM / 4];
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
+          for (int j = 0; j < kM / 4; ++j) {
             const int c = 8 * (j / 2) + c0 + (j & 1);
             l2[j] = ls[c] * kLog2e;
             dd[j] = ls[kM + c];
@@ -354,7 +467,7 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           wgmma_wait<1>();
           fence_regs(s);
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
+          for (int i = 0; i < kM / 2; ++i) {
             const int c = 8 * (i / 4) + c0 + (i & 1);         // query i0 + c
             bool ok = true;
             if constexpr (decltype(kMask)::value) {
@@ -366,9 +479,9 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           }
           wgmma_wait<0>();
           fence_regs(dp);
-          uint32_t pa[4][4], da[4][4];
+          uint32_t pa[kM / 16][4], da[kM / 16][4];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+          for (int kk = 0; kk < kM / 16; ++kk)
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               const int i = 8 * kk + 2 * r, j = 2 * (i / 4);
@@ -379,22 +492,36 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           const uint64_t qt_ = desc_mn_major(qo);
           const uint64_t ot = desc_mn_major(qo + L::kInnerTile);
           wgmma_fence();
-          fence_regs(dva);
-          fence_regs(dka);
 #pragma unroll
-          for (int kk = 0; kk < kM / 16; ++kk)
-            wgmma_rs<1>(dva, pa[kk], ot + 128 * kk, 1);           // dV += P^T dO
+          for (int x = 0; x < kB; ++x) {
+            fence_regs(dva[x]);
+            fence_regs(dka[x]);
+          }
 #pragma unroll
-          for (int kk = 0; kk < kM / 16; ++kk)
-            wgmma_rs<1>(dka, da[kk], qt_ + 128 * kk, 1);          // dK += dS^T Q
+          for (int x = 0; x < kB; ++x)
+#pragma unroll
+            for (int kk = 0; kk < kM / 16; ++kk)                // dV += P^T dO
+              wgmma_rs<1>(dva[x], pa[kk],
+                          ot + x * (L::kInnerBox >> 4) + 128 * kk, 1);
+#pragma unroll
+          for (int x = 0; x < kB; ++x)
+#pragma unroll
+            for (int kk = 0; kk < kM / 16; ++kk)                // dK += dS^T Q
+              wgmma_rs<1>(dka[x], da[kk],
+                          qt_ + x * (L::kInnerBox >> 4) + 128 * kk, 1);
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs(dva);
-          fence_regs(dka);
+#pragma unroll
+          for (int x = 0; x < kB; ++x) {
+            fence_regs(dva[x]);
+            fence_regs(dka[x]);
+          }
           fence_regs(pa);
           fence_regs(da);
-          fence_regs(kf);   // see load_a_sw128
-          fence_regs(vf);
+          if constexpr (!L::kKvSmem) {
+            fence_regs(kf);   // see load_a_sw128
+            fence_regs(vf);
+          }
         };
 
         for (int g = 0; g < G; ++g) {
@@ -426,13 +553,17 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           if (j >= Sk) continue;
           const long long at = row_off(b, Sk, j, KVH, kvh, HD) + c0;
 #pragma unroll
-          for (int d = 0; d < HD / 8; ++d) {
-            *reinterpret_cast<uint32_t*>(dk + at + d * 8) =
-                pack_bf16(dka[4 * d + 2 * h2] * scale,
-                          dka[4 * d + 2 * h2 + 1] * scale);
-            *reinterpret_cast<uint32_t*>(dv + at + d * 8) =
-                pack_bf16(dva[4 * d + 2 * h2], dva[4 * d + 2 * h2 + 1]);
-          }
+          for (int x = 0; x < kB; ++x)
+#pragma unroll
+            for (int d = 0; d < 8; ++d) {
+              const long long c = at + 64 * x + d * 8;
+              *reinterpret_cast<uint32_t*>(dk + c) =
+                  pack_bf16(dka[x][4 * d + 2 * h2] * scale,
+                            dka[x][4 * d + 2 * h2 + 1] * scale);
+              *reinterpret_cast<uint32_t*>(dv + c) =
+                  pack_bf16(dva[x][4 * d + 2 * h2],
+                            dva[x][4 * d + 2 * h2 + 1]);
+            }
         }
       }
     }
@@ -442,7 +573,7 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 // (c): S = Q K^T and dP = dO V^T with the warp's Q and dO rows as A
 // fragments in registers and the K and V tiles as K-major B; dS from
 // those accumulators, rounded to bf16 in registers, as A of dQ += dS K,
-// K read MN-major. Rows are 128
+// K read MN-major, one 64-column box of dQ at a time. Rows are 128
 // queries of one head (64 a warpgroup); the key loop stops at the causal
 // diagonal of the block's last query, or at the prefix.
 template <int HD>
@@ -486,17 +617,18 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           mbar_wait(&oempty[out.st], out.ph ^ 1);
           uint8_t* qo = L::outer(sm, out.st);
           mbar_expect_tx(&ofull[out.st], 2 * L::kOuterTile);
-          tma_load_4d(qo, &tq, &ofull[out.st], 0, h, i0, b);
-          tma_load_4d(qo + L::kOuterTile, &tdo, &ofull[out.st], 0, h, i0, b);
+          tma_tile<HD>(qo, &tq, &ofull[out.st], kM, h, i0, b);
+          tma_tile<HD>(qo + L::kOuterTile, &tdo, &ofull[out.st], kM, h, i0,
+                       b);
           out.next(2);
           const int n_t = (keys_below(i0 + kM) + kN - 1) / kN;
           for (int t = 0; t < n_t; ++t) {
             mbar_wait(&empty[in.st], in.ph ^ 1);
             uint8_t* kv = L::inner(sm, in.st);
             mbar_expect_tx(&full[in.st], 2 * L::kInnerTile);
-            tma_load_4d(kv, &tk, &full[in.st], 0, kvh, t * kN, b);
-            tma_load_4d(kv + L::kInnerTile, &tv, &full[in.st], 0, kvh, t * kN,
-                        b);
+            tma_tile<HD>(kv, &tk, &full[in.st], kN, kvh, t * kN, b);
+            tma_tile<HD>(kv + L::kInnerTile, &tv, &full[in.st], kN, kvh,
+                         t * kN, b);
             in.next(L::kStages);
           }
         }
@@ -536,32 +668,39 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         const int whole_end = causal ? min(Sk, max(iw0 + 1, prefix_len)) : Sk;
         const int n_t = (keys_below(i0 + kM) + kN - 1) / kN;
         mbar_wait(&ofull[out.st], out.ph);
-        const uint8_t* Qs = L::outer(sm, out.st) + wg * 64 * L::kRow;
+        const uint8_t* Qs = L::outer(sm, out.st) + wg * 64 * 128;
         // this warp's 16 rows of Q and dO as A fragments, for the whole tile
         uint32_t qf[HD / 16][4], of[HD / 16][4];
-        load_a_sw128(qf, Qs, warp, lane);
-        load_a_sw128(of, Qs + L::kOuterTile, warp, lane);
-        float dqa[32];
+        load_a_sw128(qf, Qs, warp, lane, L::kOuterBox);
+        load_a_sw128(of, Qs + L::kOuterTile, warp, lane, L::kOuterBox);
+        constexpr int kB = L::kBoxes;
+        float dqa[kB][32];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+        for (int x = 0; x < kB; ++x)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) dqa[x][i] = 0.f;
 
         auto step = [&](const uint8_t* kv, int t0, auto kMask) {
-          float s[32], dp[32];
+          float s[kN / 2], dp[kN / 2];
           const uint64_t kd = desc_k_major(kv);
           const uint64_t vd = desc_k_major(kv + L::kInnerTile);
+          // k-step kk of a K-major tile: box kk / 4, 32 bytes a step
+          auto ks = [](uint64_t d, int kk) {
+            return d + (kk / 4) * (L::kInnerBox >> 4) + 2 * (kk % 4);
+          };
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < HD / 16; ++kk)
-            wgmma_rs<0>(s, qf[kk], kd + 2 * kk, kk);            // S
+            wgmma_rs<0>(s, qf[kk], ks(kd, kk), kk);             // S
           wgmma_commit();
 #pragma unroll
           for (int kk = 0; kk < HD / 16; ++kk)
-            wgmma_rs<0>(dp, of[kk], vd + 2 * kk, kk);           // dP
+            wgmma_rs<0>(dp, of[kk], ks(vd, kk), kk);            // dP
           wgmma_commit();
           wgmma_wait<1>();
           fence_regs(s);
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
+          for (int i = 0; i < kN / 2; ++i) {
             const int h2 = (i >> 1) & 1;
             bool ok = true;
             if constexpr (decltype(kMask)::value)
@@ -570,9 +709,9 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           }
           wgmma_wait<0>();
           fence_regs(dp);
-          uint32_t da[4][4];
+          uint32_t da[kN / 16][4];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+          for (int kk = 0; kk < kN / 16; ++kk)
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               const int i = 8 * kk + 2 * r, h2 = r & 1;
@@ -581,13 +720,18 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
             }
           const uint64_t kt = desc_mn_major(kv);
           wgmma_fence();
-          fence_regs(dqa);
 #pragma unroll
-          for (int kk = 0; kk < kN / 16; ++kk)
-            wgmma_rs<1>(dqa, da[kk], kt + 128 * kk, 1);           // dQ += dS K
+          for (int x = 0; x < kB; ++x) fence_regs(dqa[x]);
+#pragma unroll
+          for (int x = 0; x < kB; ++x)
+#pragma unroll
+            for (int kk = 0; kk < kN / 16; ++kk)                // dQ += dS K
+              wgmma_rs<1>(dqa[x], da[kk],
+                          kt + x * (L::kInnerBox >> 4) + 128 * kk, 1);
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs(dqa);
+#pragma unroll
+          for (int x = 0; x < kB; ++x) fence_regs(dqa[x]);
           fence_regs(da);
           fence_regs(qf);   // see load_a_sw128
           fence_regs(of);
@@ -613,10 +757,12 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           if (i >= Sq) continue;
           const long long at = row_off(b, Sq, i, H, h, HD) + c0;
 #pragma unroll
-          for (int d = 0; d < HD / 8; ++d)
-            *reinterpret_cast<uint32_t*>(dq + at + d * 8) =
-                pack_bf16(dqa[4 * d + 2 * h2] * scale,
-                          dqa[4 * d + 2 * h2 + 1] * scale);
+          for (int x = 0; x < kB; ++x)
+#pragma unroll
+            for (int d = 0; d < 8; ++d)
+              *reinterpret_cast<uint32_t*>(dq + at + 64 * x + d * 8) =
+                  pack_bf16(dqa[x][4 * d + 2 * h2] * scale,
+                            dqa[x][4 * d + 2 * h2 + 1] * scale);
         }
       }
     }
@@ -827,6 +973,19 @@ bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <typename T, int HD>
+int launch_dot(const void* o, const void* dO, void* D, int B, int Sq, int H,
+               cudaStream_t stream) {
+  constexpr int kV = HD * sizeof(T) / 16;
+  const int P = std::min(16, std::max(4, kDotThreads * kDotUnroll / (H * kV)));
+  const int tiles = (Sq + P - 1) / P;
+  bwd_dot<T, HD><<<B * tiles, kDotThreads, P * (H + 1) * sizeof(float),
+                   stream>>>(static_cast<const T*>(o),
+                             static_cast<const T*>(dO),
+                             static_cast<float*>(D), Sq, H, P, tiles);
+  return (int)cudaGetLastError();
+}
+
 template <typename Kern>
 int set_smem(Kern kern, size_t bytes) {
   return (int)cudaFuncSetAttribute(
@@ -924,7 +1083,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
 }  // namespace
 
 // The head dims the backward is built for, one line a width.
-#define BWD_WIDTHS(X) X(64)
+#define BWD_WIDTHS(X) X(64) X(128)
 
 // Every entry takes contiguous tensors (see the header) and returns the
 // cudaError_t of its launch (0 on success); a width or dtype it was not
@@ -935,22 +1094,13 @@ extern "C" int flash_attention_bwd_dot(const void* o, const void* dO, void* D,
                                        int dtype, int hd, int B, int Sq,
                                        int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = B * Sq * H;
-  const dim3 grid((rows + 7) / 8);
 #define BWD_DOT(HD)                                                          \
   if (hd == HD) {                                                           \
     if (dtype == kBFloat16)                                                 \
-      bwd_dot<__nv_bfloat16, HD><<<grid, 256, 0, s>>>(                      \
-          static_cast<const __nv_bfloat16*>(o),                             \
-          static_cast<const __nv_bfloat16*>(dO), static_cast<float*>(D),    \
-          rows, Sq, H);                                                     \
-    else if (dtype == kFloat32)                                             \
-      bwd_dot<float, HD><<<grid, 256, 0, s>>>(                              \
-          static_cast<const float*>(o), static_cast<const float*>(dO),      \
-          static_cast<float*>(D), rows, Sq, H);                             \
-    else                                                                    \
-      return (int)cudaErrorInvalidValue;                                    \
-    return (int)cudaGetLastError();                                         \
+      return launch_dot<__nv_bfloat16, HD>(o, dO, D, B, Sq, H, s);          \
+    if (dtype == kFloat32)                                                  \
+      return launch_dot<float, HD>(o, dO, D, B, Sq, H, s);                  \
+    return (int)cudaErrorInvalidValue;                                      \
   }
   BWD_WIDTHS(BWD_DOT)
 #undef BWD_DOT

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, warpgroup MMA (wgmma m64n64k16, bf16 in, fp32 accumulate) with A
-// fragments in registers and B read through a shared-memory descriptor,
-// setmaxnreg;
+// loads, warpgroup MMA (wgmma m64n64k16 and m64n32k16, bf16 in, fp32
+// accumulate) with A fragments in registers or A read through a
+// shared-memory descriptor, and B read through one, setmaxnreg;
 // and, on the host, a TMA tensor map encoded through the driver's entry
 // point (cudaGetDriverEntryPoint: no -lcuda, no new dependency).
 #pragma once
@@ -113,13 +113,15 @@ __device__ __forceinline__ void wgmma_wait() {
 // fragment) across the asynchronous wgmma that uses it. No memory clobber:
 // shared-memory reads may move past it (the mbarrier waits and arrivals
 // order them), so a step's loads can run while its products do.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]));
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]));
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]));
 }
@@ -141,7 +143,11 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // MN-major (the reduction runs down the rows, read through the transpose
 // bit): the 8-row groups along K are 1024 bytes apart, and a 64-wide N
 // is one swizzle atom, so both offsets are 1024 bytes; a k-step of 16
-// rows adds 2048 bytes (128).
+// rows adds 2048 bytes (128). A K-major A operand of 64 rows has the
+// K-major B's form. A wider row (hd 128) lies in two such tiles (two TMA
+// boxes of 64 columns, `rows` x 128 bytes apart): a k-step past column 64
+// moves to the second, and adding a byte offset to the tile adds it / 16
+// to the descriptor.
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo,
                                                uint32_t sbo) {
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
@@ -163,6 +169,12 @@ __device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
       "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
       "+f"(d[31])
+#define RT_ACC16(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define RT_D16                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define RT_D32                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
@@ -188,9 +200,38 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "n"(kTransB));
 }
 
+// The same over a 32-wide N (m64n32k16): d holds 16 registers, register i
+// at row 16 (warp % 4) + lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2
+// (lane % 4) + i % 2, as above.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         uint32_t accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " RT_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : RT_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// d (+)= A . B over k 16 and a 32-wide N, both operands in shared memory,
+// K-major (descriptors `a` [64, 16] and `b` [32, 16]).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, uint32_t accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " RT_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : RT_ACC16(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // The A fragments (k 0 .. 16 KS) of this warp's 16 rows of a 64-row slice
 // of a 128-byte swizzled tile (the slice 1024-byte aligned), by ldmatrix:
-// row r's 16-byte chunk c lies at chunk c ^ (r % 8). Fragments that feed
+// row r's 16-byte chunk c lies at chunk c ^ (r % 8); k-steps 4 .. 7 (hd
+// 128) lie in the second box, `box` bytes on. Fragments that feed
 // the wgmma of several loop iterations need fence_regs after each
 // iteration's last wgmma_wait: without it ptxas (CUDA 12.9) takes the
 // registers of a wgmma's A operand as free once the wgmma has run, and
@@ -198,15 +239,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 template <int KS>
 __device__ __forceinline__ void load_a_sw128(uint32_t (&a)[KS][4],
                                              const uint8_t* slice, int warp,
-                                             int lane) {
+                                             int lane, int box = 0) {
   const int r = warp * 16 + (lane & 15);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 2 + (lane >> 4);
-    ldmatrix_x4(a[kk], slice + r * 128 + ((c ^ (r & 7)) << 4));
+    const int c = (kk % 4) * 2 + (lane >> 4);
+    ldmatrix_x4(a[kk],
+                slice + (kk / 4) * box + r * 128 + ((c ^ (r & 7)) << 4));
   }
 }
 
+#undef RT_D16
+#undef RT_ACC16
 #undef RT_D32
 #undef RT_ACC32
 
@@ -244,19 +288,20 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A contiguous bf16 [B, S, heads, hd] tensor as a 4-d TMA map (hd
-// innermost) read in boxes of `rows` consecutive positions of one head,
-// 128-byte swizzled; positions past S read as zeros. hd * 2 bytes must
-// be one swizzle row (hd 64). False if the map cannot be encoded.
+// innermost) read in boxes of `rows` consecutive positions of one head and
+// 64 columns (one 128-byte swizzle row; hd 128 takes two boxes, at column
+// 0 and 64), 128-byte swizzled; positions past S read as zeros. hd is a
+// multiple of 64. False if the map cannot be encoded.
 inline bool encode_rows(CUtensorMap* map, const void* base, int hd, int heads,
                         int S, int B, int rows) {
   const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
+  if (!fn || hd % 64) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,

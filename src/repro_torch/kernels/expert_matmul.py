@@ -8,6 +8,15 @@ the output and launches on PyTorch's current stream; ``expert_matmul
 .launches`` counts its launches. The plain version is
 ``ref.expert_matmul_ref``; ``ops`` chooses between the two by the tensors'
 device.
+
+Training: ``expert_matmul_bwd_dx`` and ``expert_matmul_bwd_dw`` wrap the
+two backward kernels of ``csrc/expert_matmul_bwd.cu`` (dX = dY W^T over
+the live rows, zero past ``fill``; dW = X^T dY over the live rows), each
+with its own ``.launches``; their plain version is
+``ref.expert_matmul_bwd_ref``. ``ExpertMatmulFn`` is the autograd
+Function that ``ops`` sends a CUDA call to when it builds a graph: the
+forward kernel forward, the two backward kernels backward. A shape or
+dtype a kernel does not take raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -30,6 +39,15 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _bwd_kernel(name: str):
+    fn = getattr(build.load("expert_matmul_bwd"), name)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def smem_bytes(dtype: torch.dtype, capacity: int) -> int:
     """Dynamic shared memory, in bytes, that the kernel's launch asks for
     at ``dtype`` and a bucket of ``capacity`` rows (C)."""
@@ -37,6 +55,84 @@ def smem_bytes(dtype: torch.dtype, capacity: int) -> int:
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(DTYPES[dtype], capacity)
+
+
+def bwd_smem_bytes(dtype: torch.dtype, dw: bool) -> int:
+    """Dynamic shared memory, in bytes, of the dX (``dw`` False) or dW
+    backward launch at ``dtype`` (0 for fp32: static only)."""
+    fn = build.load("expert_matmul_bwd").expert_matmul_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(DTYPES[dtype], int(dw))
+
+
+def _check(ts, fill, what: str) -> None:
+    """CUDA tensors on one device, contiguous, of one dtype (bf16 or
+    fp32); ``fill`` [E] int32 beside them."""
+    x = ts[0]
+    for t in (*ts, fill):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{what} kernel takes CUDA tensors on one "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel takes contiguous tensors")
+    if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in ts):
+        raise ValueError(f"{what}: dtypes {[t.dtype for t in ts]}: need one "
+                         f"of {list(DTYPES)} for all")
+    if fill.dtype != torch.int32 or fill.shape != (x.shape[0],):
+        raise ValueError(f"{what}: fill {fill.dtype} {tuple(fill.shape)}: "
+                         "need [E] int32")
+
+
+def _launch_bwd(name: str, a, b, fill, out, E, C, Din, Dout) -> None:
+    if max(E, -(-max(C, Din) // 128)) > 65535:
+        raise ValueError(f"{name}: E {E}, C {C}, Din {Din}: grid too large")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = _bwd_kernel(name)(a.data_ptr(), b.data_ptr(), fill.data_ptr(),
+                                out.data_ptr(), DTYPES[a.dtype], E, C, Din,
+                                Dout, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def expert_matmul_bwd_dx(dy, w, fill):
+    """Kernel 6-bwd dX: dy [E,C,F] and w [E,D,F] -> dxe [E,C,D] = dy @ w^T
+    on rows below ``fill[e]`` ([E] int32), zero past it; fp32
+    accumulation, in dy's dtype."""
+    if dy.dim() != 3 or w.dim() != 3 or (w.shape[0], w.shape[2]) != (
+            dy.shape[0], dy.shape[2]):
+        raise ValueError(f"expert_matmul_bwd_dx: shapes dy {tuple(dy.shape)} "
+                         f"w {tuple(w.shape)}: need [E,C,F] and [E,D,F]")
+    _check((dy, w), fill, "expert_matmul_bwd_dx")
+    E, C, F = dy.shape
+    D = w.shape[1]
+    dxe = torch.empty((E, C, D), dtype=dy.dtype, device=dy.device)
+    if dxe.numel():
+        _launch_bwd("expert_matmul_bwd_dx", dy, w, fill, dxe, E, C, D, F)
+        expert_matmul_bwd_dx.launches += 1
+    return dxe
+
+
+def expert_matmul_bwd_dw(xe, dy, fill):
+    """Kernel 6-bwd dW: xe [E,C,D] and dy [E,C,F] -> dw [E,D,F] = xe^T @ dy
+    over the rows below ``fill[e]`` ([E] int32), in row order (zeros for
+    an expert with none); fp32 accumulation, in xe's dtype."""
+    if xe.dim() != 3 or dy.dim() != 3 or dy.shape[:2] != xe.shape[:2]:
+        raise ValueError(f"expert_matmul_bwd_dw: shapes xe {tuple(xe.shape)} "
+                         f"dy {tuple(dy.shape)}: need [E,C,D] and [E,C,F]")
+    _check((xe, dy), fill, "expert_matmul_bwd_dw")
+    E, C, D = xe.shape
+    F = dy.shape[2]
+    dw = torch.empty((E, D, F), dtype=xe.dtype, device=xe.device)
+    if dw.numel():
+        _launch_bwd("expert_matmul_bwd_dw", xe, dy, fill, dw, E, C, D, F)
+        expert_matmul_bwd_dw.launches += 1
+    return dw
+
+
+expert_matmul_bwd_dx.launches = 0
+expert_matmul_bwd_dw.launches = 0
 
 
 def expert_matmul(xe, w, fill=None):
@@ -51,18 +147,7 @@ def expert_matmul(xe, w, fill=None):
     F = w.shape[2]
     if fill is None:
         fill = torch.full((E,), C, dtype=torch.int32, device=xe.device)
-    for t in (xe, w, fill):
-        if not t.is_cuda or t.device != xe.device:
-            raise ValueError("expert_matmul kernel takes CUDA tensors on one "
-                             "device")
-        if not t.is_contiguous():
-            raise ValueError("expert_matmul kernel takes contiguous tensors")
-    if xe.dtype not in DTYPES or w.dtype != xe.dtype:
-        raise ValueError(f"dtypes {xe.dtype}, {w.dtype}: need one of "
-                         f"{list(DTYPES)} for both")
-    if fill.dtype != torch.int32 or fill.shape != (E,):
-        raise ValueError(f"fill {fill.dtype} {tuple(fill.shape)}: need [E] "
-                         "int32")
+    _check((xe, w), fill, "expert_matmul")
     if max(E, -(-C // 64)) > 65535:
         raise ValueError(f"E {E}, C {C}: grid too large")
     out = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
@@ -80,3 +165,30 @@ def expert_matmul(xe, w, fill=None):
 
 
 expert_matmul.launches = 0
+
+
+class ExpertMatmulFn(torch.autograd.Function):
+    """Differentiable kernel 6 on the card: the forward kernel forward
+    (saving xe, w and fill), dX and dW by the backward kernels backward.
+    The contraction of dW runs over each expert's live rows only, and a
+    row past ``fill`` gets a zero dX: the output there is a constant."""
+
+    @staticmethod
+    def forward(ctx, xe, w, fill):
+        xe, w = xe.contiguous(), w.contiguous()
+        if fill is None:
+            fill = torch.full((xe.shape[0],), xe.shape[1], dtype=torch.int32,
+                              device=xe.device)
+        out = expert_matmul(xe, w, fill)
+        ctx.save_for_backward(xe, w, fill)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, w, fill = ctx.saved_tensors
+        dy = dy.contiguous()
+        dxe = (expert_matmul_bwd_dx(dy, w, fill)
+               if ctx.needs_input_grad[0] else None)
+        dw = (expert_matmul_bwd_dw(xe, dy, fill)
+              if ctx.needs_input_grad[1] else None)
+        return dxe, dw, None

@@ -5,8 +5,10 @@ autograd differentiates); a CUDA tensor goes to the kernel, for every
 shape, and the kernel's wrapper raises on what it does not take.
 ``flash_attention`` on CUDA tensors with grad enabled and an input that
 requires grad goes through ``FlashAttentionFn`` instead: kernel 1 with its
-LSE output forward, its three backward kernels backward. Serving builds no
-graph, so it launches the forward kernel alone. There is no fallback from
+LSE output forward, its three backward kernels backward; ``expert_matmul``
+likewise through ``ExpertMatmulFn``: kernel 6 forward, its dX and dW
+kernels backward. Serving builds no graph, so it launches the forward
+kernels alone. There is no fallback from
 one to the other: the reference package's TPU tiling guards (shapes that
 do not tile went to the XLA version) do not carry over, because the CUDA
 kernels mask their own ragged edges.
@@ -21,7 +23,7 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.decode_attention_int8 import (
     decode_attention_int8 as _decode_int8_kernel)
 from repro_torch.kernels.expert_matmul import (
-    expert_matmul as _expert_matmul_kernel)
+    ExpertMatmulFn, expert_matmul as _expert_matmul_kernel)
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFn, flash_attention as _flash_kernel)
 from repro_torch.kernels.paged_decode_attention import (
@@ -104,9 +106,12 @@ def paged_extend_attention(q, k_pool, v_pool, k_new, v_new, table, pos):
 
 def expert_matmul(xe, w, fill=None):
     """Capacity-bucketed expert GEMM [E,C,D] x [E,D,F] -> [E,C,F] in xe's
-    dtype, fp32 accumulation; rows at or past ``fill[e]`` are zero."""
+    dtype, fp32 accumulation; rows at or past ``fill[e]`` are zero.
+    Differentiable on either device."""
     if _on_cpu(xe):
         return ref.expert_matmul_ref(xe, w, fill)
+    if torch.is_grad_enabled() and (xe.requires_grad or w.requires_grad):
+        return ExpertMatmulFn.apply(xe, w, fill)
     return _expert_matmul_kernel(xe, w, fill)
 
 

@@ -7,8 +7,9 @@ token-serial definition and the chunked form the model runs. They are what
 a wrapper runs for a tensor on the CPU, what ``chip_smoke.py`` holds each
 kernel against on the card, and the oracle path of the model's reference
 mode. ``attention_lse_ref`` and ``attention_bwd_ref`` are the plain
-versions of kernel 1's log-sum-exp output and of its backward kernels;
-on the CPU autograd differentiates ``attention_ref`` itself.
+versions of kernel 1's log-sum-exp output and of its backward kernels,
+``expert_matmul_bwd_ref`` that of kernel 6's two; on the CPU autograd
+differentiates ``attention_ref`` and ``expert_matmul_ref`` themselves.
 """
 from __future__ import annotations
 
@@ -214,6 +215,21 @@ def expert_matmul_ref(xe, w, fill=None):
         row = torch.arange(xe.shape[1], device=xe.device)[None, :, None]
         y = torch.where(row < fill.to(xe.device)[:, None, None], y, 0.0)
     return y.to(xe.dtype)
+
+
+def expert_matmul_bwd_ref(xe, w, fill, dy):
+    """The gradient of ``expert_matmul_ref`` given its output's gradient
+    ``dy`` [E,C,F] -> (dxe [E,C,D] in xe's dtype, dw [E,D,F] in w's), in
+    fp32 products: dy's rows at or past ``fill[e]`` (default C) are zeroed
+    (the output there is a constant), then dxe = dy w^T and dw = xe^T dy,
+    as autograd of ``expert_matmul_ref`` computes them."""
+    dy = dy.float()
+    if fill is not None:
+        row = torch.arange(xe.shape[1], device=xe.device)[None, :, None]
+        dy = torch.where(row < fill.to(xe.device)[:, None, None], dy, 0.0)
+    dxe = torch.bmm(dy, w.float().transpose(1, 2))
+    dw = torch.bmm(xe.float().transpose(1, 2), dy)
+    return dxe.to(xe.dtype), dw.to(w.dtype)
 
 
 def wkv6_ref(r, k, v, logw, u, state0):

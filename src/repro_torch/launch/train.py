@@ -7,14 +7,20 @@ plain PyTorch versions. The config is the arch's reduced smoke config on
 the CPU and its published width on the card (``full_width_config``, as
 ``launch/serve.py`` serves it), ``--layers`` cutting the depth;
 ``--d-model`` takes the reference's reduced config at that width (four
-heads). The card's backward kernels take head dim 64 only, so a width
-whose head dim is another (``--d-model 768``: 192) is refused here,
-before any step. AdamW's learning rate defaults to ``default_lr(cfg)``:
-the reference's 3e-3 for a reduced config, 3e-5 at a published width.
+heads). The card's attention backward kernels take head dims 64 and 128
+only, so a width whose head dim is another (``--d-model 768``: 192) is
+refused here, before any step. The dense family and the moe family with
+GQA attention train (``models.transformer.loss_fn``); phi3.5-moe at its
+published width fits one 80 GB card at 2 of its 32 layers. AdamW's
+learning rate defaults to ``default_lr(cfg)``: the reference's 3e-3 for a
+reduced config, 3e-5 at a published width.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --steps 6 --seq 4096 \\
       --batch 8 --microbatches 4
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch phi3.5-moe-42b-a6.6b --layers 2 --steps 6 --seq 4096 \\
+      --batch 4 --microbatches 4
 """
 from __future__ import annotations
 

@@ -24,6 +24,17 @@ and the bucket-GEMM-combine over slices of at most ``SLICE_BYTES`` of
 depend on the cut. Smaller models (phi3.5's 16 experts at d 4096 take
 8192 tokens a slice) run in one slice.
 
+Training: ``moe_block`` is differentiable end to end, as the reference's
+``value_and_grad`` of ``moe_dense_ref``: through the router (the softmax,
+the top-k values and their renormalisation, and the aux loss's mean of the
+gates; the expert counts take no gradient, as there), the bucket scatter,
+the three GEMMs (on the card ``ops.expert_matmul`` runs kernel 6 forward
+and its dX and dW kernels backward, over the live rows only) and the
+weighted combine. A token's k rows in the buckets are its row repeated by
+``expand``, whose backward sums them in a reduction over k in a fixed
+order (no atomics), so two backward runs are bitwise equal for any k, top-6
+included; the gather of the buckets' outputs puts back distinct rows.
+
 The leaves keep the reference's layout: expert stacks ``w_gate``/``w_up``
 [E, D, F] and ``w_down`` [E, F, D], the router [D, E] in fp32, a shared
 expert's ``w_gate``/``w_up`` [D, Fs] and ``w_down`` [Fs, D], all applied
@@ -95,9 +106,8 @@ def _experts(p, xf, weights, idx, num_experts: int, gemm):
     k = idx.shape[1]
     e_flat = idx.reshape(-1)                                   # [T*k]
     slot, fill = _bucket(e_flat, num_experts)
-    tok = torch.arange(T * k, device=xf.device) // k
     xe = xf.new_zeros((num_experts, T, D))
-    xe[e_flat, slot] = xf[tok]
+    xe[e_flat, slot] = xf[:, None].expand(T, k, D).reshape(T * k, D)
     h = (F.silu(gemm(xe, p["w_gate"], fill))
          * gemm(xe, p["w_up"], fill))
     ye = gemm(h, p["w_down"], fill)                            # [E, T, D]

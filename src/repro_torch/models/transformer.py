@@ -152,7 +152,9 @@ def _layer(cfg, p, x, positions, *, mode="prefill", causal=True,
     """One layer: self-attention (its first ``prefix_len`` keys seen by
     every query in prefill; MLA's latent attention for an MLA model), then
     (an encdec decoder layer, ``enc`` = (k, v, lengths) of its ``enc_kv``)
-    cross-attention, then the MLP or the MoE block."""
+    cross-attention, then the MLP or the MoE block. Returns (x, the
+    layer's K/V, the MoE block's router aux loss or None): training adds
+    the aux to its loss, serving drops it."""
     h = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.use_mla:
         o, kv = MLA.mla_block(cfg, p["attn"], h, positions=positions,
@@ -172,11 +174,12 @@ def _layer(cfg, p, x, positions, *, mode="prefill", causal=True,
                                     mode=mode, enc_len=enc_len,
                                     reference=reference)
     h = Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    aux = None
     if "moe" in p:
-        o, _aux = MOE.moe_block(cfg, p["moe"], h, reference=reference)
+        o, aux = MOE.moe_block(cfg, p["moe"], h, reference=reference)
     else:
         o = Lyr.mlp(p["mlp"], h)
-    return x + o, kv
+    return x + o, kv, aux
 
 
 def _rwkv_forward(cfg, params, x, state: dict, *, rows=None, **scan):
@@ -263,8 +266,8 @@ def _encode(cfg, params, frames, reference):
                  params["frontend_proj"])
     positions = torch.arange(x.shape[1], device=dev)
     for p in params["encoder"]["layers"]:
-        x, _ = _layer(cfg, p, x, positions, causal=False,
-                      reference=reference)
+        x, _, _ = _layer(cfg, p, x, positions, causal=False,
+                         reference=reference)
     x = Lyr.rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
     B, Se = x.shape[:2]
     shape = (B, Se, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -333,8 +336,8 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
     if cfg.family == "encdec":
         cache["enc_kv"] = _encode(cfg, params, inputs["frames"], reference)
     for i, p in enumerate(params["layers"]):
-        x, kv = _layer(cfg, p, x, positions, prefix_len=prefix_len,
-                       enc=_enc_layer(cache, i), reference=reference)
+        x, kv, _ = _layer(cfg, p, x, positions, prefix_len=prefix_len,
+                          enc=_enc_layer(cache, i), reference=reference)
         for leaf, t in zip(kv_all.values(), kv):
             leaf[i] = t
     return _head(cfg, params, x), cache
@@ -345,28 +348,38 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, *,
     """Next-token cross-entropy of ``batch["tokens"]`` [B, S] against
     ``batch["labels"]`` [B, S] (masked by ``batch["loss_mask"]`` if
     given): embed, every layer as in prefill (its K/V not kept), the final
-    norm, the logits. The dense family (qk-norm included) only: its
-    attention goes through ``ops.flash_attention``, which autograd
-    differentiates on the CPU and which runs kernel 1 and its backward
-    kernels on the card. ``reference=True`` attends through the plain
-    version on any device."""
-    if cfg.family != "dense":
+    norm, the logits; a moe model adds 0.01 times the sum of its layers'
+    router aux losses, as the reference. The dense family (qk-norm
+    included) and the moe family with GQA attention (phi3.5-moe) only:
+    attention goes through ``ops.flash_attention`` and the expert GEMMs
+    through ``ops.expert_matmul``, which autograd differentiates on the CPU
+    and which run kernels 1 and 6 and their backward kernels on the card.
+    ``reference=True`` runs the plain versions on any device."""
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+        what = "moe family's MLA" if cfg.use_mla else f"{cfg.family!r}"
         raise NotImplementedError(
-            f"{cfg.name}: loss_fn is ported for the dense family only; "
-            f"{cfg.family!r} training is not ported yet (it needs the "
-            "backward of its kernels)")
+            f"{cfg.name}: loss_fn is ported for the dense family only and "
+            f"the moe family with GQA attention; {what} training is not "
+            "ported yet (the ssm, hybrid, encdec and vlm families and "
+            "MLA need the backward of their kernels)")
     dev = _device(params)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = Lyr.embed(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=dev)
+    auxes = []
     for p in params["layers"]:
-        x, _ = _layer(cfg, p, x, positions, reference=reference)
+        x, _, aux = _layer(cfg, p, x, positions, reference=reference)
+        if aux is not None:
+            auxes.append(aux)
     x = Lyr.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     mask = batch.get("loss_mask")
-    return Lyr.cross_entropy(
+    loss = Lyr.cross_entropy(
         Lyr.logits(params["embed"], x, cfg),
         torch.as_tensor(batch["labels"], device=dev),
         None if mask is None else torch.as_tensor(mask, device=dev))
+    if auxes:
+        loss = loss + 0.01 * torch.stack(auxes).sum()
+    return loss
 
 
 def _layer_cache(kv: dict, i: int) -> dict:
@@ -401,10 +414,10 @@ def extend_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
         positions = pos[:, None] + torch.arange(C, device=dev)[None, :]
         kv, table = cache["kv"], cache.get("table")
         for i, p in enumerate(params["layers"]):
-            x, _ = _layer(cfg, p, x, positions, mode="extend",
-                          cache=_layer_cache(kv, i), pos=pos, rows=rows,
-                          table=table, enc=_enc_layer(cache, i),
-                          reference=reference)
+            x, _, _ = _layer(cfg, p, x, positions, mode="extend",
+                             cache=_layer_cache(kv, i), pos=pos, rows=rows,
+                             table=table, enc=_enc_layer(cache, i),
+                             reference=reference)
     step = C if rows is None else rows.to(torch.int32) * C
     cache["pos"] = pos + step
     return _head(cfg, params, x), cache
@@ -436,10 +449,10 @@ def decode_fn(cfg: ModelConfig, params, inputs: dict, cache: dict, *,
                                  cache["enc_kv"]["k"].shape[2],
                                  dtype=torch.int32, device=dev)
         for i, p in enumerate(params["layers"]):
-            x, _ = _layer(cfg, p, x, pos[:, None], mode="decode",
-                          cache=_layer_cache(kv, i), pos=pos, rows=rows,
-                          table=table, enc=_enc_layer(cache, i, enc_len),
-                          reference=reference)
+            x, _, _ = _layer(cfg, p, x, pos[:, None], mode="decode",
+                             cache=_layer_cache(kv, i), pos=pos, rows=rows,
+                             table=table, enc=_enc_layer(cache, i, enc_len),
+                             reference=reference)
     cache["pos"] = pos + (1 if rows is None else rows.to(torch.int32))
     return _head(cfg, params, x), cache
 

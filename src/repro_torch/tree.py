@@ -68,20 +68,23 @@ def tree_map(fn: Callable, tree, *rest):
     return type(tree)(out)
 
 
+def _build(t, it):
+    """``t``'s structure with its leaves taken from the iterator ``it``."""
+    if t is None:
+        return None
+    if _is_leaf(t):
+        return next(it)
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    out = [_build(c, it) for c in t]
+    return type(t)(*out) if _is_namedtuple(t) else type(t)(out)
+
+
 def unflatten(like, new_leaves) -> Any:
     """A tree of ``like``'s structure holding ``new_leaves``, given in
-    ``leaves(like)``'s order."""
-    it = iter(new_leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if _is_leaf(t):
-            return next(it)
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        out = [build(c) for c in t]
-        return type(t)(*out) if _is_namedtuple(t) else type(t)(out)
-
-    return build(like)
+    ``leaves(like)``'s order. A module-level helper, not a recursive
+    closure: a closure that calls itself is a reference cycle, which
+    would keep ``new_leaves`` (a step's gradients) alive until the
+    garbage collector ran."""
+    return _build(like, iter(new_leaves))

@@ -13,7 +13,11 @@ products and in fused multiply-adds, so 2e-5. The int8 kernels dequantize
 in fp32 as their plain versions do, so they are held to the same bounds.
 The expert GEMM sums up to 4096 fp32 products (2e-5 still holds at unit-
 variance inputs scaled by 1/sqrt(D)); the WKV6 kernel reads bf16 inputs
-but computes and writes fp32, so it is held to 2e-5 at both dtypes.
+but computes and writes fp32, so it is held to 2e-5 at both dtypes. The
+backward kernels (kernel 1's and kernel 6's) are also held by the
+relative norm of their error over a whole output, ||kernel - plain|| /
+||plain|| (1e-2 at bf16: a few units of its 2^-9 rounding; 1e-5 at fp32),
+which bounds the bulk where the abs + rel bound holds each element.
 """
 from __future__ import annotations
 
@@ -1128,8 +1132,8 @@ def test_ops_flash_attention_builds_no_graph_without_grad(gen):
 
 
 def test_flash_attention_fn_refuses_widths_without_a_backward(gen):
-    q = _rnd(gen, (1, 8, 4, 128), torch.bfloat16).requires_grad_()
-    k = _rnd(gen, (1, 8, 4, 128), torch.bfloat16)
+    q = _rnd(gen, (1, 8, 4, 256), torch.bfloat16).requires_grad_()
+    k = _rnd(gen, (1, 8, 4, 256), torch.bfloat16)
     with pytest.raises(ValueError, match="backward kernels are built for"):
         ops.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="built for"):
@@ -1159,12 +1163,221 @@ def test_dense_loss_grads_kernel_path_match_plain_path(gen):
 
 
 def test_train_config_refuses_head_dims_without_a_backward(gen):
-    """``launch/train.py`` on the card: the published width trains (hd
-    64); ``--d-model 768`` over the reduced config's 4 heads is hd 192,
-    which the backward kernels do not take, and is refused up front."""
+    """``launch/train.py`` on the card: the published widths train (hd
+    64, and hd 128 for phi3.5-moe and qwen3-14b); ``--d-model 768`` over
+    the reduced config's 4 heads is hd 192, which the backward kernels do
+    not take, and is refused up front."""
     from repro_torch.launch.train import train_config
     assert train_config("llama3.2-1b", "cuda").resolved_head_dim == 64
+    for arch in ("phi3.5-moe-42b-a6.6b", "qwen3-14b"):
+        assert train_config(arch, "cuda",
+                            num_layers=2).resolved_head_dim == 128
     assert train_config("llama3.2-1b", "cuda",
                         d_model=256).resolved_head_dim == 64
     with pytest.raises(ValueError, match="head dim 192"):
         train_config("llama3.2-1b", "cuda", d_model=768)
+
+
+# --------------------------------------- kernel 1's backward at hd 128
+
+def _rel_norm(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the hd-128 bf16 bodies stream 32 queries (dK/dV) or 32 keys (dQ) a tile
+# beside the 128 keys or rows a block: lengths and prefixes at those
+# edges too, and G = 5 (qwen3-14b's 40 heads over 8)
+BWD_EDGES_128 = BWD_EDGES + [
+    (1, 31, 31, 8, 2, True, 0),
+    (1, 33, 33, 8, 2, True, 0),
+    (1, 300, 300, 8, 2, True, 31),
+    (1, 300, 300, 8, 2, True, 33),
+    (1, 200, 200, 10, 2, True, 0),      # G = 5
+    (2, 257, 257, 40, 8, True, 0),      # qwen3-14b's heads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix", BWD_EDGES_128)
+def test_flash_bwd_kernels_hd128_match_plain(gen, dtype, B, Sq, Sk, H, KVH,
+                                             causal, prefix):
+    """Kernel 1's three backward kernels at hd 128 against
+    ``attention_bwd_ref``, by element and by relative norm."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, B, Sq, Sk, H, KVH,
+                                      causal, prefix, hd=128)
+    kw = dict(causal=causal, prefix_len=prefix)
+    D = FA.flash_attention_bwd_dot(o, do)
+    torch.testing.assert_close(
+        D, (o.float() * do.float()).sum(-1).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+        if Sq > 1:
+            assert _rel_norm(g, w) <= REL_NORM[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_hd128_are_deterministic(gen, dtype):
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, 1, 700, 700, 32, 8, True,
+                                      0, hd=128)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("B,Sq,H", [(1, 1, 1), (3, 37, 5), (2, 15, 32),
+                                    (1, 4099, 8)])
+def test_flash_bwd_dot_ragged_rows(gen, dtype, hd, B, Sq, H):
+    """(a) at row counts that fill no block: Sq not a multiple of the 16
+    positions a block takes, and odd head counts."""
+    o, do = (_rnd(gen, (B, Sq, H, hd), dtype) for _ in range(2))
+    D = FA.flash_attention_bwd_dot(o, do)
+    torch.testing.assert_close(
+        D, (o.float() * do.float()).sum(-1).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_fn_hd128_grads_match_plain_path(gen):
+    """Autograd through ``ops.flash_attention`` at hd 128, G = 4, fp32:
+    the kernels against the plain version's autograd."""
+    B, S, H, KVH, hd = 1, 77, 8, 2, 128
+    ins = [_rnd(gen, s, torch.float32) for s in
+           ((B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd))]
+    do = _rnd(gen, (B, S, H, hd), torch.float32)
+    out = {}
+    for name, attend in (("kernel", ops.flash_attention),
+                         ("plain", ref.attention_ref)):
+        ts = [t.clone().requires_grad_() for t in ins]
+        o = attend(*ts)
+        out[name] = (o, *torch.autograd.grad(o, ts, do))
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+# ------------------------------------------------- kernel 6's backward
+
+def _routed_fill(gen, E, tokens, k):
+    """Each expert's count when ``tokens`` tokens each pick k distinct
+    experts at random: fills 0 and small ones, as top-k routing gives."""
+    pick = torch.rand((tokens, E), generator=gen, device="cuda").topk(
+        k, dim=1).indices
+    return torch.bincount(pick.reshape(-1), minlength=E).to(torch.int32)
+
+
+# E, C, D, F, fill: C at the bf16 tile's 128 rows and either side, D and F
+# not multiples of 8 (the scalar-copy instantiation), every fill edge
+EXPERT_BWD_CASES = [
+    (16, 128, 512, 640, [0, 1, 128, 64, 127, 2, 0, 100, 5, 128, 33, 1, 0,
+                         77, 128, 9]),
+    (4, 127, 203, 300, [0, 1, 64, 127]),
+    (4, 129, 256, 384, [0, 1, 129, 100]),
+    (2, 64, 64, 64, [0, 0]),
+    (3, 130, 256, 128, None),
+    (160, 48, 512, 384, "top6"),        # 8 tokens over 160 experts, top-6
+]
+
+
+def _expert_bwd_inputs(gen, dtype, E, C, D, F, fill):
+    xe = _rnd(gen, (E, C, D), dtype)
+    w = (_rnd(gen, (E, D, F), torch.float32) / D ** 0.5).to(dtype)
+    dy = _rnd(gen, (E, C, F), dtype)
+    if fill == "top6":
+        f = _routed_fill(gen, E, C // 6, 6)
+    elif fill is None:
+        f = torch.full((E,), C, dtype=torch.int32, device="cuda")
+    else:
+        f = torch.tensor(fill, dtype=torch.int32, device="cuda")
+    return xe, w, f, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F,fill", EXPERT_BWD_CASES)
+def test_expert_matmul_bwd_kernels_match_plain(gen, dtype, E, C, D, F, fill):
+    """Kernel 6-bwd dX and dW against ``expert_matmul_bwd_ref``, by element
+    and by relative norm; dX zero past fill, dW zero for an empty
+    expert."""
+    from repro_torch.kernels.expert_matmul import (expert_matmul_bwd_dw,
+                                                   expert_matmul_bwd_dx)
+    xe, w, f, dy = _expert_bwd_inputs(gen, dtype, E, C, D, F, fill)
+    dxe = expert_matmul_bwd_dx(dy, w, f)
+    dw = expert_matmul_bwd_dw(xe, dy, f)
+    want = ref.expert_matmul_bwd_ref(xe, w, f, dy)
+    for got, wt in zip((dxe, dw), want):
+        assert got.dtype == dtype and got.shape == wt.shape
+        torch.testing.assert_close(got.float(), wt.float(), **TOL[dtype])
+        if wt.any():
+            assert _rel_norm(got, wt) <= REL_NORM[dtype]
+    rows = torch.arange(C, device="cuda")[None, :].expand(E, C)
+    assert not dxe[rows >= f[:, None]].any()
+    assert not dw[f == 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_matmul_bwd_kernels_are_deterministic(gen, dtype):
+    """No atomics and one block a dW tile: two runs bitwise equal."""
+    from repro_torch.kernels.expert_matmul import (expert_matmul_bwd_dw,
+                                                   expert_matmul_bwd_dx)
+    xe, w, f, dy = _expert_bwd_inputs(gen, dtype, *EXPERT_BWD_CASES[0])
+    for fn, args in ((expert_matmul_bwd_dx, (dy, w, f)),
+                     (expert_matmul_bwd_dw, (xe, dy, f))):
+        assert torch.equal(fn(*args), fn(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_matmul_fn_grads_match_plain_path(gen, dtype):
+    """Autograd through ``ops.expert_matmul`` on the card (the forward
+    kernel, then dX and dW, each launched once) against autograd through
+    the plain version; without grad, the forward kernel alone."""
+    from repro_torch.kernels import expert_matmul as EM
+    xe, w, f, dy = _expert_bwd_inputs(gen, dtype, 4, 129, 256, 384,
+                                      [0, 1, 129, 100])
+    kernels = (EM.expert_matmul, EM.expert_matmul_bwd_dx,
+               EM.expert_matmul_bwd_dw)
+    for fn in kernels:
+        fn.launches = 0
+    out = {}
+    for name, gemm in (("kernel", ops.expert_matmul),
+                       ("plain", ref.expert_matmul_ref)):
+        a, b = xe.clone().requires_grad_(), w.clone().requires_grad_()
+        y = gemm(a, b, f)
+        out[name] = (y, *torch.autograd.grad(y, (a, b), dy))
+    assert [fn.launches for fn in kernels] == [1, 1, 1]
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+    with torch.no_grad():
+        y = ops.expert_matmul(xe.clone().requires_grad_(), w, f)
+    assert y.grad_fn is None
+    assert [fn.launches for fn in kernels] == [2, 1, 1]
+
+
+def test_moe_loss_grads_kernel_path_match_plain_path(gen):
+    """``loss_fn`` of a small fp32 moe model with head dim 64 (2 layers, d
+    256, 4 heads over 2, 4 experts top-2) and its gradient: the kernel
+    path (kernels 1 and 6 and their backward kernels) against the plain
+    path, every leaf (the router's included) to 1e-4."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import expert_matmul as EM
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves
+    cfg = reduced(phi35_moe_42b, d_model=256, num_heads=4, num_kv_heads=2,
+                  head_dim=64, moe_d_ff=512, vocab_size=512, dtype="float32")
+    params = build(cfg).init_params(gen)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=96,
+                        global_batch=2).batch(0, "cuda")
+    kernels = (EM.expert_matmul, EM.expert_matmul_bwd_dx,
+               EM.expert_matmul_bwd_dw, FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    got = value_and_grad(build(cfg).loss_fn, params, batch)
+    assert [fn.launches for fn in kernels] == [6, 6, 6, 2]
+    want = value_and_grad(build(cfg, reference=True).loss_fn, params, batch)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5
+    for a, b in zip(leaves(got[1]), leaves(want[1])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
