@@ -113,7 +113,8 @@ Phases (any failure exits non-zero before the result line):
      steps at seq 4096, a global batch of 4 in 4 microbatches: every loss
      finite and the last below the first, kernel 1 (hd 128, G = 4) and its
      three backward kernels launched once per layer and microbatch, kernel
-     6 and its dX and dW kernels three times, no plain kernel call; step
+     6 and its dX and dW kernels three times (every dX and dW launch on
+     the wgmma body), no plain kernel call; step
      seconds, tokens/s, peak memory beside its reckoning, the model-FLOP
      share; a 2-layer fp32 copy's loss and every gradient leaf through the
      kernels match the plain path's; a 2-layer bf16 copy's gradient leaves
@@ -137,8 +138,10 @@ SDPA's backward (D beside ``torch.linalg.vecdot``); the same at hd 128
 (phi3.5-moe's B 1 x 4096 and qwen3-14b's G = 5 at B 1 x 2048, and the
 hd-128 bodies' 32-position tiles' edges); and kernel 6's backward (dX,
 dW) against its plain version at its fill and tile edges, 160 experts
-top-6 and phi3.5-moe's training microbatch, timed there beside its bound
-and ``torch.bmm``; phase 2 prints their registers and spills.
+top-6 and phi3.5-moe's training microbatch, each case naming the body it
+took (wgmma, mma.sync or the fp32 FMA body), timed at the microbatch
+beside its bound and ``torch.bmm``, with kernel 6's forward there too;
+phase 2 prints their registers, spills and shared memory.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -480,13 +483,18 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
 def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
     """Phase 3: kernel 6's backward (dX and dW) against its plain version
     (``ref.expert_matmul_bwd_ref``) at bf16 and fp32, by element and by
-    relative norm: fill 0, 1, ragged and C, D and F not multiples of 8, C
-    at the bf16 body's 128-row tile and either side, 160 experts top-6;
-    then at phi3.5-moe's training microbatch (E 16, C = T = 4096, top-2
-    fills from a seeded routing, D 4096, F 6400), gate/up and down, bf16:
-    two runs bitwise equal and each kernel's time beside its bound, the
-    plain version's (dX and dW together) and ``torch.bmm`` over every
-    row. Its own generator, so every other input stays as it was."""
+    relative norm: fill 0, 1, ragged and C, D and F not multiples of 8 (the
+    mma.sync body), C at the 128-row tiles and either side, fills at and
+    either side of the wgmma body's 64-row warpgroups, every fill 0, D not
+    a multiple of its 256 columns, F a multiple of 8 but not of its 64-deep
+    slabs, 160 experts top-6, each case naming the body that dX and dW
+    took; then at phi3.5-moe's training microbatch (E 16, C = T = 4096,
+    top-2 fills from a seeded routing, D 4096, F 6400), gate/up and down,
+    bf16: two runs bitwise equal and each kernel's time beside its bound,
+    the plain version's (dX and dW together) and ``torch.bmm`` over every
+    row, and kernel 6's forward there (the training forward) beside its
+    bound, plain version and ``torch.bmm``. Its own generator, so every
+    other input stays as it was."""
     import torch
     from repro_torch.kernels import expert_matmul as EM
     from repro_torch.kernels import ref
@@ -512,7 +520,11 @@ def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         dxe = EM.expert_matmul_bwd_dx(dy, w, f)
         dw = EM.expert_matmul_bwd_dw(xe, dy, f)
         want = ref.expert_matmul_bwd_ref(xe, w, f, dy)
-        C = xe.shape[1]
+        E, C, Din = xe.shape
+        Dout = dy.shape[2]
+        bodies = (EM.bwd_body(dy, w, dxe, Din, Dout),
+                  EM.bwd_body(xe, dy, dw, Din, Dout))
+        print(f"  {case}: dX body {bodies[0]}, dW body {bodies[1]}")
         rows_past = torch.arange(C, device=dev)[None, :] >= f[:, None]
         check(not dxe[rows_past].any(), f"expert_matmul_bwd_dx {case}: rows "
               "past fill are not zero")
@@ -529,6 +541,7 @@ def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
                       f"{BWD_REL_NORM[dtype]}")
                 print(f"  {name} {case}: ||kernel - plain|| / ||plain|| "
                       f"{e:.3g} (bound {BWD_REL_NORM[dtype]})")
+        return bodies
 
     print("[kernels] expert_matmul_bwd_dx / _dw vs expert_matmul_bwd_ref")
     for dtype in ("bfloat16", "float32"):
@@ -539,6 +552,10 @@ def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
                 (4, 127, 203, 300, [0, 1, 64, 127]),
                 (4, 129, 256, 384, [0, 1, 129, 100]),
                 (2, 64, 64, 64, [0, 0]),
+                (8, 300, 640, 1536, [63, 64, 65, 127, 129, 191, 257, 300]),
+                (4, 520, 1536, 640, [520] * 4),
+                (3, 256, 640, 200, [0, 0, 0]),
+                (3, 256, 640, 200, [255, 17, 256]),
                 (160, 48, 512, 384, routed_fill(160, 8, 6))):
             xe, w, f, dy = inputs(E, C, D, F_, fill, dt)
             check_pair(xe, w, f, dy, dtype,
@@ -559,7 +576,7 @@ def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         dy[rows_past] = 0
         case = (f"bfloat16 E={E} C=T={T} D={Din} F={Dout} top-2 ({live} "
                 f"live rows, {live_e} experts) {label}")
-        check_pair(xe, w, f, dy, "bfloat16", case)
+        bodies = check_pair(xe, w, f, dy, "bfloat16", case)
         for fn, args in ((EM.expert_matmul_bwd_dx, (dy, w, f)),
                          (EM.expert_matmul_bwd_dw, (xe, dy, f))):
             check(torch.equal(fn(*args), fn(*args)),
@@ -568,30 +585,54 @@ def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         plain = time_ms(lambda: ref.expert_matmul_bwd_ref(xe, w, f, dy),
                         flush, reps=5)
         flops = 2.0 * live * Din * Dout
-        for name, fn, lib_fn, nbytes in (
+        for name, fn, lib_fn, nbytes, body in (
                 ("expert_matmul_bwd_dx",
                  lambda: EM.expert_matmul_bwd_dx(dy, w, f),
                  lambda: torch.bmm(dy, w.transpose(1, 2)),
                  # live rows of dy, live experts' w, the whole output
-                 2 * (live * Dout + live_e * Din * Dout + E * T * Din)),
+                 2 * (live * Dout + live_e * Din * Dout + E * T * Din),
+                 bodies[0]),
                 ("expert_matmul_bwd_dw",
                  lambda: EM.expert_matmul_bwd_dw(xe, dy, f),
                  lambda: torch.bmm(xe.transpose(1, 2), dy),
                  # live rows of xe and dy, the whole output
-                 2 * (live * (Din + Dout) + E * Din * Dout))):
+                 2 * (live * (Din + Dout) + E * Din * Dout), bodies[1])):
             ms = time_ms(fn, flush)
             lib = time_ms(lib_fn, flush)
             b_ms, b_by = bound(nbytes + 4 * E, flops, BF16_FLOP_PER_S)
-            print(f"  {name} {label}: kernel {ms:.4f} ms, plain (dX and dW) "
-                  f"{plain:.4f}, library (bmm, every row) {lib:.4f}, bound "
-                  f"{b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound, kernel "
-                  f"/ library {ms / lib:.2f}")
+            print(f"  {name} {label} ({body} body): kernel {ms:.4f} ms, "
+                  f"plain (dX and dW) {plain:.4f}, library (bmm, every row) "
+                  f"{lib:.4f}, bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} "
+                  f"of bound, kernel / library {ms / lib:.2f}")
             entry = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, shape=case)
+                         bound_by=b_by, shape=case, body=body)
             if label == "gate/up":
                 rows[name].update(entry)
             else:
                 extra_shapes.setdefault(name, []).append(entry)
+        # the training forward at the same microbatch (phase 13's kernel 6
+        # launches), on the same inputs: live rows of xe, live experts' w,
+        # the whole output
+        got = EM.expert_matmul(xe, w, f)
+        check(not got[rows_past].any(), f"expert_matmul {case}: rows past "
+              "fill are not zero")
+        compare("expert_matmul", got, ref.expert_matmul_ref(xe, w, f),
+                "bfloat16", case)
+        del got
+        ms = time_ms(lambda: EM.expert_matmul(xe, w, f), flush)
+        fwd_plain = time_ms(lambda: ref.expert_matmul_ref(xe, w, f), flush,
+                            reps=5)
+        lib = time_ms(lambda: torch.bmm(xe, w), flush)
+        b_ms, b_by = bound(2 * (live * Din + live_e * Din * Dout
+                                + E * T * Dout) + 4 * E, flops,
+                           BF16_FLOP_PER_S)
+        print(f"  expert_matmul (forward) {label}: kernel {ms:.4f} ms, plain "
+              f"{fwd_plain:.4f}, library (bmm, every row) {lib:.4f}, bound "
+              f"{b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound, kernel / "
+              f"library {ms / lib:.2f}")
+        extra_shapes.setdefault("expert_matmul", []).append(dict(
+            ms=ms, plain_ms=fwd_plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, shape=f"training forward: {case}"))
         del xe, w, dy
         torch.cuda.empty_cache()
 
@@ -855,6 +896,8 @@ def moe_trainer(dev, smi) -> dict:
     for name, fn in plain.items():
         setattr(ref, name, counted(name, fn))
     reset(*kernels)
+    for k in experts[1:]:
+        k.bodies = {}
     try:
         out = train_loop(arch=arch, steps=steps, global_batch=B, seq_len=S,
                          num_microbatches=nm, device="cuda", num_layers=L,
@@ -873,6 +916,10 @@ def moe_trainer(dev, smi) -> dict:
           f"(one attention call and 3 expert GEMMs a layer and microbatch)")
     check(not plain_calls, f"moe trainer: plain kernels on the card's path: "
           f"{sorted(set(plain_calls))}")
+    bodies = {k.__name__: k.bodies for k in experts[1:]}
+    check(all(b == {"wgmma": want[n]} for n, b in bodies.items()),
+          f"moe trainer: kernel 6's backward bodies {bodies}, want every "
+          f"launch on wgmma")
     losses = out["losses"]
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
           f"moe trainer: losses {losses}")
@@ -921,7 +968,7 @@ def moe_trainer(dev, smi) -> dict:
           f"{flop / steady / BF16_FLOP_PER_S:.1%}")
     print(f"[moe-train] launches {launched} (a step: "
           f"{ {k: v // steps for k, v in launched.items()} }); plain kernel "
-          f"calls 0")
+          f"calls 0; kernel 6's backward by body {bodies}")
     del out
     torch.cuda.empty_cache()
 
@@ -1176,9 +1223,13 @@ def main() -> int:
                 (f"{dt} hd={hd} dK/dV and dQ",
                  bwd_smem_bytes(getattr(torch, dt), hd))
                 for dt in ("bfloat16", "float32") for hd in (64, 128)],
-            # kernel 6's backward: the bf16 bodies' rings (fp32: static)
+            # kernel 6's backward: each bf16 body's launch (fp32:
+            # static). The wgmma bodies' ptxas count is their launch's
+            # (384 threads); after setmaxnreg the two consumer warpgroups
+            # hold 224 and the producer's 56
             "expert_matmul_bwd": [
-                (f"bfloat16 {what}", expert_bwd_smem_bytes(torch.bfloat16, dw))
+                (f"bfloat16 {body} {what}", expert_bwd_smem_bytes(body, dw))
+                for body in ("wgmma", "mma.sync")
                 for what, dw in (("dX", False), ("dW", True))]}
     # decode_split_fwd's mangled arguments: q type, cache type, hd, paged
     mangled = {"13__nv_bfloat16": "bf16", "f": "fp32", "a": "int8"}
@@ -1191,13 +1242,10 @@ def main() -> int:
         return (f"{mangled[q_t]}, {mangled.get(c_t, mangled[q_t])}, {hd_}, "
                 f"{'paged' if paged == '1' else 'dense'}")
 
-    # expert_bwd_mma's mangled arguments: the tile, dW or dX, vector or
-    # scalar copies
+    # kernel 6's backward bodies' mangled arguments end with dW (1) or dX
     def expert_bwd_args(m):
-        hit = re.search(r"ELb([01])ELb([01])E$", m)
-        return m if not hit else (f"{'dW' if hit[1] == '1' else 'dX'}, "
-                                  f"{'16-byte' if hit[2] == '1' else 'scalar'}"
-                                  f" copies")
+        hit = re.search(r"Lb([01])E$", m)
+        return m if not hit else "dW" if hit[1] == "1" else "dX"
 
     # kernel 1 with its LSE output is the same instantiation (a pointer
     # argument, null when serving): its flash_fwd_mma<64, 64, 1> line is
@@ -1214,12 +1262,13 @@ def main() -> int:
                               r"paged_extend_fwd|wkv6_chunked|"
                               r"decode_split_fwd|bwd_dkdv_wgmma|bwd_dq_wgmma|"
                               r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot|"
-                              r"expert_bwd_mma|expert_bwd_fma)I(.*?)EEv",
-                              line)
+                              r"expert_bwd_wgmma|expert_bwd_mma|"
+                              r"expert_bwd_fma)I(.*?)EEv", line)
                 fn = (None if not m else f"{m[1]}<{decode_args(m[2])}>"
                       if m[1] == "decode_split_fwd" else
                       f"{m[1]}<{expert_bwd_args(m[2])}>"
-                      if m[1] == "expert_bwd_mma" else f"{m[1]}<{m[2]}>")
+                      if m[1].startswith("expert_bwd") else
+                      f"{m[1]}<{m[2]}>")
                 fn = fn or line.split("'")[1]
             elif "spill stores" in line:
                 spill = line.strip()

@@ -15,44 +15,435 @@
 //   dW: dw[e] = xe[e, :fill]^T @ dy[e, :fill], [E, Din, Dout]; an expert
 //       with fill 0 gets zeros.
 // What bounds them on the H100 at phi3.5-moe's training microbatch (T = C
-// = 4096, 16 experts, top-2, ~512 live rows an expert): dX the bytes of w
-// (read once) and of the whole [E, C, Din] output (dead rows written as
-// zeros); dW the 2 * live * Din * Dout products on the tensor cores.
-// bf16 (expert_bwd_mma, the training path): a block computes a 128 x 128
-// output tile by mma.sync m16n8k16 with fp32 accumulators (4 warps, each
-// 64 x 64: a fragment read from shared memory feeds 4 or 8 products),
-// from slabs of A and B in a shared-memory ring filled by 16-byte
-// cp.async, the next slabs in flight while the tensor cores work on the
-// oldest (kernel 6's forward pipeline, csrc/expert_matmul.cu): dX 64-deep
-// slabs in 3 stages, dW 32-deep in 4 (the faster of the two for each on
-// the card at phi3.5-moe's training shapes; 8 warps of 32 x 64 were
-// slower for both). Rows are padded by 16 bytes (ldmatrix without bank
-// conflicts). The operands are read where they lie, with no transposed
-// copy (one of w would move 0.84 GB a GEMM at phi3.5's width):
-//  * dX: A = dy rows (the contraction Dout contiguous), B = w[e] rows
-//    [Din, Dout], also Dout-contiguous, i.e. B stored n-major, so plain
-//    ldmatrix gives mma's column-major B fragments; a tile whose first
-//    row is at or past fill writes zeros without reading w, and a warp
-//    whose rows all lie past it skips its products;
-//  * dW: the contraction runs over the live rows c < fill[e] only, in row
-//    order, in one block per output tile: no split over c, no atomics, so
-//    two runs are bitwise equal (the trainer's restart check relies on
-//    it). A = xe read M-major (Din contiguous: ldmatrix.trans), B = dy
-//    read as kernel 6 reads w (ldmatrix.trans).
-// Rows that are not 16-byte aligned (Din or Dout not a multiple of 8, or
-// an unaligned base) take an instantiation with scalar loads into the same
-// ring; ragged C, Din and Dout are masked here.
+// = 4096, 16 experts, top-2, ~512 live rows an expert, D 4096, F 6400): dX
+// as much its bytes (w read once, the whole [E, C, Din] output written,
+// 7/8 of it dead rows of zeros) as its 2 * live * Din * Dout products; dW
+// the products (its output, 0.84 GB at that width, takes 0.6 of their
+// time).
+//
+// bf16 (expert_bwd_wgmma, the training path): one persistent block an SM
+// walks a list of 128 x 256 output tiles that every thread builds from
+// fill on the device (no host read of fill, no counter, no scratch):
+// block b takes tiles b, b + gridDim.x, ...
+//  * dX: the live tiles only, expert by expert, ceil(live / 128) row tiles
+//    by ceil(Din / 256) column tiles, the row tile fastest, so the blocks
+//    that run together share one column tile of w[e] and it comes from
+//    device memory about once;
+//  * dW: every tile of every expert, expert-major (its live rows of xe and
+//    dy stay in L2 while its tiles run), the row tile fastest.
+// Three warpgroups: the third gives up its registers (setmaxnreg) and one
+// of its threads produces, TMA loads of 64-deep slabs of A and B (boxes of
+// 64 columns, 128-byte swizzled) into a ring of 3 slots under full/empty
+// mbarriers; the first two consume, 64 output rows each, on wgmma
+// m64n256k16 (128 fp32 accumulators a thread, 224 registers), reading both
+// operands from shared memory, and release a slot as soon as their own
+// products on it are done (the other warpgroup's keep the tensor cores
+// busy meanwhile). The operands are read where they lie, with no
+// transposed copy:
+//  * dX: A = dy rows and B = w[e] rows, both with Dout contiguous: plain
+//    K-major descriptors;
+//  * dW: A = xe[e, k-slab, rows] and B = dy[e, k-slab, columns], both
+//    MN-major, read through wgmma's transpose bits; B spans four 64-column
+//    boxes, 8 KB apart (the descriptor's leading byte offset).
+// The epilogue's stores overlap the next tile: each consumer warpgroup
+// rounds its 64 x 256 accumulators to bf16 into its own half of a staging
+// tile (the 128-byte swizzle, so the writes hit no bank twice) and one
+// thread writes it with TMA stores; it waits for those stores to have read
+// the half only when it next writes it, while the producer already fills
+// the ring with the next tile's slabs. The rounding and staging writes
+// themselves are not overlapped with products: two warpgroups taking turns
+// over separate tiles would each read all of B for half the rows, and the
+// wgmma operands and TMA fills already take most of the shared memory's
+// bandwidth; writing straight from the accumulators to device memory (4
+// bytes a thread a row) was slower for dW on the card. Two runs are
+// bitwise equal: one block owns each output tile and sums its slabs in
+// order, no atomics.
+// fill masking:
+//  * dX: output row c depends on dy row c alone, so A needs no mask: rows
+//    at or past fill inside the last live tile of an expert are zeroed in
+//    the staging tile, and a consumer warpgroup whose 64 rows all lie past
+//    fill skips its wgmmas. The rows past the last live tile of expert e
+//    form one contiguous span of the output, [ceil(fill[e] / 128) 128,
+//    C) x Din; the producer writes it with bulk stores of an 8 KB zeroed
+//    buffer, one piece every few slabs of its tiles (paced so that the
+//    zeros' bytes spread over the products), never reading w there.
+//  * dW: a TMA box clips at the tensor's bounds, not at fill, so in the
+//    slab that holds fill the consumers zero dy's rows at or past it in
+//    shared memory (what the plain version masks), fence them to the async
+//    proxy and meet at a named barrier before the wgmmas read them. An
+//    expert with fill 0 has no slabs and stores its zeroed accumulators.
+// Shapes TMA cannot address (a base not 16-byte aligned, Din or Dout not a
+// multiple of 8) take expert_bwd_mma, mma.sync m16n8k16 over 128 x 128
+// tiles from ldmatrix, slabs copied by scalar loads into a shared-memory
+// ring: a dispatch by shape (body() below, which the wrapper and its tests
+// query), not a fallback: a launch that fails raises.
 // fp32 (expert_bwd_fma, the checks' path): fp32 FMAs on the CUDA cores
 // from 16-deep slabs in shared memory, as the forward's fp32 body (TF32
 // cannot meet the fp32 checks).
 
+#include <algorithm>
+#include <climits>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace rt;
 
 namespace {
+
+// ------------------------------------------------------------ bf16: wgmma
+// The wgmma body's layout: a BM x BN output tile, 64 rows a consumer
+// warpgroup; BK-deep slabs of A (BM x BK) and B (BN x BK) in kStages ring
+// slots, TMA boxes of 64 columns (128 bytes) by 64 or more rows; a staging
+// tile for the bf16 output, one half a consumer warpgroup, each half BN /
+// 64 boxes of [64 rows][64 columns]; dX also keeps kZero bytes of zeros,
+// the source of its dead-row stores; the full and empty barriers.
+template <bool kDW>
+struct Gw {
+  static constexpr int BM = 128, BN = 256, BK = 64;
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 3 * 128;
+  static constexpr int kConsumers = 2 * 128;
+  static constexpr int kBox = 64 * 128;                 // [64][64] bf16
+  // rows of a TMA box of A and of B: dX [BM or BN rows][64 columns of
+  // k]; dW [BK rows of k][64 columns], BM / 64 and BN / 64 boxes a slab
+  static constexpr int kARows = kDW ? BK : BM, kBRows = kDW ? BK : BN;
+  static constexpr int kATile = BM * BK * 2;
+  static constexpr int kStage = kATile + BN * BK * 2;   // 48 KB
+  static constexpr int kOutAt = kStages * kStage;
+  static constexpr int kOutHalf = BN / 64 * kBox;       // 32 KB
+  static constexpr int kZeroAt = kOutAt + 2 * kOutHalf;
+  static constexpr int kZero = kDW ? 0 : 8192;
+  static constexpr int kBarsAt = kZeroAt + kZero;
+  // 1024 bytes more than the layout: the swizzled tiles start 1024-aligned
+  static constexpr size_t bytes = 1024 + kBarsAt + 2 * kStages * 8;
+};
+
+// a ring's slot and the parity of its current round
+struct Ring {
+  int st = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++st == n) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// The tile list that every thread of the block walks in the same order,
+// from fill alone (see the header): `seek` gives tile t's expert (e, its
+// live rows) and first output row and column; t never goes back.
+template <bool kDW>
+struct Tiles {
+  using L = Gw<kDW>;
+  const int* fill;
+  int E, C, mt, nt;   // row tiles an expert (dW) and column tiles
+  int e = 0, live = 0, base = 0, rows_e = 0;   // dX: the expert cursor
+  __device__ Tiles(const int* f, int E_, int C_, int Din, int Dout)
+      : fill(f), E(E_), C(C_), mt((Din + L::BM - 1) / L::BM),
+        nt(((kDW ? Dout : Din) + L::BN - 1) / L::BN) {
+    if (!kDW) set(0);
+  }
+  __device__ int live_of(int x) const {
+    return min(max(__ldg(fill + x), 0), C);
+  }
+  __device__ void set(int x) {
+    e = x;
+    live = x < E ? live_of(x) : 0;
+    rows_e = (live + L::BM - 1) / L::BM;
+  }
+  __device__ int total() const {
+    if (kDW) return E * mt * nt;
+    int n = 0;
+    for (int x = 0; x < E; ++x) n += (live_of(x) + L::BM - 1) / L::BM;
+    return n * nt;
+  }
+  __device__ void seek(int t, int& m0, int& n0) {
+    int local, per;
+    if constexpr (kDW) {
+      e = t / (mt * nt);
+      live = live_of(e);
+      local = t - e * mt * nt;
+      per = mt;
+    } else {
+      while (t >= base + rows_e * nt) {
+        base += rows_e * nt;
+        set(e + 1);
+      }
+      local = t - base;
+      per = rows_e;
+    }
+    m0 = local % per * L::BM;
+    n0 = local / per * L::BN;
+  }
+};
+
+// dX's dead rows: expert e's span of the output from the end of its last
+// live tile to C, cut in pieces of kZero bytes (the last one shorter),
+// numbered expert by expert; `seek` gives piece z's byte offset in the
+// output and its length; z never goes back.
+struct Dead {
+  static constexpr int kPiece = Gw<false>::kZero;
+  const int* fill;
+  int E, C;
+  long long row_bytes;
+  int e = 0, base = 0, n = 0;     // expert e's pieces: [base, base + n)
+  long long start = 0, bytes = 0;
+  __device__ Dead(const int* f, int E_, int C_, int Din)
+      : fill(f), E(E_), C(C_), row_bytes(2LL * Din) {
+    set(0);
+  }
+  __device__ void set(int x) {
+    e = x;
+    if (x >= E) return;
+    const int live = min(max(__ldg(fill + x), 0), C);
+    const int r0 = min(C, (live + Gw<false>::BM - 1) / Gw<false>::BM *
+                              Gw<false>::BM);
+    start = ((long long)x * C + r0) * row_bytes;
+    bytes = (long long)(C - r0) * row_bytes;
+    n = (int)((bytes + kPiece - 1) / kPiece);
+  }
+  __device__ int total() {
+    int z = 0;
+    for (int x = 0; x < E; ++x) {
+      set(x);
+      z += n;
+    }
+    set(0);
+    return z;
+  }
+  __device__ void seek(int z, long long& off, uint32_t& len) {
+    while (z >= base + n) {
+      base += n;
+      set(e + 1);
+    }
+    const long long o = (long long)(z - base) * kPiece;
+    off = start + o;
+    len = (uint32_t)min((long long)kPiece, bytes - o);
+  }
+};
+
+// dX (kDW false): out [E, C, Din], rows < fill = a [E, C, Dout] (dy) times
+//   b [E, Din, Dout] (w) transposed, rows past fill zero.
+// dW (kDW true): out [E, Din, Dout] = a [E, C, Din] (xe) transposed over
+//   its rows < fill, times b [E, C, Dout] (dy) over the same rows.
+// ta, tb, tout: their 3-d tensor maps (encode_3d), boxes of Gw's kARows,
+// kBRows and 64 rows.
+template <bool kDW>
+__global__ void __launch_bounds__(Gw<kDW>::kThreads, 1)
+expert_bwd_wgmma(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tout,
+                 const int* __restrict__ fill, uint8_t* __restrict__ out,
+                 int E, int C, int Din, int Dout) {
+  using L = Gw<kDW>;
+  constexpr int BM = L::BM, BN = L::BN, BK = L::BK, kS = L::kStages;
+  extern __shared__ float4 smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBarsAt);
+  uint64_t* empty = full + kS;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + s, 1);                      // the producer's, + bytes
+      mbar_init(empty + s, L::kConsumers / 32);    // one a consumer warp
+    }
+    mbar_fence_init();
+  }
+  if constexpr (!kDW) {
+    for (int i = tid; i < L::kZero / 16; i += L::kThreads)
+      reinterpret_cast<uint4*>(sm + L::kZeroAt)[i] = make_uint4(0, 0, 0, 0);
+    fence_proxy_async();   // before the producer's bulk stores read them
+  }
+  __syncthreads();
+  Tiles<kDW> tiles(fill, E, C, Din, Dout);
+  const int n_tiles = tiles.total();
+  const int nk_dx = (Dout + BK - 1) / BK;   // dX's slabs: all of Dout
+
+  if (tid >= L::kConsumers) {   // ----------------------------- producer
+    setmaxnreg_dec<56>();
+    if (tid != L::kConsumers) return;
+    const int b = blockIdx.x, G = gridDim.x;
+    // dX: this block's pieces of dead rows (b, b + G, ...), issued in step
+    // with its slabs: after slab s of S, s * pieces / S of them
+    Dead dead(fill, E, C, Din);
+    int pieces = 0, issued = 0;
+    long long slabs = 1, done = 0;
+    if constexpr (!kDW) {
+      const int z = dead.total();
+      pieces = z > b ? (z - 1 - b) / G + 1 : 0;
+      slabs = (long long)(n_tiles > b ? (n_tiles - 1 - b) / G + 1 : 0) *
+              nk_dx;
+    }
+    auto zeros = [&](long long upto) {
+      for (; issued < upto; ++issued) {
+        long long off;
+        uint32_t len;
+        dead.seek(b + issued * G, off, len);
+        bulk_store(out + off, sm + L::kZeroAt, len);
+        bulk_commit();
+      }
+    };
+    Ring r;
+    for (int t = b; t < n_tiles; t += G) {
+      int m0, n0;
+      tiles.seek(t, m0, n0);
+      const int e = tiles.e;
+      const int nk = kDW ? (tiles.live + BK - 1) / BK : nk_dx;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&empty[r.st], r.ph ^ 1);
+        uint8_t* st = sm + r.st * L::kStage;
+        mbar_expect_tx(&full[r.st], L::kStage);
+        if constexpr (kDW) {   // [BK rows of k][64 columns] boxes
+#pragma unroll
+          for (int x = 0; x < BM / 64; ++x)
+            tma_load_3d(st + x * BK * 128, &ta, &full[r.st], m0 + 64 * x,
+                        kb * BK, e);
+#pragma unroll
+          for (int x = 0; x < BN / 64; ++x)
+            tma_load_3d(st + L::kATile + x * BK * 128, &tb, &full[r.st],
+                        n0 + 64 * x, kb * BK, e);
+        } else {               // [rows][64 columns of k] boxes
+          tma_load_3d(st, &ta, &full[r.st], kb * BK, m0, e);
+          tma_load_3d(st + L::kATile, &tb, &full[r.st], kb * BK, n0, e);
+        }
+        r.next(kS);
+        if constexpr (!kDW) zeros(++done * pieces / slabs);
+      }
+    }
+    zeros(pieces);
+    bulk_wait_read<0>();
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  setmaxnreg_inc<224>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int q = lane >> 2;   // accumulator rows 16 warp + q (+ 8)
+  const bool leader = (tid & 127) == 0;
+  const int rows = kDW ? Din : C, cols = kDW ? Dout : Din;
+  uint8_t* half = sm + L::kOutAt + wg * L::kOutHalf;
+  Ring r;
+  float acc[128];
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int m0, n0;
+    tiles.seek(t, m0, n0);
+    const int live = tiles.live;
+    const int nk = kDW ? (live + BK - 1) / BK : nk_dx;
+    const int mw = m0 + 64 * wg;   // this warpgroup's first output row
+    const bool on = kDW || mw < live;   // dX: rows past fill skip products
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&full[r.st], r.ph);
+      uint8_t* st = sm + r.st * L::kStage;
+      if constexpr (kDW) {
+        // the slab that holds fill: dy's rows at or past it to zeros (rows
+        // past C came as zeros)
+        const int rz = live - kb * BK;
+        if (rz < BK && live < C) {
+          for (int i = tid; i < BN / 64 * BK * 8; i += L::kConsumers)
+            if ((i >> 3) % BK >= rz)
+              reinterpret_cast<uint4*>(st + L::kATile)[i] =
+                  make_uint4(0, 0, 0, 0);
+          fence_proxy_async();
+          bar_sync(1, L::kConsumers);
+        }
+      }
+      if (on) {
+        uint64_t da, db;
+        if constexpr (kDW) {   // MN-major: B's four boxes BK rows apart
+          da = desc_mn_major(st + wg * BK * 128, BK * 128);
+          db = desc_mn_major(st + L::kATile, BK * 128);
+        } else {               // K-major: this warpgroup's 64 rows of A
+          da = desc_k_major(st + wg * 64 * 128);
+          db = desc_k_major(st + L::kATile);
+        }
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // a k-step: 32 bytes along a K-major row, 16 rows (2048 bytes)
+          // down an MN-major box
+          const uint64_t step = kDW ? 128 * kk : 2 * kk;
+          wgmma_ss<kDW, kDW>(acc, da + step, db + step);
+        }
+        wgmma_commit();
+        // the slot is free once this warpgroup's products on it are done;
+        // the other warpgroup's keep the tensor cores busy meanwhile
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(&empty[r.st]);
+      } else if (lane == 0) {
+        mbar_arrive(&empty[r.st]);
+      }
+      r.next(kS);
+    }
+
+    // epilogue: the previous tile's stores have read this half
+    if (leader) bulk_wait_read<0>();
+    bar_sync(2 + wg, 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = warp * 16 + q + 8 * h;   // of the warpgroup's 64
+      const bool keep = kDW || mw + row < live;
+      // row % 8 == q: the swizzle moves 16-byte chunk c to c ^ q
+      uint8_t* rp = half + row * 128 + (lane & 3) * 4;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const uint32_t v =
+            keep ? pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]) : 0u;
+        *reinterpret_cast<uint32_t*>(rp + (j >> 3) * L::kBox +
+                                     (((j & 7) ^ q) << 4)) = v;
+      }
+    }
+    fence_proxy_async();
+    bar_sync(2 + wg, 128);
+    if (leader && mw < rows) {
+#pragma unroll
+      for (int x = 0; x < BN / 64; ++x)
+        if (n0 + 64 * x < cols)
+          tma_store_3d(&tout, half + x * L::kBox, n0 + 64 * x, mw, tiles.e);
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait_read<0>();
+}
+
+template <bool kDW>
+int launch_wgmma(const void* a, const void* b, const int* fill, void* out,
+                 int E, int C, int Din, int Dout, cudaStream_t stream) {
+  using L = Gw<kDW>;
+  const int rows = kDW ? Din : C, cols = kDW ? Dout : Din;
+  if (kDW ? C == 0 : Dout == 0)   // no contraction: zeros
+    return (int)cudaMemsetAsync(out, 0, (size_t)E * rows * cols * 2, stream);
+  CUtensorMap ta, tb, to;
+  const bool ok = encode_3d(&ta, a, kDW ? Din : Dout, C, E, L::kARows) &&
+                  encode_3d(&tb, b, Dout, kDW ? C : Din, E, L::kBRows) &&
+                  encode_3d(&to, out, cols, rows, E, 64);
+  const long long tiles = (long long)E * ((rows + L::BM - 1) / L::BM) *
+                          ((cols + L::BN - 1) / L::BN);
+  if (!ok || tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  // dX: every SM (its dead rows are spread over all blocks); dW: at most
+  // one block a tile
+  const int grid =
+      kDW ? (int)std::min<long long>(tiles, sm_count()) : sm_count();
+  const size_t smem = L::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      expert_bwd_wgmma<kDW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  expert_bwd_wgmma<kDW><<<grid, L::kThreads, smem, stream>>>(
+      ta, tb, to, fill, static_cast<uint8_t*>(out), E, C, Din, Dout);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- bf16: mma.sync
+// The body of the shapes TMA cannot address: 128 x 128 tiles, 4 warps of
+// 64 x 64 on mma.sync m16n8k16 from ldmatrix, slabs copied by scalar loads
+// into a ring (dX 64-deep in 3 stages, dW 32-deep in 4).
 
 // kWM x kWN warps, each owning kMT m16 by kNT n8 fragments; kBK-deep slabs
 // in a ring of kStagesT
@@ -83,11 +474,8 @@ struct Smem {
       Tl::kStages * (kAStage + kBStage) * sizeof(__nv_bfloat16);
 };
 
-// dX (kDW false): out [E, C, Din], rows < fill = a [E, C, Dout] (dy) times
-//   b [E, Din, Dout] (w) transposed, rows past fill zero.
-// dW (kDW true): out [E, Din, Dout] = a [E, C, Din] (xe) transposed over
-//   its rows < fill, times b [E, C, Dout] (dy) over the same rows.
-template <class Tl, bool kDW, bool kVec>
+// the same two functions as expert_bwd_wgmma, on any shape
+template <class Tl, bool kDW>
 __global__ void __launch_bounds__(Tl::kThreads)
 expert_bwd_mma(const __nv_bfloat16* __restrict__ a,
                const __nv_bfloat16* __restrict__ b,
@@ -110,19 +498,10 @@ expert_bwd_mma(const __nv_bfloat16* __restrict__ a,
   bf16* oe = out + (long long)e * rows * cols;
 
   if (!kDW && r0 >= live) {   // dX past fill: zeros, no bytes of w
-    if (kVec) {
-      for (int i = tid; i < BM * BN / 8; i += Tl::kThreads) {
-        const int r = r0 + i / (BN / 8), n = n0 + (i % (BN / 8)) * 8;
-        if (r < rows && n < cols)
-          *reinterpret_cast<uint4*>(oe + (long long)r * cols + n) =
-              make_uint4(0, 0, 0, 0);
-      }
-    } else {
-      for (int i = tid; i < BM * BN; i += Tl::kThreads) {
-        const int r = r0 + i / BN, n = n0 + i % BN;
-        if (r < rows && n < cols)
-          oe[(long long)r * cols + n] = from_float<bf16>(0.f);
-      }
+    for (int i = tid; i < BM * BN; i += Tl::kThreads) {
+      const int r = r0 + i / BN, n = n0 + i % BN;
+      if (r < rows && n < cols)
+        oe[(long long)r * cols + n] = from_float<bf16>(0.f);
     }
     return;
   }
@@ -150,7 +529,7 @@ expert_bwd_mma(const __nv_bfloat16* __restrict__ a,
         n = r0 + r < live ? Dout - (k0 + ac8) : 0;
         src = ab + (long long)(r0 + r) * Dout + k0 + ac8;
       }
-      copy_chunk(as + r * L::kAStride + ac8, n > 0 ? src : ab, n, kVec);
+      copy_chunk(as + r * L::kAStride + ac8, n > 0 ? src : ab, n, false);
     }
 #pragma unroll
     for (int r = br0; r < kBPass; r += kBRows) {
@@ -163,7 +542,7 @@ expert_bwd_mma(const __nv_bfloat16* __restrict__ a,
         n = n0 + r < Din ? Dout - (k0 + bc8) : 0;
         src = bb_ + (long long)(n0 + r) * Dout + k0 + bc8;
       }
-      copy_chunk(bs + r * L::kBStride + bc8, n > 0 ? src : bb_, n, kVec);
+      copy_chunk(bs + r * L::kBStride + bc8, n > 0 ? src : bb_, n, false);
     }
   };
 
@@ -181,18 +560,15 @@ expert_bwd_mma(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
+  // the scalar copies store at once: the barriers publish each slab
   const int k_tiles = ((kDW ? live : Dout) + BK - 1) / BK;
 #pragma unroll
-  for (int s = 0; s < kS - 1; ++s) {
+  for (int s = 0; s < kS - 1; ++s)
     if (s < k_tiles) load(s, s);
-    cp_async_commit();
-  }
   for (int kt = 0; kt < k_tiles; ++kt) {
     const int next = kt + kS - 1;  // its stage was freed at kt - 1's end
     if (next < k_tiles) load(next, next % kS);
-    cp_async_commit();
-    cp_async_wait<kS - 1>();       // slab kt landed
-    __syncthreads();
+    __syncthreads();               // slab kt stored
     if (warp_live) {
       const bf16* A = As + (kt % kS) * L::kAStage;
       const bf16* Bt = Bs + (kt % kS) * L::kBStage;
@@ -233,7 +609,6 @@ expert_bwd_mma(const __nv_bfloat16* __restrict__ a,
     }
     __syncthreads();  // this stage is free for the next copy
   }
-  cp_async_wait<0>();
 
   // accumulator rows lane / 4 (+ 8), columns 2 * (lane % 4) (+ 1)
   const bool pairs = cols % 2 == 0;  // bf16 pairs 4-byte aligned
@@ -264,21 +639,15 @@ template <bool kDW>
 int launch_mma(const void* a, const void* b, const int* fill, void* out,
                int E, int C, int Din, int Dout, cudaStream_t stream) {
   using Tl = BwdTile<kDW>;
-  // cp.async needs 16-byte aligned row starts: bases, Din and Dout
-  const bool vec = (reinterpret_cast<uintptr_t>(a) |
-                    reinterpret_cast<uintptr_t>(b) |
-                    reinterpret_cast<uintptr_t>(out)) % 16 == 0 &&
-                   Din % 8 == 0 && Dout % 8 == 0;
   const int rows = kDW ? Din : C, cols = kDW ? Dout : Din;
   const dim3 grid((cols + Tl::BN - 1) / Tl::BN, (rows + Tl::BM - 1) / Tl::BM,
                   E);
-  auto kern = vec ? expert_bwd_mma<Tl, kDW, true>
-                  : expert_bwd_mma<Tl, kDW, false>;
   const size_t smem = Smem<Tl, kDW>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      expert_bwd_mma<Tl, kDW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, Tl::kThreads, smem, stream>>>(
+  expert_bwd_mma<Tl, kDW><<<grid, Tl::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), fill,
       static_cast<__nv_bfloat16*>(out), C, Din, Dout);
@@ -395,14 +764,36 @@ int launch_fma(const void* a, const void* b, const int* fill, void* out,
   return (int)cudaGetLastError();
 }
 
+// The body a shape takes (bwd_body): fp32 the FMA body; bf16 the wgmma
+// body where TMA can address every row (16-byte aligned bases, Din and
+// Dout multiples of 8: the rows' byte strides multiples of 16), else the
+// mma.sync body. A dispatch by shape, stated here and queried by the
+// wrapper: a launch of the body chosen that fails returns its error.
+enum Body { kFmaBody = 0, kMmaBody = 1, kWgmmaBody = 2, kNoBody = -1 };
+
+int body(const void* a, const void* b, const void* out, int dtype, int Din,
+         int Dout) {
+  if (dtype == kFloat32) return kFmaBody;
+  if (dtype != kBFloat16) return kNoBody;
+  const bool tma = (reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0 &&
+                   Din % 8 == 0 && Dout % 8 == 0;
+  return tma ? kWgmmaBody : kMmaBody;
+}
+
 template <bool kDW>
 int launch(const void* a, const void* b, const int* fill, void* out,
            int dtype, int E, int C, int Din, int Dout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16)
-    return launch_mma<kDW>(a, b, fill, out, E, C, Din, Dout, s);
-  if (dtype == kFloat32)
-    return launch_fma<kDW>(a, b, fill, out, E, C, Din, Dout, s);
+  switch (body(a, b, out, dtype, Din, Dout)) {
+    case kWgmmaBody:
+      return launch_wgmma<kDW>(a, b, fill, out, E, C, Din, Dout, s);
+    case kMmaBody:
+      return launch_mma<kDW>(a, b, fill, out, E, C, Din, Dout, s);
+    case kFmaBody:
+      return launch_fma<kDW>(a, b, fill, out, E, C, Din, Dout, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -430,9 +821,25 @@ extern "C" int expert_matmul_bwd_dw(const void* xe, const void* dy,
   return launch<true>(xe, dy, fill, dw, dtype, E, C, Din, Dout, stream);
 }
 
-// Dynamic shared memory of the bf16 launch of dX (dw 0) or dW (dw 1), in
-// bytes (0 for fp32: static only).
-extern "C" int expert_matmul_bwd_smem_bytes(int dtype, int dw) {
-  if (dtype != kBFloat16) return 0;
-  return (int)(dw ? Smem<DwTile, true>::bytes : Smem<DxTile, false>::bytes);
+// The body that a launch with these operands (a, b, out in the order of
+// the entry's arguments) takes: 0 the fp32 FMA body, 1 bf16 mma.sync, 2
+// bf16 wgmma; -1 for a dtype neither entry takes.
+extern "C" int expert_matmul_bwd_body(const void* a, const void* b,
+                                      const void* out, int dtype, int Din,
+                                      int Dout) {
+  return body(a, b, out, dtype, Din, Dout);
+}
+
+// Dynamic shared memory of a body's launch (as expert_matmul_bwd_body
+// numbers them) of dX (dw 0) or dW (dw 1), in bytes (the FMA body: 0,
+// static only).
+extern "C" int expert_matmul_bwd_smem_bytes(int body_, int dw) {
+  switch (body_) {
+    case kWgmmaBody:
+      return (int)(dw ? Gw<true>::bytes : Gw<false>::bytes);
+    case kMmaBody:
+      return (int)(dw ? Smem<DwTile, true>::bytes
+                      : Smem<DxTile, false>::bytes);
+  }
+  return 0;
 }

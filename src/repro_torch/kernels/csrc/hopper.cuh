@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, warpgroup MMA (wgmma m64n64k16 and m64n32k16, bf16 in, fp32
-// accumulate) with A fragments in registers or A read through a
-// shared-memory descriptor, and B read through one, setmaxnreg;
-// and, on the host, a TMA tensor map encoded through the driver's entry
-// point (cudaGetDriverEntryPoint: no -lcuda, no new dependency).
+// loads and stores, bulk stores, the async-proxy fence and named barriers,
+// warpgroup MMA (wgmma m64n64k16 and m64n32k16 with A fragments in
+// registers or A read through a shared-memory descriptor, and m64n256k16
+// with both operands read through descriptors, either one K- or MN-major;
+// bf16 in, fp32 accumulate), setmaxnreg; and, on the host, TMA tensor
+// maps encoded through the driver's entry point (cudaGetDriverEntryPoint:
+// no -lcuda, no new dependency).
 #pragma once
 
 #include <cstdint>
@@ -95,6 +97,66 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box of a 3-d tensor map at coordinates (c0 innermost, c1, c2) into
+// shared memory; completion is counted on `bar` in bytes (a box that lies
+// partly or wholly outside the tensor still counts all its bytes, the
+// outside read as zeros)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a shared-memory box to a 3-d tensor map's coordinates (elements outside
+// the tensor are not written), in this thread's current bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of shared memory to global memory, both
+// 16-byte aligned, in this thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still reading
+// their shared-memory sources
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's shared-memory writes before later reads of the
+// async proxy (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1 .. 15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ------------------------------------------------------------ wgmma
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -141,9 +203,11 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // along the row): LBO unused (1), SBO the 8-row group, 1024 bytes; a
 // k-step of 16 elements adds 32 bytes (2 in the address field).
 // MN-major (the reduction runs down the rows, read through the transpose
-// bit): the 8-row groups along K are 1024 bytes apart, and a 64-wide N
-// is one swizzle atom, so both offsets are 1024 bytes; a k-step of 16
-// rows adds 2048 bytes (128). A K-major A operand of 64 rows has the
+// bit): SBO is the 8-row groups along K, 1024 bytes apart; LBO the
+// stride from one 64-wide swizzle atom of M or N to the next (a tile of
+// several 64-column TMA boxes: the box's bytes; unused where M or N is
+// 64, one atom); a k-step of 16 rows adds 2048 bytes (128). A K-major A
+// operand of 64 rows has the
 // K-major B's form. A wider row (hd 128) lies in two such tiles (two TMA
 // boxes of 64 columns, `rows` x 128 bytes apart): a k-step past column 64
 // moves to the second, and adding a byte offset to the tile adds it / 16
@@ -157,8 +221,9 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo,
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
   return sw128_desc(tile, 1, 64);
 }
-__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
-  return sw128_desc(tile, 64, 64);
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile,
+                                                  uint32_t atom_bytes = 1024) {
+  return sw128_desc(tile, atom_bytes >> 4, 64);
 }
 
 #define RT_ACC32(d)                                                          \
@@ -228,6 +293,62 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+#define RT_ACC128(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+  "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+  "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+  "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), \
+  "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), \
+  "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), \
+  "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), \
+  "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+  "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), \
+  "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), \
+  "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), \
+  "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), \
+  "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
+  "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), \
+  "+f"(d[127])
+#define RT_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+  "%122, %123, %124, %125, %126, %127} "
+
+// d += A . B over k 16 and a 256-wide N, both operands in shared memory
+// (descriptors `a` [64, 16] and `b` [256, 16]), each K-major (kTrans 0)
+// or MN-major (kTrans 1: its 16 rows of k, M or N contiguous, read through
+// the transpose bit); d always accumulates. d holds 128 registers:
+// register i at row 16 (warp % 4) + lane / 4 + 8 ((i / 2) % 2), column 8
+// (i / 4) + 2 (lane % 4) + i % 2.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " RT_D128
+      ", %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : RT_ACC128(d)
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
 // The A fragments (k 0 .. 16 KS) of this warp's 16 rows of a 64-row slice
 // of a 128-byte swizzled tile (the slice 1024-byte aligned), by ldmatrix:
 // row r's 16-byte chunk c lies at chunk c ^ (r % 8); k-steps 4 .. 7 (hd
@@ -249,6 +370,8 @@ __device__ __forceinline__ void load_a_sw128(uint32_t (&a)[KS][4],
   }
 }
 
+#undef RT_D128
+#undef RT_ACC128
 #undef RT_D16
 #undef RT_ACC16
 #undef RT_D32
@@ -304,6 +427,28 @@ inline bool encode_rows(CUtensorMap* map, const void* base, int hd, int heads,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous bf16 [depth, rows, cols] tensor as a 3-d TMA map (cols
+// innermost) read or written in boxes of 64 columns (one 128-byte swizzle
+// row) by `box_rows` rows of one depth index, 128-byte swizzled; elements
+// past the tensor's bounds read as zeros and are not written. The rows'
+// byte strides must be multiples of 16, so cols % 8 == 0, and the base
+// 16-byte aligned. False if the map cannot be encoded.
+inline bool encode_3d(CUtensorMap* map, const void* base, int cols, int rows,
+                      int depth, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn || cols % 8 || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

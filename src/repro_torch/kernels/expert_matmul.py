@@ -13,10 +13,13 @@ Training: ``expert_matmul_bwd_dx`` and ``expert_matmul_bwd_dw`` wrap the
 two backward kernels of ``csrc/expert_matmul_bwd.cu`` (dX = dY W^T over
 the live rows, zero past ``fill``; dW = X^T dY over the live rows), each
 with its own ``.launches``; their plain version is
-``ref.expert_matmul_bwd_ref``. ``ExpertMatmulFn`` is the autograd
-Function that ``ops`` sends a CUDA call to when it builds a graph: the
-forward kernel forward, the two backward kernels backward. A shape or
-dtype a kernel does not take raises; nothing falls back.
+``ref.expert_matmul_bwd_ref``. Each has three bodies, chosen by the
+library from dtype and shape (``bwd_body``): fp32 ``fma``; bf16
+``wgmma`` (persistent, TMA-fed) where TMA can address every row, else
+``mma.sync``. ``ExpertMatmulFn`` is the autograd Function that ``ops``
+sends a CUDA call to when it builds a graph: the forward kernel forward,
+the two backward kernels backward. A shape or dtype a kernel does not
+take raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's bodies, as ``expert_matmul_bwd_body`` numbers them
+BWD_BODIES = ("fma", "mma.sync", "wgmma")
 
 
 @functools.cache
@@ -40,12 +45,16 @@ def _kernel():
 
 
 @functools.cache
-def _bwd_kernel(name: str):
+def _bwd_fn(name: str, argtypes: tuple):
     fn = getattr(build.load("expert_matmul_bwd"), name)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_kernel(name: str):
+    return _bwd_fn(name, (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                   + (ctypes.c_void_p,))
 
 
 def smem_bytes(dtype: torch.dtype, capacity: int) -> int:
@@ -57,13 +66,26 @@ def smem_bytes(dtype: torch.dtype, capacity: int) -> int:
     return fn(DTYPES[dtype], capacity)
 
 
-def bwd_smem_bytes(dtype: torch.dtype, dw: bool) -> int:
+def bwd_smem_bytes(body: str, dw: bool) -> int:
     """Dynamic shared memory, in bytes, of the dX (``dw`` False) or dW
-    backward launch at ``dtype`` (0 for fp32: static only)."""
-    fn = build.load("expert_matmul_bwd").expert_matmul_bwd_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(DTYPES[dtype], int(dw))
+    backward launch of ``body`` (one of ``BWD_BODIES``; 0 for ``fma``:
+    static only)."""
+    fn = _bwd_fn("expert_matmul_bwd_smem_bytes", (ctypes.c_int,) * 2)
+    return fn(BWD_BODIES.index(body), int(dw))
+
+
+def bwd_body(a, b, out, din: int, dout: int) -> str:
+    """The body (one of ``BWD_BODIES``) that a backward launch takes on
+    these operands, in the order of the entry's arguments: (dy, w, dxe)
+    for dX, (xe, dy, dw) for dW. The library decides, from the dtype, the
+    16-byte alignment of the three bases and ``din``, ``dout`` % 8."""
+    fn = _bwd_fn("expert_matmul_bwd_body",
+                 (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3)
+    got = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), DTYPES[a.dtype],
+             din, dout)
+    if got < 0:
+        raise ValueError(f"expert_matmul_bwd: no body for {a.dtype}")
+    return BWD_BODIES[got]
 
 
 def _check(ts, fill, what: str) -> None:
@@ -84,9 +106,22 @@ def _check(ts, fill, what: str) -> None:
                          "need [E] int32")
 
 
-def _launch_bwd(name: str, a, b, fill, out, E, C, Din, Dout) -> None:
-    if max(E, -(-max(C, Din) // 128)) > 65535:
-        raise ValueError(f"{name}: E {E}, C {C}, Din {Din}: grid too large")
+def _grid_ok(body: str, E, rows, cols) -> bool:
+    """Whether ``body``'s grid holds an [E, rows, cols] output: wgmma
+    numbers its 128 x 256 tiles in an int, the others put E in grid z and
+    rows in y (tiles of 128 rows, fma's of 64)."""
+    if body == "wgmma":
+        return E * -(-rows // 128) * -(-cols // 256) < 2 ** 31
+    return max(E, -(-rows // (64 if body == "fma" else 128))) <= 65535
+
+
+def _launch_bwd(name: str, a, b, fill, out, E, C, Din, Dout) -> str:
+    """Launches ``name`` and returns the body it took."""
+    rows, cols = (Din, Dout) if name.endswith("dw") else (C, Din)
+    body = bwd_body(a, b, out, Din, Dout)
+    if not _grid_ok(body, E, rows, cols):
+        raise ValueError(f"{name}: E {E}, C {C}, Din {Din}, Dout {Dout}: "
+                         f"grid too large for the {body} body")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = _bwd_kernel(name)(a.data_ptr(), b.data_ptr(), fill.data_ptr(),
@@ -94,6 +129,12 @@ def _launch_bwd(name: str, a, b, fill, out, E, C, Din, Dout) -> None:
                                 Dout, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return body
+
+
+def _count(fn, body: str) -> None:
+    fn.launches += 1
+    fn.bodies[body] = fn.bodies.get(body, 0) + 1
 
 
 def expert_matmul_bwd_dx(dy, w, fill):
@@ -109,8 +150,8 @@ def expert_matmul_bwd_dx(dy, w, fill):
     D = w.shape[1]
     dxe = torch.empty((E, C, D), dtype=dy.dtype, device=dy.device)
     if dxe.numel():
-        _launch_bwd("expert_matmul_bwd_dx", dy, w, fill, dxe, E, C, D, F)
-        expert_matmul_bwd_dx.launches += 1
+        _count(expert_matmul_bwd_dx, _launch_bwd(
+            "expert_matmul_bwd_dx", dy, w, fill, dxe, E, C, D, F))
     return dxe
 
 
@@ -126,13 +167,16 @@ def expert_matmul_bwd_dw(xe, dy, fill):
     F = dy.shape[2]
     dw = torch.empty((E, D, F), dtype=xe.dtype, device=xe.device)
     if dw.numel():
-        _launch_bwd("expert_matmul_bwd_dw", xe, dy, fill, dw, E, C, D, F)
-        expert_matmul_bwd_dw.launches += 1
+        _count(expert_matmul_bwd_dw, _launch_bwd(
+            "expert_matmul_bwd_dw", xe, dy, fill, dw, E, C, D, F))
     return dw
 
 
+# launches, and launches by body (``BWD_BODIES``)
 expert_matmul_bwd_dx.launches = 0
 expert_matmul_bwd_dw.launches = 0
+expert_matmul_bwd_dx.bodies = {}
+expert_matmul_bwd_dw.bodies = {}
 
 
 def expert_matmul(xe, w, fill=None):

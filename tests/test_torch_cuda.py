@@ -1271,8 +1271,13 @@ def _routed_fill(gen, E, tokens, k):
     return torch.bincount(pick.reshape(-1), minlength=E).to(torch.int32)
 
 
-# E, C, D, F, fill: C at the bf16 tile's 128 rows and either side, D and F
-# not multiples of 8 (the scalar-copy instantiation), every fill edge
+# E, C, D, F, fill: C at the bf16 tiles' 128 rows and either side, D and F
+# not multiples of 8 (the mma.sync body), every fill edge. The wgmma body
+# (128 x 256 tiles, 64 rows a warpgroup, 64-deep slabs): fills at and
+# either side of 64, 128, 192 and 256 in one expert, C past one tile with
+# every expert full, every fill 0, D not a multiple of 256 (640, 1536), F a
+# multiple of 8 but not of 64 (the k tail zero-filled by TMA), 160 experts
+# top-6. Every input is random and non-zero past fill too.
 EXPERT_BWD_CASES = [
     (16, 128, 512, 640, [0, 1, 128, 64, 127, 2, 0, 100, 5, 128, 33, 1, 0,
                          77, 128, 9]),
@@ -1281,6 +1286,10 @@ EXPERT_BWD_CASES = [
     (2, 64, 64, 64, [0, 0]),
     (3, 130, 256, 128, None),
     (160, 48, 512, 384, "top6"),        # 8 tokens over 160 experts, top-6
+    (8, 300, 640, 1536, [63, 64, 65, 127, 129, 191, 257, 300]),
+    (4, 520, 1536, 640, None),
+    (3, 256, 640, 200, [0, 0, 0]),
+    (3, 256, 640, 200, [255, 17, 256]),
 ]
 
 
@@ -1320,14 +1329,55 @@ def test_expert_matmul_bwd_kernels_match_plain(gen, dtype, E, C, D, F, fill):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_expert_matmul_bwd_kernels_are_deterministic(gen, dtype):
+@pytest.mark.parametrize("E,C,D,F,fill", [
+    EXPERT_BWD_CASES[0],
+    # top-2 of 4096 tokens: ~4.5 live row tiles an expert, several tiles
+    # of dX and of dW for each of the persistent bf16 blocks
+    (16, 1024, 2048, 1024, "top2x4096")])
+def test_expert_matmul_bwd_kernels_are_deterministic(gen, dtype, E, C, D, F,
+                                                     fill):
     """No atomics and one block a dW tile: two runs bitwise equal."""
     from repro_torch.kernels.expert_matmul import (expert_matmul_bwd_dw,
                                                    expert_matmul_bwd_dx)
-    xe, w, f, dy = _expert_bwd_inputs(gen, dtype, *EXPERT_BWD_CASES[0])
+    if fill == "top2x4096":
+        fill = _routed_fill(gen, E, 4096, 2).clamp(max=C).tolist()
+    xe, w, f, dy = _expert_bwd_inputs(gen, dtype, E, C, D, F, fill)
     for fn, args in ((expert_matmul_bwd_dx, (dy, w, f)),
                      (expert_matmul_bwd_dw, (xe, dy, f))):
         assert torch.equal(fn(*args), fn(*args))
+
+
+def test_expert_matmul_bwd_body_by_shape(gen):
+    """The library's dispatch by shape: bf16 rows that TMA can address
+    (16-byte aligned bases, D and F multiples of 8) take the wgmma body,
+    others the mma.sync body, fp32 the FMA body; an unaligned base, through
+    the wrapper, still matches the plain version."""
+    from repro_torch.kernels import expert_matmul as EM
+    bf = torch.bfloat16
+    E, C, D, F = 4, 129, 256, 384
+    xe, w, f, dy = _expert_bwd_inputs(gen, bf, E, C, D, F, [0, 1, 129, 100])
+    dxe = torch.empty((E, C, D), dtype=bf, device="cuda")
+    dw = torch.empty((E, D, F), dtype=bf, device="cuda")
+    assert EM.bwd_body(dy, w, dxe, D, F) == "wgmma"
+    assert EM.bwd_body(xe, dy, dw, D, F) == "wgmma"
+    assert EM.bwd_body(dy.float(), w.float(), dxe.float(), D, F) == "fma"
+    # D 203, F 300: rows not 16-byte multiples
+    x2, w2, f2, dy2 = _expert_bwd_inputs(gen, bf, 4, 127, 203, 300,
+                                         [0, 1, 64, 127])
+    assert EM.bwd_body(dy2, w2, torch.empty((4, 127, 203), dtype=bf,
+                                            device="cuda"), 203, 300) == \
+        "mma.sync"
+    # dy one element into its storage: contiguous, its base 2 bytes off
+    dy_off = torch.empty(dy.numel() + 1, dtype=bf,
+                         device="cuda")[1:].view(dy.shape)
+    dy_off.copy_(dy)
+    assert dy_off.is_contiguous() and dy_off.data_ptr() % 16 == 2
+    assert EM.bwd_body(dy_off, w, dxe, D, F) == "mma.sync"
+    want = ref.expert_matmul_bwd_ref(xe, w, f, dy)
+    for got, wt in ((EM.expert_matmul_bwd_dx(dy_off, w, f), want[0]),
+                    (EM.expert_matmul_bwd_dw(xe, dy_off, f), want[1])):
+        torch.testing.assert_close(got.float(), wt.float(), **TOL[bf])
+        assert _rel_norm(got, wt) <= REL_NORM[bf]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -82,6 +82,24 @@ def test_ops_expert_matmul_differentiates_on_the_cpu():
         torch.testing.assert_close(g_, w_, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("body,E,rows,cols,ok", [
+    ("wgmma", 16, 4096, 6400, True),
+    ("wgmma", 160, 2 ** 16, 2 ** 16, True),       # 160 x 2^17 tiles
+    ("wgmma", 2 ** 14, 2 ** 16, 2 ** 16, False),  # 2^31 tiles
+    ("mma.sync", 65535, 128 * 65535, 8, True),
+    ("mma.sync", 65536, 128, 8, False),
+    ("mma.sync", 1, 128 * 65535 + 1, 8, False),
+    ("fma", 1, 64 * 65535, 8, True),
+    ("fma", 1, 64 * 65535 + 1, 8, False)])
+def test_expert_matmul_bwd_grid_limits(body, E, rows, cols, ok):
+    """The wrapper's grid check per body of kernel 6's backward (no card
+    needed): the persistent wgmma body numbers its 128 x 256 tiles in an
+    int; the mma.sync and FMA bodies put E in grid z and their 128- and
+    64-row tiles in y, each at most 65535."""
+    from repro_torch.kernels import expert_matmul as EM
+    assert EM._grid_ok(body, E, rows, cols) is ok
+
+
 @pytest.mark.parametrize("shared,k", [(0, 2), (1, 2), (0, 3)],
                          ids=["top2", "shared", "top3"])
 def test_moe_block_grad_matches_jax_vjp(shared, k):
