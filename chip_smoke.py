@@ -9,7 +9,7 @@ Phases (any failure exits non-zero before the result line):
      one nvcc per source, started together; the registers, shared memory
      and spills of the flash attention, expert GEMM, paged extend, WKV6
      and decode (kernels 2, 3, 4, 4-int8: one body) kernels, and of the
-     backward kernels of kernels 1 (hd 64 and 128) and 6;
+     backward kernels of kernels 1 (hd 64 and 128), 6 and 7;
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes (the paged ones with all-sentinel rows and lengths past
      the table), with its time, the plain version's, one library call's
@@ -122,6 +122,26 @@ Phases (any failure exits non-zero before the result line):
      the bf16 plain path's (tokens whose top-2 set differs from the fp32
      plain path's are counted); two runs of one step from the same state
      give bitwise-equal parameters.
+  14. encdec trainer: seamless-m4t-medium whole (12 encoder and 12
+     decoder layers) trains 6 steps of ``training.make_train_step`` at
+     seq 1024 over 160 frames (normal x 0.02 from the seed), a global
+     batch of 8 in 4 microbatches: every loss finite and the last below
+     the first, kernel 1 and its three backward kernels launched 36 times
+     a microbatch (12 encoder, 12 self- and 12 cross-attention calls), no
+     plain attention call; step seconds, tokens/s, peak memory beside its
+     reckoning, the model-FLOP share, the head's GEMMs at vocab 256,206
+     and 256,208; a 2-layer (2 + 2) fp32 copy's loss
+     and gradient leaves through the kernels match the plain path's; a
+     2-layer bf16 copy's leaves lie no further from the fp32 plain path's
+     than GRAD_FACTOR_BF16 times the bf16 plain path's.
+  15. ssm trainer: rwkv6-1.6b whole (24 layers) trains 6 steps through
+     ``launch/train.py::train_loop`` at seq 4096, a global batch of 4 in 4
+     microbatches: every loss finite and the last below the first, kernel
+     7 (with its chunk-state output) and kernel 7-bwd launched once per
+     layer and microbatch, no plain WKV6 call; step seconds, tokens/s,
+     peak memory beside its reckoning, the model-FLOP share; the 2-layer
+     fp32 and bf16 copies' checks as phase 14's (the fp32 one within
+     GRAD_REL_BOUND_WKV).
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
 mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
@@ -141,7 +161,13 @@ dW) against its plain version at its fill and tile edges, 160 experts
 top-6 and phi3.5-moe's training microbatch, each case naming the body it
 took (wgmma, mma.sync or the fp32 FMA body), timed at the microbatch
 beside its bound and ``torch.bmm``, with kernel 6's forward there too;
-phase 2 prints their registers, spills and shared memory.
+and kernel 7-bwd against its plain version (``ref.wkv6_chunked_bwd_ref``)
+at phase 15's microbatch (B 1 x 4096, 32 heads of 64) and at edge
+shapes (S 1, 31, 33, hd 16, the decay at -1.5 and -1e-6, a nonzero
+state0), bf16 and fp32, two runs bitwise equal, kernel 7's forward there
+with its chunk-state output on and off (outputs bitwise equal), each
+timed beside its bound and plain version; phase 2 prints their
+registers, spills and shared memory.
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -168,6 +194,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores
 # kernel vs plain: bf16 outputs round once to 8 mantissa bits on each side
 # (adjacent roundings of |x| < 4 differ by <= 1.6e-2); fp32 differs only in
 # the order of up to 1024-term sums
@@ -201,6 +228,12 @@ LSE_TOL = {"bfloat16": 2e-3, "float32": 2e-5}
 # 2e-2 abs floor is near a typical dQ entry at the training shape, so this
 # holds the bulk); at fp32 the same sums in another order
 BWD_REL_NORM = {"bfloat16": 1e-2, "float32": 1e-5}
+# phase 15's fp32 check (rwkv6): kernel 7's 3xTF32 products hold its fp32
+# outputs to TOL's 2e-5, not to fp32 rounding, and bonus_u's gradient is a
+# sum over every token of signed terms that nearly cancel, which kernel
+# 7-bwd takes in another order than autograd (its worst leaf); held as
+# phase 6 holds this model's fp32 logits
+GRAD_REL_BOUND_WKV = LOGIT_BOUND_FP32
 # phase 12's bf16 check: each gradient leaf's distance from the fp32 plain
 # path's, ||g - g32|| / ||g32||, through the kernels at most this multiple
 # of the bf16 plain path's own distance (both round the same products to
@@ -637,6 +670,280 @@ def expert_backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         torch.cuda.empty_cache()
 
 
+def wkv_bwd_flops(S: int, H: int, hd: int, B: int) -> float:
+    """Kernel 7-bwd's products on these inputs, 2 FLOP a multiply-add: per
+    chunk of C tokens and (b, h) the pair tiles P and dP (strictly lower,
+    and the two diagonals), dv's (s >= t) and dA's and dBm's (j < t)
+    within the chunk, dv's, dA's and dKd's state terms and dS's update
+    (C hd^2 each)."""
+    mac = 0
+    for t0 in range(0, S, 32):
+        C = min(32, S - t0)
+        low = C * (C - 1) // 2
+        mac += 4 * C * hd * hd + (4 * low + C * (C + 1) // 2 + 2 * C) * hd
+    return 2.0 * mac * B * H
+
+
+def wkv6_backward_kernels(dev, flush, rows, extra_shapes) -> None:
+    """Phase 3: kernel 7 at phase 15's training microbatch (B 1, 4096
+    tokens, rwkv6-1.6b's 32 heads of 64) with its chunk-state output on
+    and off (bitwise-equal outputs, the states against the plain ones),
+    and kernel 7-bwd against ``ref.wkv6_chunked_bwd_ref`` there and at
+    edge shapes (S 1, 31 and 33, hd 16, the decay at the clamp -1.5 and
+    at -1e-6, a nonzero state0 and final-state gradient), bf16 and fp32,
+    by element and by relative norm; two runs bitwise equal; each time
+    beside its bound and its plain version's (no library call computes
+    either). Its own generator, so every other input stays as it was."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as W6
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    bf = torch.bfloat16
+
+    def inputs(B, S, H, hd, dt, logw=None, state0=True):
+        r, k, v = (0.5 * torch.randn((B, S, H, hd), generator=g,
+                                     device=dev).to(dt) for _ in range(3))
+        w = ((-1.5 * torch.rand((B, S, H, hd), generator=g, device=dev))
+             .clamp(max=-1e-6) if logw is None
+             else torch.full((B, S, H, hd), logw, device=dev))
+        u = 0.3 * torch.randn((H, hd), generator=g, device=dev)
+        s0 = 0.1 * torch.randn((B, H, hd, hd), generator=g, device=dev)
+        if not state0:
+            s0.zero_()
+        dout = torch.randn((B, S, H, hd), generator=g, device=dev)
+        dstate = torch.randn((B, H, hd, hd), generator=g, device=dev)
+        return (r, k, v, w, u, s0), dout, dstate
+
+    def states_of(a):
+        B, S, H, hd = a[0].shape
+        st = torch.empty((B, W6.n_chunks(S), H, hd, hd), device=dev)
+        out = W6.wkv6(*a, chunk_states=st)
+        return st, out
+
+    r_row = rows.setdefault("wkv6_bwd", {"max_abs_err": 0.0})
+
+    def check_bwd(got, want, dtype, case):
+        """bf16 outputs at bf16's bound by element; fp32 outputs at 2e-5
+        with the abs part scaled by the output's largest magnitude (sums
+        of signed fp32 terms in another order: dS over tokens that do not
+        decay, du over B and S, dlogw a difference of running sums); each
+        by relative norm too."""
+        names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+        worst = []
+        for name, a, b in zip(names, got, want):
+            dt = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+            err = (a.float() - b.float()).abs()
+            scale = (b.float().abs() if dt == "bfloat16"
+                     else b.float().abs().max())
+            check(bool(torch.isfinite(a).all()), f"wkv6_bwd {case} {name}: "
+                  "non-finite")
+            check(bool((err <= TOL[dt] * (1 + scale)).all()),
+                  f"wkv6_bwd {case} {name}: max err {err.max().item():.3g} "
+                  f"over {TOL[dt]} (abs + rel)")
+            rel = ((a.float() - b.float()).norm()
+                   / b.float().norm().clamp(min=1e-30)).item()
+            check(rel <= BWD_REL_NORM[dt], f"wkv6_bwd {case} {name}: "
+                  f"||kernel - plain|| / ||plain|| {rel:.3g} over "
+                  f"{BWD_REL_NORM[dt]}")
+            r_row["max_abs_err"] = max(r_row["max_abs_err"],
+                                       err.max().item())
+            worst.append(f"{name} {err.max().item():.2e}/{rel:.1e}")
+        print(f"  wkv6_bwd {case}: max |kernel - plain| / relative norm: "
+              + ", ".join(worst))
+
+    print("[kernels] wkv6_bwd (kernel 7-bwd) vs wkv6_chunked_bwd_ref, from "
+          "the kernel forward's chunk states")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for B, S, H, hd, logw, s0 in ((2, 1, 32, 64, None, True),
+                                      (2, 31, 32, 64, None, True),
+                                      (2, 33, 32, 64, None, True),
+                                      (3, 33, 4, 16, None, True),
+                                      (1, 100, 32, 64, -1.5, True),
+                                      (1, 100, 32, 64, -1e-6, True),
+                                      (2, 64, 32, 64, None, False)):
+            a, dout, ds = inputs(B, S, H, hd, dt, logw, s0)
+            st, _ = states_of(a)
+            want_st = ref.wkv6_chunked_ref(*a, chunk_states=True)[2]
+            check(bool(((st - want_st).abs()
+                        <= TOL["float32"] * (1 + want_st.abs())).all()),
+                  f"wkv6 {dtype} B={B} S={S}: chunk states differ from "
+                  "the plain ones")
+            ds = ds if s0 else None
+            case = (f"{dtype} B={B} S={S} H={H} hd={hd} logw="
+                    f"{logw or 'U(-1.5, 0)'} state0 {'random' if s0 else 0}"
+                    f" dstate {'random' if ds is not None else 'none'}")
+            check_bwd(W6.wkv6_bwd(*a[:5], st, dout, ds),
+                      ref.wkv6_chunked_bwd_ref(*a, st, dout, ds), dtype,
+                      case)
+
+    # phase 15's microbatch: the training path's zero state0 and no
+    # final-state gradient
+    B, S, H, hd = 1, 4096, 32, 64
+    a, dout, _ = inputs(B, S, H, hd, bf, state0=False)
+    o, s = W6.wkv6(*a)
+    st, (o2, s2) = states_of(a)
+    check(torch.equal(o, o2) and torch.equal(s, s2), "wkv6: the chunk-state "
+          "output changed the output or the final state")
+    check(torch.equal(st[:, 0], a[5]), "wkv6: chunk 0's state is not state0")
+    case = f"bfloat16 B={B} S={S} H={H} hd={hd} (phase 15's microbatch)"
+    print(f"  wkv6 {case}: out and final state bitwise equal with the "
+          f"chunk-state output on and off")
+    check_bwd(W6.wkv6_bwd(*a[:5], st, dout),
+              ref.wkv6_chunked_bwd_ref(*a, st, dout), "bfloat16", case)
+    x1 = W6.wkv6_bwd(*a[:5], st, dout)
+    x2 = W6.wkv6_bwd(*a[:5], st, dout)
+    check(all(torch.equal(p, q) for p, q in zip(x1, x2)),
+          f"wkv6_bwd {case}: two runs differ")
+    print(f"  wkv6_bwd {case}: two runs bitwise equal")
+    del x1, x2, o, s, o2, s2
+
+    print("[kernels] kernel 7 (training forward) and 7-bwd at phase 15's "
+          "microbatch (bf16; CUDA events, median of 30, L2 flushed; plain "
+          "median of 5)")
+    n = B * S * H * hd
+    nst = st.numel()
+    fwd_bytes = 3 * 2 * n + 2 * 4 * n + 4 * H * hd + 2 * 4 * B * H * hd * hd
+    fwd_flops = 4.0 * hd * n
+    for label, fn, plain_fn, extra in (
+            ("off", lambda: W6.wkv6(*a),
+             lambda: ref.wkv6_chunked_ref(*a), 0),
+            ("on", lambda: W6.wkv6(*a, chunk_states=st),
+             lambda: ref.wkv6_chunked_ref(*a, chunk_states=True), 4 * nst)):
+        ms = time_ms(fn, flush)
+        plain = time_ms(plain_fn, flush, reps=5)
+        b_ms, b_by = bound(fwd_bytes + extra, fwd_flops, BF16_FLOP_PER_S)
+        print(f"  wkv6 {case}, chunk-state output {label}: kernel {ms:.4f} "
+              f"ms, plain (chunked) {plain:.4f}, bound {b_ms:.5f} ({b_by}) "
+              f"-> {b_ms / ms:.1%} of bound")
+        extra_shapes.setdefault("wkv6", []).append(dict(
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by, shape=f"training forward, chunk-state output "
+            f"{label}: {case}"))
+    ms = time_ms(lambda: W6.wkv6_bwd(*a[:5], st, dout), flush)
+    plain = time_ms(lambda: ref.wkv6_chunked_bwd_ref(*a, st, dout),
+                    flush, reps=5)
+    # inputs r/k/v, logw, u, the chunk states, dout; outputs dr/dk/dv,
+    # dlogw, du's partials, dstate0
+    nbytes = (3 * 2 * n + 2 * 4 * n + 4 * H * hd + 4 * nst
+              + 3 * 2 * n + 4 * n + 4 * B * H * hd + 4 * B * H * hd * hd)
+    b_ms, b_by = bound(nbytes, wkv_bwd_flops(S, H, hd, B), FP32_FLOP_PER_S)
+    print(f"  wkv6_bwd {case}: kernel {ms:.4f} ms, plain "
+          f"(wkv6_chunked_bwd_ref) {plain:.4f}, bound {b_ms:.5f} ({b_by}; "
+          f"fp32 FMAs at 67 TFLOP/s) -> {b_ms / ms:.1%} of bound; library: "
+          f"none")
+    r_row.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                 bound_by=b_by, shape=case)
+    del a, dout, st
+    torch.cuda.empty_cache()
+
+
+def _plain_counter(ref, names):
+    """Wrap the named plain versions in ``ref`` so that each call is
+    recorded; returns (the calls, a function that restores them)."""
+    plain = {n: getattr(ref, n) for n in names}
+    calls = []
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return call
+
+    for name, fn in plain.items():
+        setattr(ref, name, counted(name, fn))
+
+    def restore():
+        for name, fn in plain.items():
+            setattr(ref, name, fn)
+    return calls, restore
+
+
+def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound):
+    """The checks phases 14 and 15 share, on 2-layer copies at full
+    width: at fp32 the kernel path's loss and every gradient leaf against
+    the plain path's (``fp32_bound``, seq 256, B 2); at bf16 each leaf's
+    distance from the fp32 plain path's through the kernels at most
+    GRAD_FACTOR_BF16 times the bf16 plain path's (seq 1024, B 2). The
+    plain path launches no kernel; ``n_launch`` is each kernel's count on
+    one kernel-path call. ``batch_of(cfg, seq)`` gives the batch."""
+    import torch
+    from repro_torch.models.api import build as build_model
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+
+    cut = dict(num_layers=2)
+    if cfg.encoder_layers:
+        cut["encoder_layers"] = 2
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **cut)
+    p32 = build_model(cfg32).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = batch_of(cfg32, 256)
+    reset(*kernels)
+    loss, grads = value_and_grad(build_model(cfg32).loss_fn, p32, batch)
+    n_k = [k.launches for k in kernels]
+    check(n_k == n_launch, f"{tag} fp32: launches {n_k}, want {n_launch}")
+    loss_p, grads_p = value_and_grad(
+        build_model(cfg32, reference=True).loss_fn, p32, batch)
+    check([k.launches for k in kernels] == n_k,
+          f"{tag} fp32: the plain path launched a kernel")
+    rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+           for a, b in zip(leaves(grads), leaves(grads_p))]
+    worst = [p for p, _ in flatten_with_path(grads)][rel.index(max(rel))]
+    loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"[{tag}] 2-layer fp32 copy at full width, seq 256, B 2: loss "
+          f"{loss.item():.6f} vs plain {loss_p.item():.6f} (rel "
+          f"{loss_rel:.2e}); {len(rel)} gradient leaves, largest |kernel - "
+          f"plain| / max |plain| {max(rel):.2e} at {worst} (bound "
+          f"{fp32_bound})")
+    check(loss_rel <= fp32_bound and max(rel) <= fp32_bound,
+          f"{tag} fp32: loss rel {loss_rel:.3g}, worst leaf {max(rel):.3g} "
+          f"(bound {fp32_bound})")
+    del p32, grads, grads_p
+    torch.cuda.empty_cache()
+
+    cfg16 = dataclasses.replace(cfg, **cut)
+    params = build_model(cfg16).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = batch_of(cfg16, 1024)
+    reset(*kernels)
+    loss_k, g_k = value_and_grad(build_model(cfg16).loss_fn, params, batch)
+    check([k.launches for k in kernels] == n_launch,
+          f"{tag} bf16: launches {[k.launches for k in kernels]}")
+    loss_p, g_p = value_and_grad(
+        build_model(cfg16, reference=True).loss_fn, params, batch)
+    loss_32, g_32 = value_and_grad(
+        build_model(cfg32, reference=True).loss_fn,
+        tree_map(lambda t: t.float(), params), batch)
+    check([k.launches for k in kernels] == n_launch,
+          f"{tag} bf16: the plain path launched a kernel")
+
+    def dist(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp(min=1e-30)).item()
+
+    e_k = [dist(a, c) for a, c in zip(leaves(g_k), leaves(g_32))]
+    e_p = [dist(b, c) for b, c in zip(leaves(g_p), leaves(g_32))]
+    kp = max(dist(a, b) for a, b in zip(leaves(g_k), leaves(g_p)))
+    ratio = max(a / max(b, 1e-30) for a, b in zip(e_k, e_p))
+    worst = max(range(len(e_k)), key=lambda i: e_k[i] / max(e_p[i], 1e-30))
+    print(f"[{tag}] 2-layer bf16 copy at full width, seq 1024, B 2: loss "
+          f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, fp32 plain "
+          f"{loss_32.item():.6f}; over {len(e_k)} gradient leaves ||g - "
+          f"g_fp32|| / ||g_fp32|| at most {max(e_k):.3e} through the "
+          f"kernels and {max(e_p):.3e} through the plain path, worst leaf's "
+          f"ratio {ratio:.3f} (leaf {worst}: {e_k[worst]:.3e} vs "
+          f"{e_p[worst]:.3e}; bound {GRAD_FACTOR_BF16}); kernels vs plain "
+          f"at most {kp:.3e}")
+    check(math.isfinite(loss_k.item()) and ratio <= GRAD_FACTOR_BF16,
+          f"{tag} bf16: loss {loss_k.item()}; worst leaf's distance from "
+          f"fp32 through the kernels / the plain path's {ratio:.3g} (bound "
+          f"{GRAD_FACTOR_BF16})")
+    del params, g_k, g_p, g_32
+    torch.cuda.empty_cache()
+
+
 def trainer(dev, smi) -> dict:
     """Phase 12: llama3.2-1b whole trains 6 steps (the main run), a
     2-layer fp32 copy's gradient is held against the plain path, and a
@@ -653,35 +960,24 @@ def trainer(dev, smi) -> dict:
     from repro_torch.launch.train import FULL_WIDTH_LR, train_loop
     from repro_torch.models.api import build as build_model
     from repro_torch.training import AdamW, default_schedule, make_train_step
-    from repro_torch.training.train_step import value_and_grad
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import leaves
 
     kernels = (FA.flash_attention, FA.flash_attention_bwd_dot,
                FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
     cfg = full_width_config("llama3.2-1b")
     steps, B, S, nm = 6, 8, 4096, 4
-    # every plain attention call on the path is counted: there must be none
-    plain = {n: getattr(ref, n) for n in ("attention_ref", "attention_lse_ref",
-                                          "attention_bwd_ref")}
-    plain_calls = []
-
-    def counted(name, fn):
-        def call(*a, **kw):
-            plain_calls.append(name)
-            return fn(*a, **kw)
-        return call
-
     torch.cuda.empty_cache()
-    for name, fn in plain.items():
-        setattr(ref, name, counted(name, fn))
+    # every plain attention call on the path is counted: there must be none
+    plain_calls, restore = _plain_counter(ref, ("attention_ref",
+                                                "attention_lse_ref",
+                                                "attention_bwd_ref"))
     reset(*kernels)
     try:
         out = train_loop(arch="llama3.2-1b", steps=steps, global_batch=B,
                          seq_len=S, num_microbatches=nm, device="cuda",
                          seed=SEED, log_every=0)
     finally:
-        for name, fn in plain.items():
-            setattr(ref, name, fn)
+        restore()
     torch.cuda.synchronize()
     launched = {k.__name__: k.launches for k in kernels}
     check(out["cfg"] == cfg, "trainer: not llama3.2-1b at its published width")
@@ -722,76 +1018,15 @@ def trainer(dev, smi) -> dict:
     del out
     torch.cuda.empty_cache()
 
-    # the kernel path's gradient against the plain path's: 2 layers at
-    # full width, fp32 (the FMA bodies of kernel 1 and its backward)
-    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
-    params = build_model(cfg32).init_params(
-        torch.Generator(device=dev).manual_seed(SEED))
-    batch = SyntheticLM(vocab_size=cfg32.vocab_size, seq_len=256,
-                        global_batch=2, seed=SEED).batch(0, dev)
-    reset(*kernels)
-    loss, grads = value_and_grad(build_model(cfg32).loss_fn, params, batch)
-    check([k.launches for k in kernels] == [2, 2, 2, 2],
-          f"trainer fp32: launches {[k.launches for k in kernels]}")
-    loss_p, grads_p = value_and_grad(
-        build_model(cfg32, reference=True).loss_fn, params, batch)
-    check([k.launches for k in kernels] == [2, 2, 2, 2],
-          "trainer fp32: the plain path launched a kernel")
-    rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
-           for a, b in zip(leaves(grads), leaves(grads_p))]
-    loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
-    check(loss_rel <= GRAD_REL_BOUND and max(rel) <= GRAD_REL_BOUND,
-          f"trainer fp32: loss rel {loss_rel:.3g}, worst leaf {max(rel):.3g} "
-          f"(bound {GRAD_REL_BOUND})")
-    print(f"[train] 2-layer fp32 copy at full width, seq 256, B 2: loss "
-          f"{loss.item():.6f} vs plain {loss_p.item():.6f} (rel "
-          f"{loss_rel:.2e}); {len(rel)} gradient leaves, largest |kernel - "
-          f"plain| / max |plain| {max(rel):.2e} (bound {GRAD_REL_BOUND})")
-    del params, grads, grads_p
-    torch.cuda.empty_cache()
-
-    # the same at bf16, through the kernels' tensor-core bodies: 2 layers
-    # at full width, seq 1024, B 2; each gradient leaf's distance from the
-    # fp32 plain path's (the same parameters, upcast), through the kernels
-    # against the bf16 plain path's own
-    cfg16 = dataclasses.replace(cfg, num_layers=2)
-    params = build_model(cfg16).init_params(
-        torch.Generator(device=dev).manual_seed(SEED))
-    batch = SyntheticLM(vocab_size=cfg16.vocab_size, seq_len=1024,
-                        global_batch=2, seed=SEED).batch(0, dev)
-    reset(*kernels)
-    loss_k, g_k = value_and_grad(build_model(cfg16).loss_fn, params, batch)
-    check([k.launches for k in kernels] == [2, 2, 2, 2],
-          f"trainer bf16: launches {[k.launches for k in kernels]}")
-    loss_p, g_p = value_and_grad(
-        build_model(cfg16, reference=True).loss_fn, params, batch)
-    loss_32, g_32 = value_and_grad(
-        build_model(cfg32, reference=True).loss_fn,
-        tree_map(lambda t: t.float(), params), batch)
-    check([k.launches for k in kernels] == [2, 2, 2, 2],
-          "trainer bf16: the plain path launched a kernel")
-
-    def dist(a, b):
-        return ((a.float() - b.float()).norm()
-                / b.float().norm().clamp(min=1e-30)).item()
-
-    e_k = [dist(a, c) for a, c in zip(leaves(g_k), leaves(g_32))]
-    e_p = [dist(b, c) for b, c in zip(leaves(g_p), leaves(g_32))]
-    kp = max(dist(a, b) for a, b in zip(leaves(g_k), leaves(g_p)))
-    ratio = max(a / b for a, b in zip(e_k, e_p))
-    check(math.isfinite(loss_k.item()) and ratio <= GRAD_FACTOR_BF16,
-          f"trainer bf16: loss {loss_k.item()}; worst leaf's distance from "
-          f"fp32 through the kernels / the plain path's {ratio:.3g} (bound "
-          f"{GRAD_FACTOR_BF16})")
-    print(f"[train] 2-layer bf16 copy at full width, seq 1024, B 2: loss "
-          f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, fp32 plain "
-          f"{loss_32.item():.6f}; over {len(e_k)} gradient leaves ||g - "
-          f"g_fp32|| / ||g_fp32|| at most {max(e_k):.3e} through the "
-          f"kernels and {max(e_p):.3e} through the plain path, worst leaf's "
-          f"ratio {ratio:.3f} (bound {GRAD_FACTOR_BF16}); kernels vs plain "
-          f"at most {kp:.3e}")
-    del params, g_k, g_p, g_32
-    torch.cuda.empty_cache()
+    # the kernel path's gradient against the plain path's on 2-layer
+    # copies at full width: fp32 (the FMA bodies of kernel 1 and its
+    # backward), and bf16 (their tensor-core bodies) against the fp32 plain
+    # path beside the bf16 plain path
+    _grad_checks("train", dev, cfg, kernels, [2] * 4,
+                 lambda c, seq: SyntheticLM(vocab_size=c.vocab_size,
+                                            seq_len=seq, global_batch=2,
+                                            seed=SEED).batch(0, dev),
+                 GRAD_REL_BOUND)
 
     # restart: a 2-layer bf16 copy, 4 steps straight against 2 steps, a
     # checkpoint, a restore into freshly drawn parameters and state, and 2
@@ -883,18 +1118,8 @@ def moe_trainer(dev, smi) -> dict:
     torch.cuda.empty_cache()
     print(f"[moe-train] device memory allocated before the run: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    plain = {n: getattr(ref, n) for n in names}
-    plain_calls = []
-
-    def counted(name, fn):
-        def call(*a, **kw):
-            plain_calls.append(name)
-            return fn(*a, **kw)
-        return call
-
     torch.cuda.empty_cache()
-    for name, fn in plain.items():
-        setattr(ref, name, counted(name, fn))
+    plain_calls, restore = _plain_counter(ref, names)
     reset(*kernels)
     for k in experts[1:]:
         k.bodies = {}
@@ -903,8 +1128,7 @@ def moe_trainer(dev, smi) -> dict:
                          num_microbatches=nm, device="cuda", num_layers=L,
                          seed=SEED, log_every=0)
     finally:
-        for name, fn in plain.items():
-            setattr(ref, name, fn)
+        restore()
     torch.cuda.synchronize()
     launched = {k.__name__: k.launches for k in kernels}
     check(out["cfg"] == cfg, f"moe trainer: not {arch} at its published "
@@ -1105,6 +1329,244 @@ def moe_trainer(dev, smi) -> dict:
                                      "expert_matmul_bwd_dw")}
 
 
+def encdec_trainer(dev, smi) -> None:
+    """Phase 14: seamless-m4t-medium whole (12 encoder and 12 decoder
+    layers) trains 6 steps through ``training.make_train_step`` (the main
+    run: ``train_loop`` takes no frames), each batch's frames normal x
+    0.02 from the seed; then the 2-layer copies' gradient checks."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import full_width_config
+    from repro_torch.launch.train import FULL_WIDTH_LR
+    from repro_torch.models.api import build as build_model
+    from repro_torch.training import AdamW, default_schedule, make_train_step
+    from repro_torch.tree import flatten_with_path, leaves
+
+    arch = "seamless-m4t-medium"
+    cfg = full_width_config(arch)
+    # 8 rows of 1024 tokens over 160 frames a step, in 4 microbatches of 2
+    # rows: the fp32 logits at vocab 256,206 take 1 GB per 1024 tokens
+    steps, B, S, nm = 6, 8, 1024, 4
+    Se, L, Le = cfg.num_prefix_embeddings, cfg.num_layers, cfg.encoder_layers
+    kernels = (FA.flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+
+    def batch_of(c, seq, rows=2, step=0):
+        b = SyntheticLM(vocab_size=c.vocab_size, seq_len=seq,
+                        global_batch=rows, seed=SEED).batch(step, dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 100 + step)
+        b["frames"] = 0.02 * torch.randn((rows, Se, c.d_model), generator=g,
+                                         device=dev)
+        return b
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[encdec-train] device memory allocated before the run: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    model = build_model(cfg)
+    opt = AdamW(lr=FULL_WIDTH_LR)
+    step = make_train_step(model.loss_fn, opt, num_microbatches=nm,
+                           schedule=default_schedule(steps, warmup=1))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    state = opt.init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    # model parameters by the tokens that go through them: the encoder,
+    # the frontend projection and every decoder layer's cross K/V
+    # projections see the frames, the rest the decoder's tokens; the
+    # embedding table is a lookup
+    n_enc = sum(t.numel() for path, t in flatten_with_path(params)
+                if path[0] in ("encoder", "frontend_proj")
+                or ("cross" in path and path[-1] in ("wk", "wv")))
+    n_dec = n_params - n_enc - params["embed"]["embed"].numel()
+    calls, restore = _plain_counter(ref, ("attention_ref",
+                                          "attention_lse_ref",
+                                          "attention_bwd_ref"))
+    reset(*kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    try:
+        for i in range(steps):
+            batch = batch_of(cfg, S, B, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"].item())          # synchronises
+            secs.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k.__name__: k.launches for k in kernels}
+    want = (Le + 2 * L) * nm * steps
+    check(all(v == want for v in launched.values()),
+          f"encdec trainer: launches {launched}, want {want} each ((12 "
+          f"encoder + 12 self + 12 cross) x {nm} microbatches x {steps} "
+          f"steps)")
+    check(not calls, f"encdec trainer: plain attention on the card's path: "
+          f"{sorted(set(calls))}")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"encdec trainer: losses {losses}")
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    dec_tok, enc_tok = B * S, B * Se
+    # model FLOPs a step: 6 N a token for the weights' products, forward
+    # and backward, the frames' through the encoder's; attention's QK^T
+    # and PV forward and backward: 12 Se H hd a token and layer over the
+    # encoder's keys (the encoder and the cross-attention), 6 S H hd for
+    # the decoder's causal half
+    flop = (6 * (n_dec * dec_tok + n_enc * enc_tok)
+            + 12 * Le * Se * H * hd * enc_tok
+            + (6 * S + 12 * Se) * L * H * hd * dec_tok)
+    steady = statistics.median(secs[1:])
+    logit_gb = 2 * S * cfg.vocab_size * 12 / 1e9
+    print(f"[encdec-train] {arch} whole ({Le} encoder + {L} decoder layers, "
+          f"d {cfg.d_model}, {H} heads of {hd}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params: {n_enc / 1e9:.3f} B over the "
+          f"frames, {n_dec / 1e9:.3f} B over the tokens, bf16), seq {S} "
+          f"over {Se} frames (normal x 0.02), global batch {B} in {nm} "
+          f"microbatches ({dec_tok} tokens a step), AdamW lr {FULL_WIDTH_LR}"
+          f" under default_schedule({steps}, warmup=1), {steps} steps of "
+          f"make_train_step")
+    print(f"[encdec-train] memory reckoning: {n_params / 1e9:.3f} B params "
+          f"x 16 bytes = {16 * n_params / 1e9:.1f} GB; a microbatch's logits "
+          f"(bf16, their fp32 copy and both gradients, 12 bytes a logit) "
+          f"{logit_gb:.1f} GB; activations ~2 GB: ~"
+          f"{16 * n_params / 1e9 + logit_gb + 2:.0f} GB; measured peak "
+          f"{peak / 1e9:.2f} GB")
+    print(f"[encdec-train] losses {[round(x, 4) for x in losses]}")
+    print(f"[encdec-train] step seconds {[round(x, 3) for x in secs]}; "
+          f"median of steps 2-{steps} {steady:.3f} s, {dec_tok / steady:.0f}"
+          f" tokens/s; peak memory {peak / 1e9:.2f} GB")
+    print(f"[encdec-train] model FLOP share: {flop:.4g} FLOP a step / "
+          f"{steady:.3f} s / 989 TFLOP/s = "
+          f"{flop / steady / BF16_FLOP_PER_S:.1%}")
+    print(f"[encdec-train] launches {launched} (a step: "
+          f"{ {k: v // steps for k, v in launched.items()} }); plain "
+          f"attention calls 0")
+    del params, state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the head's products at a microbatch (2 x 1024 tokens): the forward
+    # x W^T and the weight's gradient dy^T x, over the vocab of 256,206
+    # rows (not a multiple of 8: the logits' rows are not 16-byte
+    # aligned) and over 256,208
+    g = torch.Generator(device=dev).manual_seed(SEED + 140)
+    bf = torch.bfloat16
+    x = torch.randn((2 * S, cfg.d_model), generator=g, device=dev).to(bf)
+    head = []
+    for V in (cfg.vocab_size, -(-cfg.vocab_size // 8) * 8):
+        w = torch.randn((V, cfg.d_model), generator=g, device=dev).to(bf)
+        dy = torch.randn((2 * S, V), generator=g, device=dev).to(bf)
+        fl = 2.0 * 2 * S * cfg.d_model * V
+        f_ms = time_ms(lambda: torch.nn.functional.linear(x, w), lambda: None)
+        w_ms = time_ms(lambda: dy.t() @ x, lambda: None)
+        head.append(f"vocab {V}: x W^T {f_ms:.4f} ms "
+                    f"({fl / f_ms / 1e9:.0f} TFLOP/s), dy^T x {w_ms:.4f} ms "
+                    f"({fl / w_ms / 1e9:.0f} TFLOP/s)")
+        del w, dy
+    print(f"[encdec-train] the head's GEMMs at a microbatch ({2 * S} "
+          f"tokens, bf16, CUDA events, median of 30): " + "; ".join(head))
+    del x
+    torch.cuda.empty_cache()
+    _grad_checks("encdec-train", dev, cfg, kernels, [6] * 4,
+                 lambda c, seq: batch_of(c, seq), GRAD_REL_BOUND)
+    print(f"[encdec-train] card: {smi}")
+
+
+def ssm_trainer(dev, smi) -> dict:
+    """Phase 15: rwkv6-1.6b whole (24 layers) trains 6 steps through
+    ``launch/train.py::train_loop`` (the main run); then the 2-layer
+    copies' gradient checks. Returns the main run's launches of kernel
+    7-bwd."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as W6
+    from repro_torch.launch.serve import full_width_config
+    from repro_torch.launch.train import FULL_WIDTH_LR, train_loop
+
+    arch = "rwkv6-1.6b"
+    cfg = full_width_config(arch)
+    # 4 rows of 4096 tokens a step in 4 microbatches of one row: a second
+    # row's activations (~22 GB) would pass 80 GB
+    steps, B, S, nm = 6, 4, 4096, 4
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    kernels = (W6.wkv6, W6.wkv6_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ssm-train] device memory allocated before the run: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    calls, restore = _plain_counter(ref, ("wkv6_ref", "wkv6_chunked_ref",
+                                          "wkv6_chunked_bwd_ref"))
+    reset(*kernels)
+    try:
+        out = train_loop(arch=arch, steps=steps, global_batch=B, seq_len=S,
+                         num_microbatches=nm, device="cuda", seed=SEED,
+                         log_every=0)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernels}
+    check(out["cfg"] == cfg, f"ssm trainer: not {arch} whole")
+    check(out["lr"] == FULL_WIDTH_LR, f"ssm trainer: lr {out['lr']}")
+    want = L * nm * steps
+    check(all(v == want for v in launched.values()),
+          f"ssm trainer: launches {launched}, want {want} each ({L} layers "
+          f"x {nm} microbatches x {steps} steps)")
+    check(not calls, f"ssm trainer: plain WKV6 on the card's path: "
+          f"{sorted(set(calls))}")
+    losses = out["losses"]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"ssm trainer: losses {losses}")
+    tokens = B * S
+    n_params = out["params"]
+    n_model = n_params - cfg.vocab_size * cfg.d_model   # the table: a lookup
+    # model FLOPs a step: 6 N a token for the weights' products (the
+    # embedding table excluded), forward and backward, plus the WKV
+    # recurrence's k v^T and r S, 4 hd d a token and layer, forward and
+    # backward (x 3)
+    flop = tokens * (6 * n_model + 12 * L * hd * cfg.d_model)
+    steady = statistics.median(out["step_seconds"][1:])
+    n_chunk = -(-S // 32)
+    st_gb = L * n_chunk * H * hd * hd * 4 / 1e9
+    print(f"[ssm-train] {arch} whole ({L} layers, d {cfg.d_model}, {H} heads "
+          f"of {hd}, F {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params, bf16), seq {S}, global batch {B} "
+          f"in {nm} microbatches ({tokens} tokens a step), AdamW lr "
+          f"{out['lr']} (train_loop's default at a published width) under "
+          f"default_schedule({steps}, warmup=1), {steps} steps")
+    print(f"[ssm-train] memory reckoning: {n_params / 1e9:.3f} B params x 16 "
+          f"bytes = {16 * n_params / 1e9:.1f} GB; activations ~220 KB a "
+          f"token and layer = {220e3 * S * L / 1e9:.1f} GB a microbatch; "
+          f"the chunk states {st_gb:.2f} GB; the logits 12 bytes each "
+          f"{S * cfg.vocab_size * 12 / 1e9:.1f} GB: ~"
+          f"{16 * n_params / 1e9 + 220e3 * S * L / 1e9 + st_gb + S * cfg.vocab_size * 12 / 1e9:.0f}"
+          f" GB; measured peak {out['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[ssm-train] losses {[round(x, 4) for x in losses]}")
+    print(f"[ssm-train] step seconds "
+          f"{[round(x, 3) for x in out['step_seconds']]}; median of steps "
+          f"2-{steps} {steady:.3f} s, {tokens / steady:.0f} tokens/s; peak "
+          f"memory {out['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[ssm-train] model FLOP share: tokens x (6 N + 12 L hd d) = "
+          f"{flop:.4g} FLOP a step / {steady:.3f} s / 989 TFLOP/s = "
+          f"{flop / steady / BF16_FLOP_PER_S:.1%}")
+    print(f"[ssm-train] launches {launched} (a step: "
+          f"{ {k: v // steps for k, v in launched.items()} }); plain WKV6 "
+          f"calls 0")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def batch_of(c, seq):
+        return SyntheticLM(vocab_size=c.vocab_size, seq_len=seq,
+                           global_batch=2, seed=SEED).batch(0, dev)
+
+    _grad_checks("ssm-train", dev, cfg, kernels, [2, 2], batch_of,
+                 GRAD_REL_BOUND_WKV)
+    print(f"[ssm-train] card: {smi}")
+    return {"wkv6_bwd": launched["wkv6_bwd"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1131,7 +1593,9 @@ def main() -> int:
         plan as decode_plan)
     from repro_torch.kernels.paged_extend_attention import (
         paged_extend_attention, plan as extend_plan)
-    from repro_torch.kernels.wkv6 import plan as wkv6_plan, wkv6
+    from repro_torch.kernels.wkv6 import (
+        bwd_smem_bytes as wkv6_bwd_smem_bytes, plan as wkv6_plan, wkv6,
+        wkv6_bwd)
     from repro_torch.launch.cosim import run_cosim
     from repro_torch.launch.serve import (demo_requests, full_width_config,
                                           serve_demo)
@@ -1148,7 +1612,8 @@ def main() -> int:
         paged_decode_attention, paged_decode_attention_int8,
         paged_extend_attention, expert_matmul, wkv6,
         flash_attention_bwd_dot, flash_attention_bwd_dkdv,
-        flash_attention_bwd_dq, expert_matmul_bwd_dx, expert_matmul_bwd_dw)}
+        flash_attention_bwd_dq, expert_matmul_bwd_dx, expert_matmul_bwd_dw,
+        wkv6_bwd)}
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1166,7 +1631,8 @@ def main() -> int:
     logs = build.build(["flash_attention", "decode_attention",
                         "decode_attention_int8", "paged_decode_attention",
                         "paged_extend_attention", "expert_matmul", "wkv6",
-                        "flash_attention_bwd", "expert_matmul_bwd"])
+                        "flash_attention_bwd", "expert_matmul_bwd",
+                        "wkv6_bwd"])
     print(f"[build] {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -1230,7 +1696,11 @@ def main() -> int:
             "expert_matmul_bwd": [
                 (f"bfloat16 {body} {what}", expert_bwd_smem_bytes(body, dw))
                 for body in ("wgmma", "mma.sync")
-                for what, dw in (("dX", False), ("dW", True))]}
+                for what, dw in (("dX", False), ("dW", True))],
+            # kernel 7-bwd: one layout for bf16 and fp32 (fp32 operands)
+            "wkv6_bwd": [(f"hd={hd}", wkv6_bwd_smem_bytes(torch.bfloat16,
+                                                          hd))
+                         for hd in (64, 16)]}
     # decode_split_fwd's mangled arguments: q type, cache type, hd, paged
     mangled = {"13__nv_bfloat16": "bf16", "f": "fp32", "a": "int8"}
 
@@ -1253,13 +1723,14 @@ def main() -> int:
     for name in ("flash_attention", "expert_matmul", "paged_extend_attention",
                  "wkv6", "decode_attention", "decode_attention_int8",
                  "paged_decode_attention", "flash_attention_bwd",
-                 "expert_matmul_bwd"):
+                 "expert_matmul_bwd", "wkv6_bwd"):
         fn, spill = None, ""
         for line in logs.get(name, "").splitlines():
             if "Compiling entry function" in line:   # mangled template
                 m = re.search(r"(flash_fwd_mma|flash_fwd|expert_gemm_mma|"
                               r"expert_gemm|paged_extend_fwd_mma|"
                               r"paged_extend_fwd|wkv6_chunked|"
+                              r"wkv6_bwd_chunked|"
                               r"decode_split_fwd|bwd_dkdv_wgmma|bwd_dq_wgmma|"
                               r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot|"
                               r"expert_bwd_wgmma|expert_bwd_mma|"
@@ -2224,6 +2695,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     backward_kernels(dev, flush, compare, rows, extra_shapes)
     expert_backward_kernels(dev, flush, compare, rows, extra_shapes)
+    wkv6_backward_kernels(dev, flush, rows, extra_shapes)
     del l2
     torch.cuda.empty_cache()
 
@@ -3591,6 +4063,12 @@ def main() -> int:
     # ---------------------------------------------------- 13. moe trainer
     launches.update(moe_trainer(dev, smi))
 
+    # ------------------------------------------------- 14. encdec trainer
+    encdec_trainer(dev, smi)
+
+    # ---------------------------------------------------- 15. ssm trainer
+    launches.update(ssm_trainer(dev, smi))
+
     # ---------------------------------------------------------- report
     # the backward kernels replace no TPU kernel (the reference takes
     # attention's gradient from XLA): each names kernel 1, whose backward
@@ -3613,7 +4091,8 @@ def main() -> int:
            "paged_extend_attention": ("flash_attention.py:209",
                                       "paged_extend_attention"),
            "expert_matmul": ("grouped_matmul.py:56", "expert_matmul"),
-           "wkv6": ("wkv6.py:74", "wkv6")}
+           "wkv6": ("wkv6.py:74", "wkv6"),
+           "wkv6_bwd": ("wkv6.py:74", "wkv6")}
     csrc = {"paged_decode_attention_int8": "paged_decode_attention",
             **{k: "flash_attention_bwd" for k in port_only},
             **{k: "expert_matmul_bwd" for k in expert_bwd}}
@@ -3642,6 +4121,11 @@ def main() -> int:
                 "port-only backward of kernel 6: no TPU kernel computes it "
                 "(the reference differentiates the expert FFN's einsums in "
                 "XLA, src/repro/models/moe.py:64)")
+        if name == "wkv6_bwd":
+            table[-1]["note"] = (
+                "port-only backward of kernel 7: the reference "
+                "differentiates wkv6_chunked in XLA, "
+                "src/repro/models/rwkv6.py:97")
     print(smi)                        # the card, as nvidia-smi gives it
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,12 @@
 //     out_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
 // r/k/v [B, S, H, hd] (bf16 or fp32), logw [B, S, H, hd] fp32, u [H, hd]
 // fp32, state0 [B, H, hd, hd] fp32 -> out [B, S, H, hd] fp32 and the final
-// state [B, H, hd, hd] fp32.
+// state [B, H, hd, hd] fp32; for training, optionally the state at each
+// chunk's start [B, ceil(S/32), H, hd, hd] fp32, what the backward
+// (csrc/wkv6_bwd.cu) reads. Serving passes a null pointer for it, and
+// every other output is computed the same way either way: each block
+// writes its value columns of the state it holds in registers at the top
+// of each chunk's step.
 //
 // The form: chunks of kChunk = 32 tokens, the model's CHUNK
 // (repro/models/rwkv6.py). With c the inclusive cumsum of logw inside the
@@ -184,8 +189,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ logw,
              const float* __restrict__ u, const float* __restrict__ state0,
-             float* __restrict__ out, float* __restrict__ state_out, int S,
-             int H, int vec) {
+             float* __restrict__ out, float* __restrict__ state_out,
+             float* __restrict__ chunk_states, int S, int H, int vec) {
   using L = Layout<T, HD, CW>;
   constexpr bool kExactV = sizeof(T) == 2;  // bf16 v is exact in TF32
   constexpr int kSplit = HD / CW;
@@ -446,6 +451,19 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[q][e] += lo[q][e];
   };
+  // the state at chunk i's start, this slice's columns (training only)
+  auto save_state = [&](int i) {
+    if (!st_warp || chunk_states == nullptr) return;
+    float* so = chunk_states +
+                (((long long)b * n_chunks + i) * H + h) * HD * HD + cb;
+#pragma unroll
+    for (int q = 0; q < kNT; ++q)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(so + (m0 + fg + 8 * hf) * HD + 8 * q +
+                                   2 * ft) =
+            make_float2(st[q][2 * hf], st[q][2 * hf + 1]);
+  };
   auto snapshot = [&]() {
     if (!st_warp) return;
 #pragma unroll
@@ -480,8 +498,12 @@ wkv6_chunked(const T* __restrict__ r, const T* __restrict__ k,
     cp_async_wait<0>();
     __syncthreads();  // X: chunk i + 1's inputs landed; chunk i's operands,
                       // scores and the state snapshot ready
-    if (g1) outputs(i);
-    else if (i + 1 < n_chunks) transforms(i + 1);
+    if (g1) {
+      save_state(i);
+      outputs(i);
+    } else if (i + 1 < n_chunks) {
+      transforms(i + 1);
+    }
     __syncthreads();  // Y: raw inputs consumed; chunk i's outputs done
     if (g1) {
       carry(i);
@@ -520,7 +542,7 @@ int slices_for(int hd, int B, int H) {
 struct Args {
   const void *r, *k, *v;
   const float *logw, *u, *state0;
-  float *out, *state_out;
+  float *out, *state_out, *chunk_states;
   int B, S, H;
   cudaStream_t stream;
   bool query;  // return the launch's dynamic shared memory, launch nothing
@@ -541,7 +563,7 @@ int launch(const Args& a) {
   kern<<<a.B * a.H * (HD / CW), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.r), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.logw, a.u, a.state0, a.out, a.state_out,
-      a.S, a.H, vec);
+      a.chunk_states, a.S, a.H, vec);
   return (int)cudaGetLastError();
 }
 
@@ -569,16 +591,17 @@ int dispatch(int dtype, int hd, const Args& a) {
 
 // r/k/v [B, S, H, hd] of dtype (code as in common.cuh), logw [B, S, H, hd]
 // fp32, u [H, hd] fp32, state0 and state_out [B, H, hd, hd] fp32, out
-// [B, S, H, hd] fp32; all contiguous; hd 16 or 64. Returns the cudaError_t
-// of the launch (0 on success).
+// [B, S, H, hd] fp32, chunk_states [B, ceil(S/32), H, hd, hd] fp32 or null
+// (not written); all contiguous; hd 16 or 64. Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const float* logw, const float* u,
                         const float* state0, float* out, float* state_out,
-                        int dtype, int hd, int B, int S, int H,
-                        void* stream) {
+                        float* chunk_states, int dtype, int hd, int B, int S,
+                        int H, void* stream) {
   return dispatch(dtype, hd,
-                  {r, k, v, logw, u, state0, out, state_out, B, S, H,
-                   static_cast<cudaStream_t>(stream), false});
+                  {r, k, v, logw, u, state0, out, state_out, chunk_states, B,
+                   S, H, static_cast<cudaStream_t>(stream), false});
 }
 
 // The value-column slices per head, and the dynamic shared memory in bytes
@@ -590,5 +613,5 @@ extern "C" int wkv6_split(int hd, int B, int H) {
 extern "C" int wkv6_smem_bytes(int dtype, int hd, int B, int H) {
   return dispatch(dtype, hd,
                   {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                   nullptr, nullptr, B, 0, H, nullptr, true});
+                   nullptr, nullptr, nullptr, B, 0, H, nullptr, true});
 }

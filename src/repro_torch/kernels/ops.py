@@ -7,8 +7,9 @@ shape, and the kernel's wrapper raises on what it does not take.
 requires grad goes through ``FlashAttentionFn`` instead: kernel 1 with its
 LSE output forward, its three backward kernels backward; ``expert_matmul``
 likewise through ``ExpertMatmulFn``: kernel 6 forward, its dX and dW
-kernels backward. Serving builds no graph, so it launches the forward
-kernels alone. There is no fallback from
+kernels backward; ``wkv6`` through ``WKV6Fn``: kernel 7 with its
+chunk-state output forward, kernel 7-bwd backward. Serving builds no
+graph, so it launches the forward kernels alone. There is no fallback from
 one to the other: the reference package's TPU tiling guards (shapes that
 do not tile went to the XLA version) do not carry over, because the CUDA
 kernels mask their own ragged edges.
@@ -31,7 +32,7 @@ from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_int8 as _paged_decode_int8_kernel)
 from repro_torch.kernels.paged_extend_attention import (
     paged_extend_attention as _paged_extend_kernel)
-from repro_torch.kernels.wkv6 import wkv6 as _wkv6_kernel
+from repro_torch.kernels.wkv6 import WKV6Fn, wkv6 as _wkv6_kernel
 
 
 def _on_cpu(t) -> bool:
@@ -117,7 +118,10 @@ def expert_matmul(xe, w, fill=None):
 
 def wkv6(r, k, v, logw, u, state0):
     """WKV6 over a segment [B,S,H,hd] from the carried state [B,H,hd,hd]
-    -> (out fp32, final state fp32)."""
+    -> (out fp32, final state fp32). Differentiable on either device."""
     if _on_cpu(r):
         return ref.wkv6_chunked_ref(r, k, v, logw, u, state0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, state0)):
+        return WKV6Fn.apply(r, k, v, logw, u, state0)
     return _wkv6_kernel(r, k, v, logw, u, state0)

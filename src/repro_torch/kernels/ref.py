@@ -259,7 +259,8 @@ def wkv6_ref(r, k, v, logw, u, state0):
 WKV6_CHUNK = 32
 
 
-def wkv6_chunked_ref(r, k, v, logw, u, state0, chunk: int = WKV6_CHUNK):
+def wkv6_chunked_ref(r, k, v, logw, u, state0, chunk: int = WKV6_CHUNK,
+                     chunk_states: bool = False):
     """The chunked form of ``wkv6_ref`` (``repro/models/rwkv6.py``
     ``wkv6_chunked``), for any S: chunks of ``chunk`` tokens, the last one
     shorter. Within a chunk, with c the inclusive cumsum of logw:
@@ -267,13 +268,17 @@ def wkv6_chunked_ref(r, k, v, logw, u, state0, chunk: int = WKV6_CHUNK):
     diagonal, the carried state's term (r e^{c_prev}) S, and the carry
     S <- e^{c_last} S + (k e^{c_last - c})^T v. At the model's clamp
     (logw >= -1.5) a 32-token chunk keeps every factor within e^{±48}, in
-    fp32 range. Returns (out fp32, state fp32) like ``wkv6_ref``."""
+    fp32 range. Returns (out fp32, state fp32) like ``wkv6_ref``; with
+    ``chunk_states`` also the state at each chunk's start, [B,
+    ceil(S/chunk), H, hd, hd] fp32 (the first is ``state0``): what kernel
+    7 saves for its backward."""
     B, S, H, hd = r.shape
     r, k, v, w = (a.float() for a in (r, k, v, logw))
     u = u.float()
     st = state0.float()
-    outs = []
+    outs, starts = [], []
     for t0 in range(0, S, chunk):
+        starts.append(st)
         sl = slice(t0, min(t0 + chunk, S))
         r_i, k_i, v_i, w_i = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
         C = r_i.shape[1]
@@ -291,4 +296,87 @@ def wkv6_chunked_ref(r, k, v, logw, u, state0, chunk: int = WKV6_CHUNK):
               + torch.einsum("bthk,bthv->bhkv", k_dec, v_i))
         outs.append(out)
     out = torch.cat(outs, 1) if outs else torch.zeros_like(r)
+    if chunk_states:
+        states = (torch.stack(starts, 1) if starts
+                  else st.new_zeros((B, 0, H, hd, hd)))
+        return out, st, states
     return out, st
+
+
+def wkv6_chunked_bwd_ref(r, k, v, logw, u, state0, chunk_states, dout,
+                         dstate=None, chunk: int = WKV6_CHUNK):
+    """The gradient of ``wkv6_chunked_ref`` from ``state0`` and the later
+    chunk-start states it saves (``chunk_states`` [B,n,H,hd,hd], whose
+    first is state0), given the output's gradient
+    ``dout`` [B,S,H,hd] and the final state's ``dstate`` [B,H,hd,hd]
+    (None: zero) -> (dr, dk, dv in r's dtype, dlogw fp32, du [H,hd] fp32,
+    dstate0 fp32), in explicit fp32 formulas, not autograd: what kernel
+    7-bwd computes. The chunks are walked in reverse, carrying dS, the
+    gradient of the state at the chunk's end. Within a chunk (c the
+    inclusive cumsum of logw, c_prev = c - logw, c_L its last row; A = r
+    e^{c_prev}, Bm = k e^{-c}, Kd = k e^{c_L - c}, P[t, j] = A_t . Bm_j
+    below the diagonal and the bonus r_t . (u k_t) on it, dP[t, j] =
+    dout_t . v_j likewise, dd_t on the diagonal)::
+
+        dv_t   = sum_{s>=t} P[s, t] dout_s + Kd_t dS
+        dA_t   = sum_{j<t} dP[t, j] Bm_j + S0 dout_t
+        dBm_j  = sum_{t>j} dP[t, j] A_t
+        dKd_t  = dS v_t
+        dr_t   = dA_t e^{c_prev_t} + dd_t u k_t
+        dk_t   = dBm_t e^{-c_t} + dKd_t e^{c_L - c_t} + dd_t u r_t
+        du    += sum_t dd_t r_t k_t
+        dlogw_s = sum_{t>=s} x_t + sum_{t>s} y_t + dc_L, with
+                  x_t = -(dBm_t Bm_t + dKd_t Kd_t) (through c_t),
+                  y_t = dA_t A_t (through c_prev_t),
+                  dc_L = sum_t dKd_t Kd_t + e^{c_L} rowsum(dS * S0)
+        dS    <- e^{c_L} dS + A^T dout  (the previous chunk's, then
+                  dstate0)
+
+    The bonus gives du and nothing to dlogw. Every product is fp32."""
+    B, S, H, hd = r.shape
+    f = lambda a: a.float()
+    rf, kf, vf, wf, do = f(r), f(k), f(v), f(logw), f(dout)
+    u = f(u)
+    dS = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if dstate is None else f(dstate))
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros((H, hd), dtype=torch.float32, device=r.device)
+    for i in reversed(range(0, (S + chunk - 1) // chunk)):
+        sl = slice(i * chunk, min((i + 1) * chunk, S))
+        r_i, k_i, v_i, w_i, do_i = (a[:, sl] for a in (rf, kf, vf, wf, do))
+        S0 = f(state0 if i == 0 else chunk_states[:, i])    # [B,H,hd,hd]
+        C = r_i.shape[1]
+        c = torch.cumsum(w_i, dim=1)
+        c_prev = c - w_i
+        c_last = c[:, -1:]
+        A = r_i * torch.exp(c_prev)
+        Bm = k_i * torch.exp(-c)
+        Kd = k_i * torch.exp(c_last - c)
+        tri = torch.tril(torch.ones((C, C), device=r.device), diagonal=-1)
+        eye = torch.eye(C, device=r.device)
+        diag = (r_i * u[None, None] * k_i).sum(-1)            # [B,C,H]
+        dd = (do_i * v_i).sum(-1)                             # [B,C,H]
+        P = (torch.einsum("bthd,bjhd->bhtj", A, Bm) * tri
+             + torch.einsum("bth,tj->bhtj", diag, eye))
+        dP = torch.einsum("bthd,bjhd->bhtj", do_i, v_i) * tri
+        dv[:, sl] = (torch.einsum("bhst,bshd->bthd", P, do_i)
+                     + torch.einsum("bthk,bhkv->bthv", Kd, dS))
+        dA = (torch.einsum("bhtj,bjhd->bthd", dP, Bm)
+              + torch.einsum("bhkv,bthv->bthk", S0, do_i))
+        dBm = torch.einsum("bhtj,bthd->bjhd", dP, A)
+        dKd = torch.einsum("bhkv,bthv->bthk", dS, v_i)
+        uk = u[None, None] * k_i
+        dr[:, sl] = dA * torch.exp(c_prev) + dd[..., None] * uk
+        dk[:, sl] = (dBm * torch.exp(-c) + dKd * torch.exp(c_last - c)
+                     + dd[..., None] * u[None, None] * r_i)
+        du += (dd[..., None] * r_i * k_i).sum((0, 1))
+        x = -(dBm * Bm + dKd * Kd)
+        y = dA * A
+        e_last = torch.exp(c_last[:, 0])                      # [B,H,hd]
+        dc_last = (dKd * Kd).sum(1) + e_last * (dS * S0).sum(-1)
+        rev = lambda a: torch.flip(torch.cumsum(torch.flip(a, [1]), 1), [1])
+        dw[:, sl] = rev(x) + rev(y) - y + dc_last[:, None]
+        dS = (e_last[..., None] * dS
+              + torch.einsum("bthk,bthv->bhkv", A, do_i))
+    to = lambda a: a.to(r.dtype)
+    return to(dr), to(dk), to(dv), dw, du, dS

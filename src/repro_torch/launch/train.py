@@ -2,16 +2,22 @@
 
 Port of ``repro/launch/train.py``. Runs real steps on the device it is
 given: the card by default, whose attention forward and backward are
-kernel 1 and its backward kernels; ``--device cpu`` trains through the
+kernel 1 and its backward kernels, and whose WKV6 scan (the ssm family)
+is kernel 7 and its backward kernel; ``--device cpu`` trains through the
 plain PyTorch versions. The config is the arch's reduced smoke config on
 the CPU and its published width on the card (``full_width_config``, as
 ``launch/serve.py`` serves it), ``--layers`` cutting the depth;
 ``--d-model`` takes the reference's reduced config at that width (four
-heads). The card's attention backward kernels take head dims 64 and 128
-only, so a width whose head dim is another (``--d-model 768``: 192) is
-refused here, before any step. The dense family and the moe family with
-GQA attention train (``models.transformer.loss_fn``); phi3.5-moe at its
-published width fits one 80 GB card at 2 of its 32 layers. AdamW's
+heads). On the card a width whose head dim the family's backward kernels
+do not take (``backward_head_dims``: 64 and 128 for attention, 16 and 64
+for WKV6; ``--d-model 768`` gives 192) is refused here, before any step.
+The dense family, the moe family with GQA attention and the ssm family
+(rwkv6) train (``models.transformer.loss_fn``); phi3.5-moe at its
+published width fits one 80 GB card at 2 of its 32 layers. The encdec
+and vlm families' losses take ``frames`` or ``patches`` that
+``SyntheticLM`` does not make (nor does the reference's trainer): they
+are refused here, and an encdec model trains through
+``training.make_train_step`` on batches that carry frames. AdamW's
 learning rate defaults to ``default_lr(cfg)``: the reference's 3e-3 for a
 reduced config, 3e-5 at a published width.
 
@@ -21,6 +27,8 @@ reduced config, 3e-5 at a published width.
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch phi3.5-moe-42b-a6.6b --layers 2 --steps 6 --seq 4096 \\
       --batch 4 --microbatches 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch rwkv6-1.6b --steps 20
 """
 from __future__ import annotations
 
@@ -36,11 +44,32 @@ from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+from repro_torch.kernels import flash_attention, wkv6
 from repro_torch.launch.serve import full_width_config
 from repro_torch.models.api import build
 from repro_torch.training import AdamW, default_schedule, make_train_step
 from repro_torch.tree import leaves
+
+
+def backward_head_dims(cfg: ModelConfig) -> tuple:
+    """The head dims the card's backward kernels take for ``cfg``'s
+    family: kernel 7-bwd's for the ssm family, kernel 1-bwd's for the
+    attention families."""
+    if cfg.family == "ssm":
+        return wkv6.BWD_HEAD_DIMS
+    return flash_attention.BWD_HEAD_DIMS
+
+
+def check_synthetic(cfg: ModelConfig) -> None:
+    """ValueError for a family whose loss takes inputs ``SyntheticLM``
+    does not make: encdec (``frames``) and vlm (``patches``)."""
+    if cfg.family in ("encdec", "vlm"):
+        what = "frames" if cfg.family == "encdec" else "patches"
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): its loss takes batch[{what!r}], "
+            f"and SyntheticLM has no frames or patches (nor has the "
+            f"reference's trainer); train it through "
+            f"training.make_train_step on batches that carry them")
 
 
 def train_config(arch: str, device, *, d_model: Optional[int] = None,
@@ -48,7 +77,8 @@ def train_config(arch: str, device, *, d_model: Optional[int] = None,
     """The config ``train_loop`` trains: the smoke config on the CPU, the
     published width on the card; ``d_model`` the reference's reduced
     config at that width, ``num_layers`` the depth. On the card its head
-    dim must be one the backward kernels take (ValueError otherwise)."""
+    dim must be one the family's backward kernels take
+    (``backward_head_dims``; ValueError otherwise)."""
     cpu = resolve_device(device).type == "cpu"
     if d_model:
         cfg = reduced(get_config(arch), d_model=d_model, head_dim=None,
@@ -57,13 +87,13 @@ def train_config(arch: str, device, *, d_model: Optional[int] = None,
         cfg = smoke_config(arch) if cpu else full_width_config(arch)
     if num_layers:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
-    if not cpu and cfg.resolved_head_dim not in BWD_HEAD_DIMS:
+    dims = backward_head_dims(cfg)
+    if not cpu and cfg.resolved_head_dim not in dims:
         raise ValueError(
             f"{cfg.name} at d_model {cfg.d_model} over {cfg.num_heads} heads "
-            f"has head dim {cfg.resolved_head_dim}; the card's attention "
-            f"backward kernels take {BWD_HEAD_DIMS} (--d-model "
-            f"{BWD_HEAD_DIMS[0] * cfg.num_heads} gives head dim "
-            f"{BWD_HEAD_DIMS[0]})")
+            f"has head dim {cfg.resolved_head_dim}; the card's backward "
+            f"kernels for the {cfg.family} family take {dims} (--d-model "
+            f"{dims[-1] * cfg.num_heads} gives head dim {dims[-1]})")
     return cfg
 
 
@@ -89,12 +119,14 @@ def train_loop(*, arch: str = "llama3.2-1b", steps: int, global_batch: int,
                log_every: int = 10, d_model: Optional[int] = None,
                num_layers: Optional[int] = None, seed: int = 0) -> dict:
     """Train ``steps`` steps of ``SyntheticLM`` batches under
-    ``default_schedule`` and return the losses, each step's wall seconds
+    ``default_schedule`` (an encdec or vlm arch raises ValueError:
+    ``check_synthetic``) and return the losses, each step's wall seconds
     (synchronised), tokens a second, the config
     (``train_config(arch, device, ...)``), the learning rate (``lr``, by
     default ``default_lr(cfg)``) and, on the card, the peak memory."""
     dev = resolve_device(device)
     cfg = train_config(arch, dev, d_model=d_model, num_layers=num_layers)
+    check_synthetic(cfg)
     model = build(cfg)
     lr = default_lr(cfg) if lr is None else lr
     opt = AdamW(lr=lr)
@@ -166,9 +198,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
-    try:     # refuse a width the card cannot train before any step
-        train_config(args.arch, args.device, d_model=args.d_model,
-                     num_layers=args.layers)
+    try:     # refuse a width or family it cannot train before any step
+        check_synthetic(train_config(args.arch, args.device,
+                                     d_model=args.d_model,
+                                     num_layers=args.layers))
     except ValueError as e:
         ap.error(str(e))
     out = train_loop(arch=args.arch, steps=args.steps,

@@ -347,30 +347,44 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, *,
             reference: bool = False):
     """Next-token cross-entropy of ``batch["tokens"]`` [B, S] against
     ``batch["labels"]`` [B, S] (masked by ``batch["loss_mask"]`` if
-    given): embed, every layer as in prefill (its K/V not kept), the final
-    norm, the logits; a moe model adds 0.01 times the sum of its layers'
-    router aux losses, as the reference. The dense family (qk-norm
-    included) and the moe family with GQA attention (phi3.5-moe) only:
-    attention goes through ``ops.flash_attention`` and the expert GEMMs
-    through ``ops.expert_matmul``, which autograd differentiates on the CPU
-    and which run kernels 1 and 6 and their backward kernels on the card.
-    ``reference=True`` runs the plain versions on any device."""
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+    given): embed, every layer as in prefill (its K/V or new state not
+    kept), the final norm, the logits; a moe model adds 0.01 times the
+    sum of its layers' router aux losses, as the reference. An encdec
+    model encodes ``batch["frames"]`` [B,Se,d] first and its decoder
+    layers attend their cross K/V of it; an ssm model runs each RWKV6
+    layer from a zero state of its own. Attention goes through
+    ``ops.flash_attention``, the expert GEMMs through
+    ``ops.expert_matmul`` and the WKV6 scan through ``ops.wkv6``, which
+    autograd differentiates on the CPU and which run kernels 1, 6 and 7
+    and their backward kernels on the card. ``reference=True`` runs the
+    plain versions on any device. The hybrid and vlm families and the moe
+    family's MLA are not ported here: their attention head dims (112,
+    256, q/k 192 over v 128) are ones kernel 1's backward does not
+    take."""
+    if cfg.family in ("hybrid", "vlm") or cfg.use_mla:
         what = "moe family's MLA" if cfg.use_mla else f"{cfg.family!r}"
         raise NotImplementedError(
-            f"{cfg.name}: loss_fn is ported for the dense family only and "
-            f"the moe family with GQA attention; {what} training is not "
-            "ported yet (the ssm, hybrid, encdec and vlm families and "
-            "MLA need the backward of their kernels)")
+            f"{cfg.name}: {what} training is not ported yet (the hybrid "
+            "and vlm families and MLA wait for kernel 1's backward at "
+            "their head dims)")
     dev = _device(params)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = Lyr.embed(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=dev)
     auxes = []
-    for p in params["layers"]:
-        x, _, aux = _layer(cfg, p, x, positions, reference=reference)
-        if aux is not None:
-            auxes.append(aux)
+    if cfg.family == "ssm":
+        state = RWKV.rwkv6_state_init(cfg, tokens.shape[0], dev)
+        for i, p in enumerate(params["layers"]):
+            x, _ = RWKV.rwkv6_block(cfg, p, x, _layer_cache(state, i),
+                                    reference=reference)
+    else:
+        cache = ({"enc_kv": _encode(cfg, params, batch["frames"], reference)}
+                 if cfg.family == "encdec" else {})
+        for i, p in enumerate(params["layers"]):
+            x, _, aux = _layer(cfg, p, x, positions,
+                               enc=_enc_layer(cache, i), reference=reference)
+            if aux is not None:
+                auxes.append(aux)
     x = Lyr.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     mask = batch.get("loss_mask")
     loss = Lyr.cross_entropy(

@@ -1431,3 +1431,194 @@ def test_moe_loss_grads_kernel_path_match_plain_path(gen):
     assert abs(float(got[0]) - float(want[0])) <= 1e-5
     for a, b in zip(leaves(got[1]), leaves(want[1])):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------ kernel 7's backward
+# bf16 outputs (dr, dk, dv at bf16 inputs) take bf16's bound by element;
+# fp32 outputs 2e-5 with the abs part scaled by the output's largest
+# magnitude: each is a sum of signed fp32 terms taken in another order
+# than the plain version's (dS over up to 512 tokens that do not decay,
+# du over B and S, dlogw a difference of running sums), whose rounding
+# follows the largest terms, not the entry; each output's ||kernel -
+# plain|| / ||plain|| within REL_NORM too, which holds the bulk
+
+def _wkv_bwd_inputs(gen, dtype, B, S, H, hd, logw=None, state0=True):
+    r, k, v = (0.5 * _rnd(gen, (B, S, H, hd), dtype) for _ in range(3))
+    if logw is None:
+        w = (-torch.rand((B, S, H, hd), generator=gen, device="cuda")
+             * 1.5).clamp(max=-1e-6)
+    else:
+        w = torch.full((B, S, H, hd), logw, device="cuda")
+    u = 0.3 * _rnd(gen, (H, hd), torch.float32)
+    s0 = 0.1 * _rnd(gen, (B, H, hd, hd), torch.float32)
+    if not state0:
+        s0.zero_()
+    dout = _rnd(gen, (B, S, H, hd), torch.float32)
+    dstate = _rnd(gen, (B, H, hd, hd), torch.float32)
+    return (r, k, v, w, u, s0), dout, dstate
+
+
+def _wkv_bwd_check(got, want, dtype):
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        tol = TOL[g.dtype]
+        err = (g.float() - w.float()).abs()
+        scale = (w.float().abs() if g.dtype == torch.bfloat16
+                 else w.float().abs().max())
+        assert bool((err <= tol["atol"] * (1 + scale)).all()), (
+            name, float(err.max()))
+        assert _rel_norm(g, w) <= REL_NORM[
+            dtype if name in ("dr", "dk", "dv") else torch.float32], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 512])
+def test_wkv6_bwd_kernel_matches_plain(gen, dtype, hd, B, S):
+    """Kernel 7-bwd against ``wkv6_chunked_bwd_ref`` from the kernel
+    forward's chunk states (themselves held against the plain ones), a
+    random decay, nonzero state0 and final-state gradient."""
+    H = 32 if hd == 64 else 4
+    ins, dout, dstate = _wkv_bwd_inputs(gen, dtype, B, S, H, hd)
+    states = torch.empty((B, W6.n_chunks(S), H, hd, hd), device="cuda")
+    wkv6(*ins, chunk_states=states)
+    _, _, want_states = ref.wkv6_chunked_ref(*ins, chunk_states=True)
+    torch.testing.assert_close(states, want_states, **TOL[torch.float32])
+    got = W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    _wkv_bwd_check(got, ref.wkv6_chunked_bwd_ref(*ins, states, dout,
+                                                 dstate), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("S", [33, 512])
+@pytest.mark.parametrize("logw,state0,dstate", [
+    (-1.5, True, True), (-1e-6, True, True), (None, False, False)],
+    ids=["clamp", "near_zero_decay", "zero_state"])
+def test_wkv6_bwd_kernel_edges_match_plain(gen, dtype, hd, S, logw, state0,
+                                           dstate):
+    """The decay clamp (-1.5: 32 tokens reach e^{+-48}), a decay near
+    ``LOG_W_MAX`` (-1e-6: nothing forgets over 512 tokens), and a zero
+    state0 with no final-state gradient (the training path's)."""
+    H = 32 if hd == 64 else 4
+    ins, dout, ds = _wkv_bwd_inputs(gen, dtype, 3, S, H, hd, logw, state0)
+    ds = ds if dstate else None
+    states = torch.empty((3, W6.n_chunks(S), H, hd, hd), device="cuda")
+    wkv6(*ins, chunk_states=states)
+    got = W6.wkv6_bwd(*ins[:5], states, dout, ds)
+    _wkv_bwd_check(got, ref.wkv6_chunked_bwd_ref(*ins, states, dout, ds),
+                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_bwd_kernel_repeats_and_rows_do_not_depend_on_the_batch(
+        gen, dtype):
+    """Two runs bitwise equal; row 2 alone (B=1) equals row 2 of a B=8
+    call bit for bit (dr, dk, dv, dlogw, dstate0; du sums the rows)."""
+    B, S, H, hd = 8, 100, 32, 64
+    ins, dout, dstate = _wkv_bwd_inputs(gen, dtype, B, S, H, hd)
+    states = torch.empty((B, W6.n_chunks(S), H, hd, hd), device="cuda")
+    wkv6(*ins, chunk_states=states)
+    a = W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    b = W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    row = lambda t: t[2:3].contiguous()
+    one = W6.wkv6_bwd(*(row(t) for t in ins[:4]), ins[4], row(states),
+                      row(dout), row(dstate))
+    for i in (0, 1, 2, 3, 5):
+        assert torch.equal(a[i][2:3], one[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(8, 100), (1, 512), (2, 31)])
+def test_wkv6_chunk_state_output_leaves_the_forward_as_it_is(gen, dtype, B,
+                                                             S):
+    """Kernel 7 with its chunk-state output (the training forward) gives
+    the serving call's output and final state bit for bit, and the
+    states at each chunk's start (the first is state0 exactly)."""
+    ins, _, _ = _wkv_bwd_inputs(gen, dtype, B, S, 32, 64)
+    o, s = wkv6(*ins)
+    states = torch.empty((B, W6.n_chunks(S), 32, 64, 64), device="cuda")
+    o2, s2 = wkv6(*ins, chunk_states=states)
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+    assert torch.equal(states[:, 0], ins[5])
+    torch.testing.assert_close(
+        states, ref.wkv6_chunked_ref(*ins, chunk_states=True)[2],
+        **TOL[torch.float32])
+
+
+def test_wkv6_fn_grads_match_plain_path(gen):
+    """Autograd through ``ops.wkv6`` on the card (kernel 7 with its chunk
+    states, then kernel 7-bwd, each launched once) against autograd
+    through the plain chunked form, fp32, the output's and the final
+    state's cotangents both; without grad, the forward kernel alone."""
+    ins, dout, dstate = _wkv_bwd_inputs(gen, torch.float32, 2, 77, 4, 64)
+    W6.wkv6.launches = W6.wkv6_bwd.launches = 0
+    out = {}
+    for name, scan in (("kernel", ops.wkv6), ("plain", ref.wkv6_chunked_ref)):
+        ts = [t.clone().requires_grad_() for t in ins]
+        o, s = scan(*ts)
+        out[name] = (o, s, *torch.autograd.grad((o, s), ts, (dout, dstate)))
+    assert (W6.wkv6.launches, W6.wkv6_bwd.launches) == (1, 1)
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    ts = [t.clone().requires_grad_() for t in ins]
+    with torch.no_grad():
+        o, _ = ops.wkv6(*ts)
+    assert o.grad_fn is None and W6.wkv6.launches == 2
+
+
+def test_wkv6_fn_refuses_widths_without_a_backward(gen):
+    r = _rnd(gen, (1, 8, 2, 32), torch.float32).requires_grad_()
+    with pytest.raises(ValueError, match="kernel 7-bwd is built for"):
+        ops.wkv6(r, r, r, -torch.ones_like(r), torch.zeros(2, 32,
+                                                          device="cuda"),
+                 torch.zeros(1, 2, 32, 32, device="cuda"))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "seamless-m4t-medium"])
+def test_new_family_loss_grads_kernel_path_match_plain_path(gen, arch):
+    """``loss_fn`` and its gradient at a small fp32 model with head dim 64
+    (2 layers, d 256, 4 heads; seamless with 2 encoder layers over 160
+    frames): the kernel path (kernel 7 and 7-bwd, or kernel 1 and its
+    backward kernels for the encoder, self- and cross-attention) against
+    the plain path, every leaf to 1e-4."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves
+    cfg = reduced(get_config(arch), d_model=256, num_heads=4, num_kv_heads=4,
+                  head_dim=64, d_ff=512, vocab_size=512, dtype="float32",
+                  num_prefix_embeddings=160)
+    params = build(cfg).init_params(gen)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=96,
+                        global_batch=2).batch(0, "cuda")
+    if cfg.family == "encdec":
+        batch["frames"] = 0.02 * _rnd(gen, (2, 160, 256), torch.float32)
+    kernels = (W6.wkv6, W6.wkv6_bwd, flash_attention,
+               FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    got = value_and_grad(build(cfg).loss_fn, params, batch)
+    want_launches = ([2, 2, 0, 0] if cfg.family == "ssm"
+                     else [0, 0, 6, 6])    # encoder 2, self 2, cross 2
+    assert [fn.launches for fn in kernels] == want_launches
+    want = value_and_grad(build(cfg, reference=True).loss_fn, params, batch)
+    assert [fn.launches for fn in kernels] == want_launches
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5
+    for a, b in zip(leaves(got[1]), leaves(want[1])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_train_config_takes_the_new_families_on_the_card(gen):
+    """rwkv6-1.6b (kernel 7-bwd at hd 64) trains through ``train_loop``
+    on the card; seamless-m4t-medium (hd 64) passes ``train_config`` but
+    ``train_loop`` refuses it: its batches need frames."""
+    from repro_torch.launch.train import train_config, train_loop
+    assert train_config("rwkv6-1.6b", "cuda").resolved_head_dim == 64
+    assert train_config("seamless-m4t-medium", "cuda").family == "encdec"
+    with pytest.raises(ValueError, match="no frames or patches"):
+        train_loop(arch="seamless-m4t-medium", steps=1, global_batch=1,
+                   seq_len=8, device="cuda", num_layers=1, log_every=0)

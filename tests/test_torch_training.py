@@ -8,7 +8,9 @@ Tolerances, each with its reason: attention gradients 1e-5 (the same fp32
 math, sums in another order); ``loss_fn`` 1e-5 on the loss and 1e-4 on
 every gradient leaf (two layers of fp32 products, then the backward's
 sums over the batch), for phi3.5-moe too, whose loss adds 0.01 times its
-layers' router aux losses and whose leaves include the router; the optimizer 1e-6 (the same fp32 elementwise ops);
+layers' router aux losses and whose leaves include the router, for
+seamless-m4t-medium, whose batch carries frames (normal x 0.02, as the
+reference's smoke test builds them), and for rwkv6-1.6b; the optimizer 1e-6 (the same fp32 elementwise ops);
 three train steps 1e-4 (the gradients' 1e-4 through AdamW, whose update
 is bounded by the learning rate); int8 codes bitwise (the same fp32
 scale, round half to even).
@@ -41,7 +43,10 @@ from repro_torch.tree import leaves, tree_map
 
 ARCHS = ("llama3.2-1b", "qwen3-14b")      # dense, and dense with qk-norm
 MOE = "phi3.5-moe-42b-a6.6b"               # moe (GQA): loss + 0.01 * aux
-LOSS_ARCHS = ARCHS + (MOE,)
+ENCDEC = "seamless-m4t-medium"             # encdec: the batch has frames
+SSM = "rwkv6-1.6b"                         # ssm: the WKV6 scan
+NEW_FAMILIES = (ENCDEC, SSM)
+LOSS_ARCHS = ARCHS + (MOE,) + NEW_FAMILIES
 
 
 def _np(t):
@@ -258,13 +263,21 @@ def pairs():
 
 
 def _batch(cfg, B=4, S=16, seed=0):
-    return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-                       seed=seed).batch(0)
+    """``SyntheticLM`` tokens and labels; an encdec model's batch also
+    carries frames [B, Se, d], normal x 0.02 from ``seed``."""
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
+                        global_batch=B, seed=seed).batch(0)
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(seed)
+        batch["frames"] = torch.tensor(rng.standard_normal(
+            (B, cfg.num_prefix_embeddings, cfg.d_model), np.float32) * 0.02)
+    return batch
 
 
 def _jbatch(batch):
-    return {k: jnp.asarray(v.numpy().astype(np.int32))
-            for k, v in batch.items()}
+    return {k: jnp.asarray(v.numpy().astype(
+        np.float32 if v.is_floating_point() else np.int32))
+        for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("arch", LOSS_ARCHS)
@@ -296,6 +309,29 @@ def test_moe_masked_loss_grads_match_reference(pairs):
     included, against ``jax.value_and_grad`` of the reference's masked
     loss (the aux loss is not masked, as there)."""
     cfg, model, jm, jparams = pairs[MOE]
+    batch = _batch(cfg, seed=1)
+    mask = (batch["labels"] % 3 > 0).float()
+    jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss_fn))(
+        jax.tree.map(jnp.asarray, jparams),
+        dict(_jbatch(batch), loss_mask=jnp.asarray(mask.numpy())))
+    params = params_from_numpy(jparams, cfg, "cpu")
+    flat = [p.requires_grad_() for p in leaves(params)]
+    loss = model.loss_fn(params, dict(batch, loss_mask=mask))
+    assert abs(float(loss.detach()) - float(jloss)) <= 1e-5
+    grads = torch.autograd.grad(loss, flat)
+    want = leaves(params_from_numpy(jax.tree.map(np.asarray, jgrads), cfg,
+                                    "cpu"))
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_masked_loss_grads_match_reference(pairs, arch):
+    """seamless-m4t-medium's and rwkv6-1.6b's gradients under a
+    ``loss_mask``: every leaf against ``jax.value_and_grad`` of the
+    reference's masked loss."""
+    cfg, model, jm, jparams = pairs[arch]
     batch = _batch(cfg, seed=1)
     mask = (batch["labels"] % 3 > 0).float()
     jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss_fn))(
@@ -372,6 +408,29 @@ def test_moe_train_step_matches_reference(pairs):
         np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_family_train_step_matches_reference(pairs, arch):
+    """One train step of seamless-m4t-medium (frames in the batch, split
+    with the tokens over 2 microbatches) and of rwkv6-1.6b against the
+    reference's ``make_train_step``: metrics and every parameter."""
+    cfg, model, jm, jparams = pairs[arch]
+    jopt, opt = jax_training.AdamW(lr=1e-3), AdamW(lr=1e-3)
+    jstep = jax.jit(jax_training.make_train_step(jm.loss_fn, jopt,
+                                                 num_microbatches=2))
+    step = make_train_step(model.loss_fn, opt, num_microbatches=2)
+    jp = jax.tree.map(jnp.asarray, jparams)
+    params = params_from_numpy(jparams, cfg, "cpu")
+    batch = _batch(cfg, seed=2)
+    jp, _, jm_ = jstep(jp, jopt.init(jp), _jbatch(batch))
+    params, _, m = step(params, opt.init(params), batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m[key]) - float(jm_[key])) <= 1e-4 * max(
+            1.0, abs(float(jm_[key]))), key
+    want = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    for g, w in zip(leaves(params), leaves(want)):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
+
+
 def test_microbatching_matches_full_batch(pairs):
     """The reference test's anchor: accumulated microbatch gradients give
     the full batch's update."""
@@ -411,17 +470,49 @@ def test_loss_decreases_over_steps():
     assert losses[-1] < losses[0] - 0.3, losses[::5]
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "rwkv6-1.6b",
-                                  "seamless-m4t-medium", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v2-236b",
+                                  "zamba2-7b"])
 def test_loss_fn_refuses_other_families(arch):
-    """Families whose training is not ported raise: vlm, ssm, encdec,
-    and the moe family's MLA model (its kernel 1 backward at q/k 192 over
-    v 128 is not built)."""
+    """Families whose training is not ported raise: vlm (hd 256), the moe
+    family's MLA model (q/k 192 over v 128) and the hybrid (hd 112), head
+    dims kernel 1's backward does not take."""
     cfg = reduced(get_config(arch), dtype="float32")
     model = build(cfg)
     params = model.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="dense family only"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         model.loss_fn(params, _batch(cfg, B=1, S=4))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "paligemma-3b"])
+def test_train_loop_refuses_frames_and_patches(arch):
+    """``launch/train.py`` trains on ``SyntheticLM`` batches, which carry
+    no frames or patches (nor do the reference trainer's): the encdec
+    and vlm families are refused with a ValueError before any step, by
+    ``train_loop`` and by the command line."""
+    from repro_torch.launch.train import main, train_loop
+    with pytest.raises(ValueError, match="SyntheticLM has no frames"):
+        train_loop(arch=arch, steps=1, global_batch=1, seq_len=4,
+                   device="cpu", log_every=0)
+    with pytest.raises(SystemExit):
+        main(["--arch", arch, "--device", "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("arch,d_model,ok", [
+    ("rwkv6-1.6b", None, True), ("rwkv6-1.6b", 64, True),
+    ("rwkv6-1.6b", 512, False), ("llama3.2-1b", 64, False),
+    ("seamless-m4t-medium", None, True)])
+def test_backward_head_dims_follow_the_family(arch, d_model, ok):
+    """``train_config`` on the card checks the head dims of the family's
+    own backward kernels: kernel 7-bwd's (16, 64) for the ssm family,
+    kernel 1-bwd's (64, 128) for attention. The rule is checked here from
+    the configs (``train_config`` itself needs a card)."""
+    from repro_torch.launch.serve import full_width_config
+    from repro_torch.launch.train import backward_head_dims
+    cfg = (full_width_config(arch) if d_model is None else
+           reduced(get_config(arch), d_model=d_model, head_dim=None))
+    dims = backward_head_dims(cfg)
+    assert dims == ((16, 64) if cfg.family == "ssm" else (64, 128))
+    assert (cfg.resolved_head_dim in dims) is ok
 
 
 @pytest.mark.parametrize("arch", ARCHS)
