@@ -138,10 +138,11 @@ Phases (any failure exits non-zero before the result line):
      ``launch/train.py::train_loop`` at seq 4096, a global batch of 4 in 4
      microbatches: every loss finite and the last below the first, kernel
      7 (with its chunk-state output) and kernel 7-bwd launched once per
-     layer and microbatch, no plain WKV6 call; step seconds, tokens/s,
-     peak memory beside its reckoning, the model-FLOP share; the 2-layer
-     fp32 and bf16 copies' checks as phase 14's (the fp32 one within
-     GRAD_REL_BOUND_WKV).
+     layer and microbatch, and so each of 7-bwd's passes, no plain WKV6
+     call; step seconds, tokens/s, peak memory beside its reckoning, the
+     model-FLOP share, 7-bwd's share of the step; the 2-layer fp32 and
+     bf16 copies' checks as phase 14's (the fp32 one within
+     GRAD_REL_BOUND_WKV, its bonus_u leaves printed).
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
 mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
@@ -164,10 +165,12 @@ beside its bound and ``torch.bmm``, with kernel 6's forward there too;
 and kernel 7-bwd against its plain version (``ref.wkv6_chunked_bwd_ref``)
 at phase 15's microbatch (B 1 x 4096, 32 heads of 64) and at edge
 shapes (S 1, 31, 33, hd 16, the decay at -1.5 and -1e-6, a nonzero
-state0), bf16 and fp32, two runs bitwise equal, kernel 7's forward there
-with its chunk-state output on and off (outputs bitwise equal), each
-timed beside its bound and plain version; phase 2 prints their
-registers, spills and shared memory.
+state0), bf16 and fp32, its dS pass against ``ref.wkv6_bwd_ds_ref``,
+two runs bitwise equal, kernel 7's forward there with its chunk-state
+output on and off (outputs bitwise equal), each timed beside its bound
+and plain version, and each of 7-bwd's four passes timed alone; phase 2
+prints their registers, spills and shared memory, and 7-bwd's blocks an
+SM by pass (its chunk pass at least two).
 Prints the kernel table as one JSON line, then the device line last.
 """
 from __future__ import annotations
@@ -194,7 +197,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores
+# 3xTF32: an fp32 product as three TF32 MMAs at 495 TFLOP/s (kernel 7-bwd)
+TF32X3_FLOP_PER_S = 495e12 / 3
 # kernel vs plain: bf16 outputs round once to 8 mantissa bits on each side
 # (adjacent roundings of |x| < 4 differ by <= 1.6e-2); fp32 differs only in
 # the order of up to 1024-term sums
@@ -691,9 +695,11 @@ def wkv6_backward_kernels(dev, flush, rows, extra_shapes) -> None:
     and kernel 7-bwd against ``ref.wkv6_chunked_bwd_ref`` there and at
     edge shapes (S 1, 31 and 33, hd 16, the decay at the clamp -1.5 and
     at -1e-6, a nonzero state0 and final-state gradient), bf16 and fp32,
-    by element and by relative norm; two runs bitwise equal; each time
-    beside its bound and its plain version's (no library call computes
-    either). Its own generator, so every other input stays as it was."""
+    by element and by relative norm, and 7-bwd's dS pass against
+    ``ref.wkv6_bwd_ds_ref``; two runs bitwise equal; each time beside its
+    bound and its plain version's (no library call computes either), and
+    each pass of 7-bwd timed alone. Its own generator, so every other
+    input stays as it was."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as W6
@@ -752,8 +758,26 @@ def wkv6_backward_kernels(dev, flush, rows, extra_shapes) -> None:
         print(f"  wkv6_bwd {case}: max |kernel - plain| / relative norm: "
               + ", ".join(worst))
 
+    def check_ds(got, want, case):
+        """The dS pass (local and scan kernels) against the plain one: dS
+        at every chunk's end and dstate0, fp32 outputs held as
+        check_bwd holds them."""
+        worst = []
+        for name, a, b in zip(("dS", "dstate0"), got, want):
+            err = (a - b).abs()
+            rel = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+            check(bool(torch.isfinite(a).all()) and bool(
+                (err <= TOL["float32"] * (1 + b.abs().max())).all())
+                and rel <= BWD_REL_NORM["float32"],
+                f"wkv6_bwd_ds {case} {name}: max err {err.max().item():.3g}"
+                f", relative norm {rel:.3g}")
+            worst.append(f"{name} {err.max().item():.2e}/{rel:.1e}")
+        print(f"  wkv6_bwd_ds (dS pass) {case}: max |kernel - plain| / "
+              f"relative norm: " + ", ".join(worst))
+
     print("[kernels] wkv6_bwd (kernel 7-bwd) vs wkv6_chunked_bwd_ref, from "
-          "the kernel forward's chunk states")
+          "the kernel forward's chunk states; its dS pass vs "
+          "wkv6_bwd_ds_ref")
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for B, S, H, hd, logw, s0 in ((2, 1, 32, 64, None, True),
@@ -777,6 +801,8 @@ def wkv6_backward_kernels(dev, flush, rows, extra_shapes) -> None:
             check_bwd(W6.wkv6_bwd(*a[:5], st, dout, ds),
                       ref.wkv6_chunked_bwd_ref(*a, st, dout, ds), dtype,
                       case)
+            check_ds(W6.wkv6_bwd_ds(a[0], a[3], dout, ds),
+                     ref.wkv6_bwd_ds_ref(a[0], a[3], dout, ds), case)
 
     # phase 15's microbatch: the training path's zero state0 and no
     # final-state gradient
@@ -792,6 +818,8 @@ def wkv6_backward_kernels(dev, flush, rows, extra_shapes) -> None:
           f"chunk-state output on and off")
     check_bwd(W6.wkv6_bwd(*a[:5], st, dout),
               ref.wkv6_chunked_bwd_ref(*a, st, dout), "bfloat16", case)
+    check_ds(W6.wkv6_bwd_ds(a[0], a[3], dout),
+             ref.wkv6_bwd_ds_ref(a[0], a[3], dout), case)
     x1 = W6.wkv6_bwd(*a[:5], st, dout)
     x2 = W6.wkv6_bwd(*a[:5], st, dout)
     check(all(torch.equal(p, q) for p, q in zip(x1, x2)),
@@ -824,17 +852,33 @@ def wkv6_backward_kernels(dev, flush, rows, extra_shapes) -> None:
     ms = time_ms(lambda: W6.wkv6_bwd(*a[:5], st, dout), flush)
     plain = time_ms(lambda: ref.wkv6_chunked_bwd_ref(*a, st, dout),
                     flush, reps=5)
+    # each pass alone (L2 flushed before each, as before the whole call),
+    # and the dS pass (local and scan) as one call
+    pass_ms = {p: time_ms(fn, flush) for p, fn in
+               W6.bwd_pass_timers(*a[:5], st, dout).items()}
+    ds_ms = time_ms(lambda: W6.wkv6_bwd_ds(a[0], a[3], dout), flush)
+    ds_plain = time_ms(lambda: ref.wkv6_bwd_ds_ref(a[0], a[3], dout), flush,
+                       reps=5)
     # inputs r/k/v, logw, u, the chunk states, dout; outputs dr/dk/dv,
-    # dlogw, du's partials, dstate0
+    # dlogw, du's partials, dstate0 (the scratch is the design's, not the
+    # function's: not counted)
     nbytes = (3 * 2 * n + 2 * 4 * n + 4 * H * hd + 4 * nst
               + 3 * 2 * n + 4 * n + 4 * B * H * hd + 4 * B * H * hd * hd)
-    b_ms, b_by = bound(nbytes, wkv_bwd_flops(S, H, hd, B), FP32_FLOP_PER_S)
+    flops = wkv_bwd_flops(S, H, hd, B)
+    b_ms, b_by = bound(nbytes, flops, TF32X3_FLOP_PER_S)
+    print(f"  wkv6_bwd {case}: passes " + ", ".join(
+        f"{p} {t:.4f} ms" for p, t in pass_ms.items())
+        + f" (sum {sum(pass_ms.values()):.4f}); the dS pass (local + scan, "
+        f"one call) {ds_ms:.4f} ms, plain (wkv6_bwd_ds_ref) {ds_plain:.4f}")
     print(f"  wkv6_bwd {case}: kernel {ms:.4f} ms, plain "
-          f"(wkv6_chunked_bwd_ref) {plain:.4f}, bound {b_ms:.5f} ({b_by}; "
-          f"fp32 FMAs at 67 TFLOP/s) -> {b_ms / ms:.1%} of bound; library: "
-          f"none")
+          f"(wkv6_chunked_bwd_ref) {plain:.4f}, bound {b_ms:.5f} ({b_by}: "
+          f"{nbytes / 1e6:.1f} MB of inputs and outputs at 3.35 TB/s, "
+          f"{flops / 1e9:.3f} GFLOP of products as 3xTF32 at 495 / 3 "
+          f"TFLOP/s; scratch not counted) -> {b_ms / ms:.1%} of bound; "
+          f"library: none")
     r_row.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                 bound_by=b_by, shape=case)
+                 bound_by=b_by, shape=case, passes_ms=pass_ms,
+                 ds_pass_ms=ds_ms)
     del a, dout, st
     torch.cuda.empty_cache()
 
@@ -860,14 +904,17 @@ def _plain_counter(ref, names):
     return calls, restore
 
 
-def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound):
+def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound,
+                 note=None):
     """The checks phases 14 and 15 share, on 2-layer copies at full
     width: at fp32 the kernel path's loss and every gradient leaf against
     the plain path's (``fp32_bound``, seq 256, B 2); at bf16 each leaf's
     distance from the fp32 plain path's through the kernels at most
     GRAD_FACTOR_BF16 times the bf16 plain path's (seq 1024, B 2). The
     plain path launches no kernel; ``n_launch`` is each kernel's count on
-    one kernel-path call. ``batch_of(cfg, seq)`` gives the batch."""
+    one kernel-path call. ``batch_of(cfg, seq)`` gives the batch; the fp32
+    check also prints the largest error of the leaves whose path holds
+    ``note``."""
     import torch
     from repro_torch.models.api import build as build_model
     from repro_torch.training.train_step import value_and_grad
@@ -890,7 +937,13 @@ def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound):
           f"{tag} fp32: the plain path launched a kernel")
     rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
            for a, b in zip(leaves(grads), leaves(grads_p))]
-    worst = [p for p, _ in flatten_with_path(grads)][rel.index(max(rel))]
+    paths = [p for p, _ in flatten_with_path(grads)]
+    worst = paths[rel.index(max(rel))]
+    if note is not None:
+        noted = max((x, p) for x, p in zip(rel, paths) if note in p)
+        print(f"[{tag}] fp32: the {note} leaves' largest |kernel - plain| "
+              f"/ max |plain| {noted[0]:.2e} at {noted[1]} (bound "
+              f"{fp32_bound})")
     loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
     print(f"[{tag}] 2-layer fp32 copy at full width, seq 256, B 2: loss "
           f"{loss.item():.6f} vs plain {loss_p.item():.6f} (rel "
@@ -1473,11 +1526,12 @@ def encdec_trainer(dev, smi) -> None:
     print(f"[encdec-train] card: {smi}")
 
 
-def ssm_trainer(dev, smi) -> dict:
+def ssm_trainer(dev, smi, bwd_ms) -> dict:
     """Phase 15: rwkv6-1.6b whole (24 layers) trains 6 steps through
     ``launch/train.py::train_loop`` (the main run); then the 2-layer
-    copies' gradient checks. Returns the main run's launches of kernel
-    7-bwd."""
+    copies' gradient checks. ``bwd_ms``: kernel 7-bwd's time at this
+    microbatch from phase 3, for its share of the step. Returns the main
+    run's launches of kernel 7-bwd, and of each of its passes."""
     import torch
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import ref
@@ -1499,6 +1553,7 @@ def ssm_trainer(dev, smi) -> dict:
     calls, restore = _plain_counter(ref, ("wkv6_ref", "wkv6_chunked_ref",
                                           "wkv6_chunked_bwd_ref"))
     reset(*kernels)
+    W6.wkv6_bwd.passes = dict.fromkeys(W6.PASSES, 0)
     try:
         out = train_loop(arch=arch, steps=steps, global_batch=B, seq_len=S,
                          num_microbatches=nm, device="cuda", seed=SEED,
@@ -1507,12 +1562,16 @@ def ssm_trainer(dev, smi) -> dict:
         restore()
     torch.cuda.synchronize()
     launched = {k.__name__: k.launches for k in kernels}
+    passes = dict(W6.wkv6_bwd.passes)
     check(out["cfg"] == cfg, f"ssm trainer: not {arch} whole")
     check(out["lr"] == FULL_WIDTH_LR, f"ssm trainer: lr {out['lr']}")
     want = L * nm * steps
     check(all(v == want for v in launched.values()),
           f"ssm trainer: launches {launched}, want {want} each ({L} layers "
           f"x {nm} microbatches x {steps} steps)")
+    check(all(v == want for v in passes.values()),
+          f"ssm trainer: kernel 7-bwd's pass launches {passes}, want {want} "
+          f"each")
     check(not calls, f"ssm trainer: plain WKV6 on the card's path: "
           f"{sorted(set(calls))}")
     losses = out["losses"]
@@ -1551,8 +1610,13 @@ def ssm_trainer(dev, smi) -> dict:
           f"{flop:.4g} FLOP a step / {steady:.3f} s / 989 TFLOP/s = "
           f"{flop / steady / BF16_FLOP_PER_S:.1%}")
     print(f"[ssm-train] launches {launched} (a step: "
-          f"{ {k: v // steps for k, v in launched.items()} }); plain WKV6 "
-          f"calls 0")
+          f"{ {k: v // steps for k, v in launched.items()} }); kernel "
+          f"7-bwd's passes {passes}; plain WKV6 calls 0")
+    per_step = launched["wkv6_bwd"] // steps
+    print(f"[ssm-train] kernel 7-bwd's share of the step: {per_step} x "
+          f"{bwd_ms:.4f} ms (phase 3, this microbatch) = "
+          f"{per_step * bwd_ms:.1f} ms of {steady * 1e3:.1f} ms, "
+          f"{per_step * bwd_ms / 1e3 / steady:.1%}")
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -1562,9 +1626,9 @@ def ssm_trainer(dev, smi) -> dict:
                            global_batch=2, seed=SEED).batch(0, dev)
 
     _grad_checks("ssm-train", dev, cfg, kernels, [2, 2], batch_of,
-                 GRAD_REL_BOUND_WKV)
+                 GRAD_REL_BOUND_WKV, note="bonus_u")
     print(f"[ssm-train] card: {smi}")
-    return {"wkv6_bwd": launched["wkv6_bwd"]}
+    return {"wkv6_bwd": launched["wkv6_bwd"], "wkv6_bwd_passes": passes}
 
 
 def main() -> int:
@@ -1594,6 +1658,7 @@ def main() -> int:
     from repro_torch.kernels.paged_extend_attention import (
         paged_extend_attention, plan as extend_plan)
     from repro_torch.kernels.wkv6 import (
+        bwd_blocks_per_sm as wkv6_bwd_blocks_per_sm,
         bwd_smem_bytes as wkv6_bwd_smem_bytes, plan as wkv6_plan, wkv6,
         wkv6_bwd)
     from repro_torch.launch.cosim import run_cosim
@@ -1697,10 +1762,11 @@ def main() -> int:
                 (f"bfloat16 {body} {what}", expert_bwd_smem_bytes(body, dw))
                 for body in ("wgmma", "mma.sync")
                 for what, dw in (("dX", False), ("dW", True))],
-            # kernel 7-bwd: one layout for bf16 and fp32 (fp32 operands)
-            "wkv6_bwd": [(f"hd={hd}", wkv6_bwd_smem_bytes(torch.bfloat16,
-                                                          hd))
-                         for hd in (64, 16)]}
+            # kernel 7-bwd's passes with shared memory (the scan and du
+            # passes have none): one layout for bf16 and fp32 (fp32 tiles)
+            "wkv6_bwd": [(f"{p} hd={hd}", n) for hd in (64, 16)
+                         for p, n in wkv6_bwd_smem_bytes(torch.bfloat16,
+                                                         hd).items() if n]}
     # decode_split_fwd's mangled arguments: q type, cache type, hd, paged
     mangled = {"13__nv_bfloat16": "bf16", "f": "fp32", "a": "int8"}
 
@@ -1730,7 +1796,7 @@ def main() -> int:
                 m = re.search(r"(flash_fwd_mma|flash_fwd|expert_gemm_mma|"
                               r"expert_gemm|paged_extend_fwd_mma|"
                               r"paged_extend_fwd|wkv6_chunked|"
-                              r"wkv6_bwd_chunked|"
+                              r"wkv6_bwd_local|wkv6_bwd_scan|wkv6_bwd_chunk|"
                               r"decode_split_fwd|bwd_dkdv_wgmma|bwd_dq_wgmma|"
                               r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot|"
                               r"expert_bwd_wgmma|expert_bwd_mma|"
@@ -1740,7 +1806,8 @@ def main() -> int:
                       f"{m[1]}<{expert_bwd_args(m[2])}>"
                       if m[1].startswith("expert_bwd") else
                       f"{m[1]}<{m[2]}>")
-                fn = fn or line.split("'")[1]
+                fn = fn or ("wkv6_bwd_du" if "wkv6_bwd_du" in line
+                            else line.split("'")[1])
             elif "spill stores" in line:
                 spill = line.strip()
             elif "Used" in line and fn:
@@ -1749,6 +1816,14 @@ def main() -> int:
         print(f"  [smem] {name} dynamic shared memory per launch: " +
               ", ".join(f"{k} {v} B" if isinstance(v, int) else f"{k} {v}"
                         for k, v in smem[name]))
+
+    # kernel 7-bwd's blocks resident on an SM, by pass: its chunk pass is
+    # built for two
+    occ = {f"{dt} hd={hd}": wkv6_bwd_blocks_per_sm(getattr(torch, dt), hd)
+           for dt in ("bfloat16", "float32") for hd in (64, 16)}
+    print(f"  [occupancy] wkv6_bwd blocks an SM by pass: {occ}")
+    check(all(o["chunk"] >= 2 for o in occ.values()),
+          f"wkv6_bwd: its chunk pass holds fewer than two blocks an SM: {occ}")
 
     # --------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -4067,7 +4142,7 @@ def main() -> int:
     encdec_trainer(dev, smi)
 
     # ---------------------------------------------------- 15. ssm trainer
-    launches.update(ssm_trainer(dev, smi))
+    launches.update(ssm_trainer(dev, smi, rows["wkv6_bwd"]["ms"]))
 
     # ---------------------------------------------------------- report
     # the backward kernels replace no TPU kernel (the reference takes
@@ -4122,6 +4197,9 @@ def main() -> int:
                 "(the reference differentiates the expert FFN's einsums in "
                 "XLA, src/repro/models/moe.py:64)")
         if name == "wkv6_bwd":
+            table[-1]["passes"] = {
+                p: {"launches": launches["wkv6_bwd_passes"][p], "ms": t}
+                for p, t in r["passes_ms"].items()}
             table[-1]["note"] = (
                 "port-only backward of kernel 7: the reference "
                 "differentiates wkv6_chunked in XLA, "

@@ -45,10 +45,11 @@
 //    chunk i, the second scores chunk i + 1 and copies chunk i + 2's inputs
 //    by 16-byte cp.async (A, Kd, P double-buffered, v triple-buffered);
 //  * the products (scores, P v + A S for the outputs, Kd^T v for the carry)
-//    run on the tensor cores as 3xTF32 MMAs (mma.sync m16n8k8): each fp32
-//    operand is split into a TF32 high part and a TF32 remainder, and a b =
-//    a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms in an accumulator
-//    of their own; a bf16 v is exact in TF32 and takes two MMAs. Plain TF32
+//    run on the tensor cores as 3xTF32 MMAs (mma.sync m16n8k8, tf32.cuh):
+//    each fp32 operand is split into a TF32 high part and a TF32
+//    remainder, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, the small
+//    terms in an accumulator of their own; a bf16 v is exact in TF32 and
+//    takes two MMAs. Plain TF32
 //    (10 mantissa bits) or bf16 operands would not hold the 2e-5 the checks
 //    ask of this kernel's fp32 outputs; the split does, and the MMA
 //    fragments need a fraction of the shared-memory operand traffic that
@@ -61,6 +62,7 @@
 //  * rows are padded so that every fragment load is free of bank conflicts.
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 using namespace rt;
 
@@ -112,74 +114,6 @@ __device__ __forceinline__ void copy16(void* dst, const void* src,
                                        bool valid, bool vec) {
   copy_chunk(static_cast<__nv_bfloat16*>(dst),
              static_cast<const __nv_bfloat16*>(src), valid ? 8 : 0, vec);
-}
-
-// ---------------------------------------------------------------- 3xTF32
-// An fp32 product on the tensor cores to fp32 accuracy: x = hi + lo with
-// hi = x rounded to TF32 (10 mantissa bits) and lo = the remainder rounded
-// to TF32, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi (the a_lo b_lo term,
-// ~2^-22 a b, is dropped). A bf16 value is exact in TF32 (lo = 0), so a
-// product with a bf16 operand takes two MMAs.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-struct Split {
-  uint32_t hi, lo;
-};
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t hi = to_tf32(x);
-  return {hi, to_tf32(x - __uint_as_float(hi))};
-}
-// d += a (16x8, row) * b (8x8, col), tf32 in, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// an A fragment, split: elements (g, t), (g + 8, t), (g, t + 4), (g + 8,
-// t + 4) of a 16 x 8 tile, as at(row, col) gives them
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-template <typename F>
-__device__ __forceinline__ FragA frag_a(F at, int g, int t) {
-  const float x[4] = {at(g, t), at(g + 8, t), at(g, t + 4), at(g + 8, t + 4)};
-  FragA f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Split s = split(x[i]);
-    f.hi[i] = s.hi, f.lo[i] = s.lo;
-  }
-  return f;
-}
-// a B fragment: elements (t, g), (t + 4, g) of an 8 x 8 tile
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-__device__ __forceinline__ FragB frag_b(float b0, float b1) {
-  const Split s0 = split(b0), s1 = split(b1);
-  return {{s0.hi, s1.hi}, {s0.lo, s1.lo}};
-}
-__device__ __forceinline__ FragB frag_b(__nv_bfloat16 b0, __nv_bfloat16 b1) {
-  return {{uint32_t(__bfloat16_as_ushort(b0)) << 16,
-           uint32_t(__bfloat16_as_ushort(b1)) << 16},
-          {0u, 0u}};
-}
-// hi += a_hi b_hi and lo += a_lo b_hi + a_hi b_lo (exact_b: b's lo part
-// is zero). The small terms have their own accumulator, added to hi once
-// at the end: the tensor cores' fp32 accumulation truncates, and every
-// MMA into the large accumulator costs up to one of its ulps.
-template <bool exact_b>
-__device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
-                                     const FragA& a, const FragB& b) {
-  mma_tf32(lo, a.lo, b.hi[0], b.hi[1]);
-  if constexpr (!exact_b) mma_tf32(lo, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(hi, a.hi, b.hi[0], b.hi[1]);
 }
 
 // two blocks an SM (at most 128 registers a thread): at B * H = 256 heads

@@ -303,6 +303,35 @@ def wkv6_chunked_ref(r, k, v, logw, u, state0, chunk: int = WKV6_CHUNK,
     return out, st
 
 
+def wkv6_bwd_ds_ref(r, logw, dout, dstate=None, chunk: int = WKV6_CHUNK):
+    """The dS pass of ``wkv6_chunked_bwd_ref``: the gradient of the state
+    at each chunk's end, walking the chunks in reverse from the final
+    state's ``dstate`` [B,H,hd,hd] (None: zero), dS <- e^{c_L} dS + A^T
+    dout with A = r e^{c_prev} (c the inclusive cumsum of logw inside the
+    chunk, c_prev = c - logw, c_L its last row). r/logw/dout [B,S,H,hd] ->
+    (ds [B, ceil(S/chunk), H, hd, hd], whose entry i is dS at chunk i's end
+    (the last is dstate), dstate0 [B,H,hd,hd]), fp32: what kernel 7-bwd's
+    local and scan passes compute. Only r, logw and dout enter it."""
+    B, S, H, hd = r.shape
+    rf, wf, do = (a.float() for a in (r, logw, dout))
+    dS = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if dstate is None else dstate.float())
+    n = (S + chunk - 1) // chunk
+    ds = [None] * n
+    for i in reversed(range(n)):
+        ds[i] = dS
+        sl = slice(i * chunk, min((i + 1) * chunk, S))
+        r_i, w_i, do_i = rf[:, sl], wf[:, sl], do[:, sl]
+        c = torch.cumsum(w_i, dim=1)
+        A = r_i * torch.exp(c - w_i)
+        e_last = torch.exp(c[:, -1])                          # [B,H,hd]
+        dS = (e_last[..., None] * dS
+              + torch.einsum("bthk,bthv->bhkv", A, do_i))
+    ds = (torch.stack(ds, 1) if n
+          else dS.new_zeros((B, 0, H, hd, hd)))
+    return ds, dS
+
+
 def wkv6_chunked_bwd_ref(r, k, v, logw, u, state0, chunk_states, dout,
                          dstate=None, chunk: int = WKV6_CHUNK):
     """The gradient of ``wkv6_chunked_ref`` from ``state0`` and the later
@@ -311,9 +340,10 @@ def wkv6_chunked_bwd_ref(r, k, v, logw, u, state0, chunk_states, dout,
     ``dout`` [B,S,H,hd] and the final state's ``dstate`` [B,H,hd,hd]
     (None: zero) -> (dr, dk, dv in r's dtype, dlogw fp32, du [H,hd] fp32,
     dstate0 fp32), in explicit fp32 formulas, not autograd: what kernel
-    7-bwd computes. The chunks are walked in reverse, carrying dS, the
-    gradient of the state at the chunk's end. Within a chunk (c the
-    inclusive cumsum of logw, c_prev = c - logw, c_L its last row; A = r
+    7-bwd computes. The dS pass (``wkv6_bwd_ds_ref``) gives dS, the
+    gradient of the state at each chunk's end, and dstate0; then each
+    chunk's gradients follow from its inputs, S0 and dS. Within a chunk
+    (c the inclusive cumsum of logw, c_prev = c - logw, c_L its last row; A = r
     e^{c_prev}, Bm = k e^{-c}, Kd = k e^{c_L - c}, P[t, j] = A_t . Bm_j
     below the diagonal and the bonus r_t . (u k_t) on it, dP[t, j] =
     dout_t . v_j likewise, dd_t on the diagonal)::
@@ -330,18 +360,18 @@ def wkv6_chunked_bwd_ref(r, k, v, logw, u, state0, chunk_states, dout,
                   y_t = dA_t A_t (through c_prev_t),
                   dc_L = sum_t dKd_t Kd_t + e^{c_L} rowsum(dS * S0)
         dS    <- e^{c_L} dS + A^T dout  (the previous chunk's, then
-                  dstate0)
+                  dstate0: the dS pass)
 
     The bonus gives du and nothing to dlogw. Every product is fp32."""
     B, S, H, hd = r.shape
     f = lambda a: a.float()
     rf, kf, vf, wf, do = f(r), f(k), f(v), f(logw), f(dout)
     u = f(u)
-    dS = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
-          if dstate is None else f(dstate))
+    ds, dstate0 = wkv6_bwd_ds_ref(r, logw, dout, dstate, chunk)
     dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
     du = torch.zeros((H, hd), dtype=torch.float32, device=r.device)
     for i in reversed(range(0, (S + chunk - 1) // chunk)):
+        dS = ds[:, i]
         sl = slice(i * chunk, min((i + 1) * chunk, S))
         r_i, k_i, v_i, w_i, do_i = (a[:, sl] for a in (rf, kf, vf, wf, do))
         S0 = f(state0 if i == 0 else chunk_states[:, i])    # [B,H,hd,hd]
@@ -376,7 +406,5 @@ def wkv6_chunked_bwd_ref(r, k, v, logw, u, state0, chunk_states, dout,
         dc_last = (dKd * Kd).sum(1) + e_last * (dS * S0).sum(-1)
         rev = lambda a: torch.flip(torch.cumsum(torch.flip(a, [1]), 1), [1])
         dw[:, sl] = rev(x) + rev(y) - y + dc_last[:, None]
-        dS = (e_last[..., None] * dS
-              + torch.einsum("bthk,bthv->bhkv", A, do_i))
     to = lambda a: a.to(r.dtype)
-    return to(dr), to(dk), to(dv), dw, du, dS
+    return to(dr), to(dk), to(dv), dw, du, dstate0

@@ -1533,6 +1533,110 @@ def test_wkv6_bwd_kernel_repeats_and_rows_do_not_depend_on_the_batch(
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", [(1, 4096, 4, 16), (2, 1000, 32, 64)],
+                         ids=["many_chunks_few_heads", "ragged_32_chunks"])
+def test_wkv6_bwd_kernel_partitions_match_plain(gen, dtype, B, S, H, hd):
+    """Kernel 7-bwd's block per (b, chunk, h) and its dS scan over many
+    chunks at few heads (128 chunks, 4 heads of 16) and over 32 chunks
+    with a ragged last one (S 1000) at rwkv6-1.6b's heads, against
+    ``wkv6_chunked_bwd_ref``."""
+    ins, dout, dstate = _wkv_bwd_inputs(gen, dtype, B, S, H, hd)
+    states = torch.empty((B, W6.n_chunks(S), H, hd, hd), device="cuda")
+    wkv6(*ins, chunk_states=states)
+    got = W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    _wkv_bwd_check(got, ref.wkv6_chunked_bwd_ref(*ins, states, dout,
+                                                 dstate), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,logw,dstate", [
+    (2, 1, 4, 16, None, True), (3, 33, 4, 16, -1.5, True),
+    (2, 1000, 32, 64, None, True), (1, 4096, 32, 64, None, False),
+    (1, 512, 32, 64, -1e-6, True)],
+    ids=["one_token", "clamp", "ragged", "phase15", "near_zero_decay"])
+def test_wkv6_bwd_ds_pass_matches_plain(gen, dtype, B, S, H, hd, logw,
+                                        dstate):
+    """Kernel 7-bwd's dS pass alone (``wkv6_bwd_ds``: its local and scan
+    kernels) against ``ref.wkv6_bwd_ds_ref``: dS at every chunk's end
+    and dstate0, fp32, by element (2e-5 of the largest) and by relative
+    norm; the last chunk's end is the final state's gradient exactly."""
+    ins, dout, ds = _wkv_bwd_inputs(gen, dtype, B, S, H, hd, logw)
+    ds = ds if dstate else None
+    got = W6.wkv6_bwd_ds(ins[0], ins[3], dout, ds)
+    want = ref.wkv6_bwd_ds_ref(ins[0], ins[3], dout, ds)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        err = (g - w).abs()
+        assert bool((err <= 2e-5 * (1 + w.abs().max())).all()), float(
+            err.max())
+        assert _rel_norm(g, w) <= REL_NORM[torch.float32]
+    assert torch.equal(got[0][:, -1], torch.zeros_like(got[1]) if ds is None
+                       else ds)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_bwd_kernel_repeats_and_rows_do_not_depend_on_the_batch_4096(
+        gen, dtype):
+    """At 4096 tokens (128 chunks, 32 heads of 64): two runs bitwise
+    equal; row 1 alone equals row 1 of a B=2 call bit for bit (dr, dk,
+    dv, dlogw, dstate0)."""
+    B, S, H, hd = 2, 4096, 32, 64
+    ins, dout, dstate = _wkv_bwd_inputs(gen, dtype, B, S, H, hd)
+    states = torch.empty((B, W6.n_chunks(S), H, hd, hd), device="cuda")
+    wkv6(*ins, chunk_states=states)
+    a = W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    b = W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    row = lambda t: t[1:2].contiguous()
+    one = W6.wkv6_bwd(*(row(t) for t in ins[:4]), ins[4], row(states),
+                      row(dout), row(dstate))
+    for i in (0, 1, 2, 3, 5):
+        assert torch.equal(a[i][1:2], one[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_bwd_kernel_takes_unaligned_inputs(gen, dtype):
+    """Inputs at an odd element offset (not 16-byte aligned) take the
+    kernels' scalar copies in place of cp.async: the same gradients as
+    aligned copies of them, bit for bit."""
+    B, S, H, hd = 2, 45, 4, 64
+    ins, dout, dstate = _wkv_bwd_inputs(gen, dtype, B, S, H, hd)
+    states = torch.empty((B, W6.n_chunks(S), H, hd, hd), device="cuda")
+    wkv6(*ins, chunk_states=states)
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    want = W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    got = W6.wkv6_bwd(*(odd(t) for t in ins[:4]), ins[4], odd(states),
+                      odd(dout), odd(dstate))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_wkv6_bwd_counts_one_launch_a_call_and_each_pass(gen):
+    """``wkv6_bwd.launches`` counts calls; ``wkv6_bwd.passes`` each of
+    its four kernels' launches, one a call; the dS pass alone and the
+    pass timers count in neither."""
+    ins, dout, dstate = _wkv_bwd_inputs(gen, torch.bfloat16, 1, 70, 4, 64)
+    states = torch.empty((1, W6.n_chunks(70), 4, 64, 64), device="cuda")
+    wkv6(*ins, chunk_states=states)
+    W6.wkv6_bwd.launches = 0
+    W6.wkv6_bwd.passes = dict.fromkeys(W6.PASSES, 0)
+    for _ in range(2):
+        W6.wkv6_bwd(*ins[:5], states, dout, dstate)
+    W6.wkv6_bwd_ds(ins[0], ins[3], dout, dstate)
+    for fn in W6.bwd_pass_timers(*ins[:5], states, dout, dstate).values():
+        fn()
+    torch.cuda.synchronize()
+    assert W6.wkv6_bwd.launches == 2
+    assert W6.wkv6_bwd.passes == {"local": 2, "scan": 2, "chunk": 2, "du": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S", [(8, 100), (1, 512), (2, 31)])
 def test_wkv6_chunk_state_output_leaves_the_forward_as_it_is(gen, dtype, B,
                                                              S):

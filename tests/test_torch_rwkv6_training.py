@@ -5,13 +5,15 @@ formulas from the forward's chunk-start states), which the card's kernel
 is held against; here it is held against autograd of
 ``ref.wkv6_chunked_ref`` and against ``jax.vjp`` of the reference's
 ``repro.models.rwkv6.wkv6_chunked``, and ``ops.wkv6``'s gradients on the
-CPU (autograd of the plain chunked form) against ``jax.vjp`` too. Cases
-cover a ragged last chunk, a nonzero state0 and final-state gradient,
-the decay clamp (logw -1.5, where 32 tokens reach e^{+-48}) and logw
-near ``LOG_W_MAX`` (-1e-6). Tolerance 1e-5 (abs + rel) within the
-port: the same fp32 products summed in another order; against XLA's,
-1e-5 of each gradient's largest magnitude (its CPU dots sum the head
-dim's 64 products in another blocking: up to 1.5e-6 of the largest).
+CPU (autograd of the plain chunked form) against ``jax.vjp`` too; its
+dS pass (``ref.wkv6_bwd_ds_ref``) against the dS the single-loop form
+carried, bit for bit. Cases cover a ragged last chunk, a nonzero state0
+and final-state gradient, the decay clamp (logw -1.5, where 32 tokens
+reach e^{+-48}) and logw near ``LOG_W_MAX`` (-1e-6). Tolerance 1e-5
+(abs + rel) within the port: the same fp32 products summed in another
+order; against XLA's, 1e-5 of each gradient's largest magnitude (its
+CPU dots sum the head dim's 64 products in another blocking: up to
+1.5e-6 of the largest).
 """
 from __future__ import annotations
 
@@ -84,6 +86,52 @@ def test_wkv6_chunked_bwd_ref_equals_autograd(case):
         torch.testing.assert_close(g, w, **TOL)
 
 
+def _carried_ds(r, logw, dout, dstate, chunk=32):
+    """The dS that the single-loop backward carried: walking the chunks in
+    reverse, dS at each chunk's end as the loop reached it, then the dS
+    it ended with (dstate0)."""
+    B, S, H, hd = r.shape
+    dS = torch.zeros((B, H, hd, hd)) if dstate is None else dstate
+    seen = {}
+    for i in reversed(range(-(-S // chunk))):
+        seen[i] = dS
+        sl = slice(i * chunk, min((i + 1) * chunk, S))
+        c = torch.cumsum(logw[:, sl], dim=1)
+        A = r[:, sl] * torch.exp(c - logw[:, sl])
+        dS = (torch.exp(c[:, -1])[..., None] * dS
+              + torch.einsum("bthk,bthv->bhkv", A, dout[:, sl]))
+    return [seen[i] for i in range(len(seen))], dS
+
+
+@pytest.mark.parametrize("case", ["ragged", "clamp", "one_token",
+                                  "zero_state"])
+def test_wkv6_bwd_ds_ref_is_the_carried_ds(case):
+    """The plain dS pass (``ref.wkv6_bwd_ds_ref``, what kernel 7-bwd's
+    local and scan passes compute) gives bit for bit the dS the
+    single-loop form carried at each chunk's end, the final state's
+    gradient as its last entry, and dstate0 as the dS that loop ended
+    with, which ``wkv6_chunked_bwd_ref`` returns: a ragged S (33, 70),
+    the clamp (-1.5) and a zero final-state gradient."""
+    ins, dout, dstate = _inputs(case, seed=5)
+    r, logw = torch.tensor(ins[0]), torch.tensor(ins[3])
+    dout = torch.tensor(dout)
+    dstate = None if dstate is None else torch.tensor(dstate)
+    ds, dstate0 = ref.wkv6_bwd_ds_ref(r, logw, dout, dstate)
+    want, want0 = _carried_ds(r, logw, dout, dstate)
+    B, S, H, hd = r.shape
+    assert ds.shape == (B, W6.n_chunks(S), H, hd, hd)
+    assert dstate0.shape == (B, H, hd, hd)
+    for i, w in enumerate(want):
+        assert torch.equal(ds[:, i], w), i
+    assert torch.equal(ds[:, -1], torch.zeros_like(dstate0)
+                       if dstate is None else dstate)
+    assert torch.equal(dstate0, want0)
+    ts = [torch.tensor(a) for a in ins]
+    _, _, states = ref.wkv6_chunked_ref(*ts, chunk_states=True)
+    assert torch.equal(ref.wkv6_chunked_bwd_ref(*ts, states, dout,
+                                                dstate)[5], dstate0)
+
+
 @pytest.mark.parametrize("S", [1, 32, 70])
 def test_chunk_states_are_the_prefix_states(S):
     """The state at chunk i's start is the final state of the first 32 i
@@ -145,6 +193,23 @@ def test_wkv6_fn_refuses_what_it_does_not_take():
     assert W6.BWD_HEAD_DIMS == W6.HEAD_DIMS == (16, 64)
     out, _ = ops.wkv6(*ts)
     assert out.grad_fn is not None
+
+
+def test_wkv6_bwd_entries_refuse_cpu_tensors():
+    """Kernel 7-bwd's entries take CUDA tensors only (no fallback to the
+    plain version): the whole backward, its dS pass alone and the pass
+    timers raise on CPU tensors; the passes run in this order."""
+    ins, dout, dstate = _inputs("ragged")
+    ts = [torch.tensor(a) for a in ins]
+    _, _, states = ref.wkv6_chunked_ref(*ts, chunk_states=True)
+    dout, dstate = torch.tensor(dout), torch.tensor(dstate)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        W6.wkv6_bwd(*ts[:5], states, dout, dstate)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        W6.wkv6_bwd_ds(ts[0], ts[3], dout, dstate)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        W6.bwd_pass_timers(*ts[:5], states, dout, dstate)
+    assert W6.PASSES == ("local", "scan", "chunk", "du")
 
 
 def test_rwkv6_trains_through_train_loop_on_the_cpu():
