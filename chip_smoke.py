@@ -4,12 +4,14 @@
   python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. device: the card, its power limit, TF32 off;
+  1. device: the card, its power limit, TF32 off, whether opt_einsum is
+     there (without it torch contracts a many-operand einsum left to
+     right);
   2. build: every CUDA kernel with nvcc, from src/repro_torch/kernels/csrc,
      one nvcc per source, started together; the registers, shared memory
      and spills of the flash attention, expert GEMM, paged extend, WKV6
      and decode (kernels 2, 3, 4, 4-int8: one body) kernels, and of the
-     backward kernels of kernels 1 (hd 64 and 128), 6 and 7;
+     backward kernels of kernels 1 (hd 64, 112 and 128), 6 and 7;
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes (the paged ones with all-sentinel rows and lengths past
      the table), with its time, the plain version's, one library call's
@@ -143,6 +145,19 @@ Phases (any failure exits non-zero before the result line):
      model-FLOP share, 7-bwd's share of the step; the 2-layer fp32 and
      bf16 copies' checks as phase 14's (the fp32 one within
      GRAD_REL_BOUND_WKV, its bonus_u leaves printed).
+  16. hybrid trainer: zamba2-7b at its published width, 13 of its 81
+     layers (2 groups of the shared attention + MLP block and 6 Mamba2
+     layers, then 1 tail layer), trains 6 steps through
+     ``launch/train.py::train_loop`` at seq 4096, a global batch of 4 in
+     4 microbatches: every loss finite and the last below the first,
+     kernel 1 (hd 112, with its LSE) and its three backward kernels
+     launched 2 x 4 x 6 = 48 times, no plain attention call, peak memory
+     under 80 GB beside its reckoning; step seconds, tokens/s, the
+     model-FLOP share with its basis, kernel 1 and 1-bwd's share of the
+     step; a 7-layer copy (one group, one tail layer; lora_b, A_log and
+     dt_bias perturbed as phase 11's) through ``_grad_checks``: fp32 loss
+     and every leaf within GRAD_REL_BOUND_HYBRID of the plain path's,
+     bf16 leaves within GRAD_FACTOR_BF16.
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
 mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
@@ -157,7 +172,10 @@ bf16 bodies' tiles (lengths and prefixes at 127-129, G = 1 and 8), bf16
 and fp32, their determinism, and their times beside their bounds and
 SDPA's backward (D beside ``torch.linalg.vecdot``); the same at hd 128
 (phi3.5-moe's B 1 x 4096 and qwen3-14b's G = 5 at B 1 x 2048, and the
-hd-128 bodies' 32-position tiles' edges); and kernel 6's backward (dX,
+hd-128 bodies' 32-position tiles' edges) and at hd 112 (zamba2-7b's B 1
+x 4096 over 32 KV heads, the edges of hd 128's layout, which hd 112
+takes, G = 4 and 8, ``FlashAttentionFn``'s gradients on unaligned and
+strided views, bounds counted at 112); and kernel 6's backward (dX,
 dW) against its plain version at its fill and tile edges, 160 experts
 top-6 and phi3.5-moe's training microbatch, each case naming the body it
 took (wgmma, mma.sync or the fp32 FMA body), timed at the microbatch
@@ -238,6 +256,13 @@ BWD_REL_NORM = {"bfloat16": 1e-2, "float32": 1e-5}
 # 7-bwd takes in another order than autograd (its worst leaf); held as
 # phase 6 holds this model's fp32 logits
 GRAD_REL_BOUND_WKV = LOGIT_BOUND_FP32
+# phase 16's fp32 check (zamba2-7b): kernel 1 and its backward sum the
+# shared attention's fp32 terms in another order (~3e-7 of a gradient's
+# norm in phase 3), and the Mamba2 layers behind it, their gated norms and
+# the decay clamp carry that to 1-2e-4 of a leaf's largest entry at full
+# width (with the decays perturbed or not); held as phase 11 holds this
+# model's fp32 logits
+GRAD_REL_BOUND_HYBRID = LOGIT_BOUND_FP32
 # phase 12's bf16 check: each gradient leaf's distance from the fp32 plain
 # path's, ||g - g32|| / ||g32||, through the kernels at most this multiple
 # of the bf16 plain path's own distance (both round the same products to
@@ -301,6 +326,9 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
     small shapes, a prefix and a non-causal case; at hd 128 phi3.5-moe's
     training shape (B 1, 4096 tokens, 32 heads over 8), qwen3-14b's G = 5
     (B 1, 2048 tokens, 40 heads over 8) and the hd-128 bodies' tile edges;
+    at hd 112 zamba2-7b's training shape (B 1, 4096 tokens, 32 heads over
+    32), its tile edges, ragged, prefix, non-causal and G = 4 and 8 cases,
+    and ``FlashAttentionFn``'s gradients on unaligned and strided views;
     two backward runs bitwise equal at each width; kernel 1's forward time
     with the LSE on and off, and each backward kernel's time beside its
     bound, its plain version's and its library call's (SDPA's backward;
@@ -361,8 +389,19 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
                 (1, 300, 300, True, 129, H, KVH), (1, 257, 257, True, 0, 8, 8),
                 (1, 257, 257, True, 0, H, 4), (1, 129, 127, False, 0, H, KVH),
                 (1, 127, 385, False, 0, H, KVH)]
+    # hd 112 (zamba2-7b's shared attention, 32 heads over 32): its training
+    # shape, the hd-128 layout's tile edges, ragged S, prefixes, Sq != Sk
+    # without the mask, B 2, and G = 4 and 8 (no zamba2 path has G > 1)
+    cases112 = [(1, 4096, 4096, True, 0, H, H),
+                (1, 31, 31, True, 0, H, H), (1, 33, 33, True, 0, H, H),
+                (1, 127, 127, True, 0, H, H), (1, 128, 128, True, 0, H, H),
+                (1, 129, 129, True, 0, H, H), (2, 300, 300, True, 0, H, H),
+                (1, 300, 300, True, 31, H, H), (1, 300, 300, True, 129, H, H),
+                (1, 257, 257, True, 0, H, KVH), (2, 257, 257, True, 0, 8, 1),
+                (1, 129, 127, False, 0, H, H), (1, 127, 385, False, 0, H, H)]
     for dtype, (hd_, case_list) in ((d, c) for c in ((hd, cases),
-                                                     (128, cases128))
+                                                     (128, cases128),
+                                                     (112, cases112))
                                     for d in ("bfloat16", "float32")):
         dt = getattr(torch, dtype)
         for B, Sq, Sk, causal, prefix, h, kvh in case_list:
@@ -405,23 +444,59 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
             torch.cuda.empty_cache()
 
     bf = torch.bfloat16
-    for Bd, hd_ in ((1, 128), (2, hd)):
-        q, k, v, o, lse, do = inputs(Bd, 4096, 4096, bf, True, 0, hd=hd_)
+    for Bd, hd_, kvh_ in ((1, 128, KVH), (2, hd, KVH), (1, 112, H)):
+        q, k, v, o, lse, do = inputs(Bd, 4096, 4096, bf, True, 0, kvh=kvh_,
+                                     hd=hd_)
         runs = [FA.flash_attention_bwd(q, k, v, o, lse, do) for _ in range(2)]
         check(all(torch.equal(a, b) for a, b in zip(*runs)),
               f"flash_attention_bwd hd={hd_}: two runs differ")
-        print(f"  flash_attention_bwd bf16 B={Bd} S=4096 hd={hd_}: two runs "
-              f"bitwise equal (dq, dk, dv)")
+        print(f"  flash_attention_bwd bf16 B={Bd} S=4096 KVH={kvh_} "
+              f"hd={hd_}: two runs bitwise equal (dq, dk, dv)")
         del runs, q, k, v, o, lse, do
+
+    # FlashAttentionFn at hd 112 on views the backward kernels do not take
+    # as they are (a 2-byte offset; a strided slice of a fused projection):
+    # the forward kernel reads them, the Function hands the backward
+    # aligned copies; its gradients against autograd of the plain version
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        Bv, Sv, Hv = 1, 300, 8
+        n = Bv * Sv * Hv * 112
+        flat = torch.randn(3 * n + 1, generator=g, device=dev).to(dt)
+        odd = [flat[1 + i * n:1 + (i + 1) * n].view(Bv, Sv, Hv, 112)
+               for i in range(3)]
+        fused = torch.randn((Bv, Sv, 3 * Hv, 112), generator=g,
+                            device=dev).to(dt)
+        strided = list(fused.split(Hv, dim=2))
+        dov = torch.randn((Bv, Sv, Hv, 112), generator=g, device=dev).to(dt)
+        for what, views in (("2-byte offset", odd), ("strided", strided)):
+            case = f"{dtype} B={Bv} S={Sv} H=KVH={Hv} hd=112 {what} views"
+            check(what != "2-byte offset"
+                  or all(t.data_ptr() % 16 for t in views),
+                  f"FlashAttentionFn {case}: a view is aligned")
+            leaves_ = [t.detach().requires_grad_() for t in views]
+            out = FA.FlashAttentionFn.apply(*leaves_, True, 0)
+            got = torch.autograd.grad(out, leaves_, dov)
+            plain = [t.detach().requires_grad_() for t in views]
+            want = torch.autograd.grad(ref.attention_ref(*plain), plain, dov)
+            for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+                compare("flash_attention_bwd_dq" if nm == "dq" else
+                        "flash_attention_bwd_dkdv", a, b, dtype,
+                        f"FlashAttentionFn {case} {nm}")
+                rel_norm("FlashAttentionFn", a, b, dtype, f"{case} {nm}")
+        del flat, odd, fused, strided, dov, leaves_, plain, got, want
     B, S = 2, 4096
     q, k, v, o, lse, do = inputs(B, S, S, bf, True, 0)
 
     print("[kernels] times at the training shape (bf16, CUDA events, "
           "median of 30, L2 flushed; plain median of 5)")
-    for Bf, Sf in ((4, 512), (B, S)):
-        qf, kf, vf = (q, k, v) if Sf == S else (
-            torch.randn((Bf, Sf, n, hd), generator=g, device=dev).to(bf)
-            for n in (H, KVH, KVH))
+    # llama3.2-1b's shapes, then zamba2-7b's training shape (hd 112, 32
+    # heads over 32)
+    for Bf, Sf, hdf, kvf in ((4, 512, hd, KVH), (B, S, hd, KVH),
+                             (1, 4096, 112, H)):
+        qf, kf, vf = (q, k, v) if (Bf, Sf, hdf) == (B, S, hd) else (
+            torch.randn((Bf, Sf, n, hdf), generator=g, device=dev).to(bf)
+            for n in (H, kvf, kvf))
         buf = torch.empty((Bf, H, Sf), device=dev)
         off = time_ms(lambda: FA.flash_attention(qf, kf, vf), flush)
         on = time_ms(lambda: FA.flash_attention(qf, kf, vf, lse=buf), flush)
@@ -435,9 +510,10 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         # (fp32); QK^T and PV over the causal half
         b_ms, b_by = bound(2 * (2 * qf.numel() + kf.numel() + vf.numel())
                            + 4 * buf.numel(),
-                           4.0 * Bf * H * hd * Sf * (Sf + 1) / 2,
+                           4.0 * Bf * H * hdf * Sf * (Sf + 1) / 2,
                            BF16_FLOP_PER_S)
-        print(f"  flash_attention B={Bf} S={Sf} hd={hd} causal: LSE off "
+        print(f"  flash_attention B={Bf} S={Sf} KVH={kvf} hd={hdf} causal: "
+              f"LSE off "
               f"{off:.4f} ms, on {on:.4f} ms, plain (with its LSE) "
               f"{plain:.4f}, library (SDPA forward, enable_gqa=True) "
               f"{lib:.4f}, bound {b_ms:.5f} ({b_by}) -> {b_ms / on:.1%} of "
@@ -445,14 +521,16 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         extra_shapes.setdefault("flash_attention", []).append(dict(
             ms=on, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by, lse_off_ms=off,
-            shape=f"bf16 B={Bf} Sq=Sk={Sf} H={H} KVH={KVH} hd={hd} causal, "
+            shape=f"bf16 B={Bf} Sq=Sk={Sf} H={H} KVH={kvf} hd={hdf} causal, "
                   f"with the LSE output"))
-        del qt, kt, vt
+        del qt, kt, vt, qf, kf, vf
     # each backward kernel at llama3.2-1b's training shape (the table's
     # row), then at hd 128: phi3.5-moe's (B 1 x 4096, 32 heads over 8) and
-    # qwen3-14b's G = 5 (B 1 x 2048, 40 heads over 8)
+    # qwen3-14b's G = 5 (B 1 x 2048, 40 heads over 8); then zamba2-7b's at
+    # hd 112 (B 1 x 4096, 32 heads over 32), its bound counted at 112
     for Bt, St, Ht, KVHt, hdt in ((B, S, H, KVH, hd), (1, 4096, H, KVH, 128),
-                                  (1, 2048, 40, 8, 128)):
+                                  (1, 2048, 40, 8, 128),
+                                  (1, 4096, H, H, 112)):
         if hdt != hd:
             q, k, v, o, lse, do = inputs(Bt, St, St, bf, True, 0, Ht, KVHt,
                                          hdt)
@@ -904,28 +982,57 @@ def _plain_counter(ref, names):
     return calls, restore
 
 
+def perturb_hybrid(p, dev):
+    """A hybrid model's weights with lora_b (zero at init, as in the
+    reference), A_log and dt_bias perturbed from a seed, in place, so that
+    the LoRA delta and the decay clamp (dt * A past 1.5) take part."""
+    import torch
+    gz = torch.Generator(device=dev).manual_seed(SEED + 8)
+    noise = lambda t, sd: (sd * torch.randn(
+        t.shape, generator=gz, device=dev)).to(t.dtype)
+    p["shared"]["lora_b"] += noise(p["shared"]["lora_b"], 0.02)
+    for layer in p["mamba"] + p.get("mamba_tail", []):
+        layer["A_log"] += noise(layer["A_log"], 0.5)
+        layer["dt_bias"] += noise(layer["dt_bias"], 1.0)
+    return p
+
+
+def grad_check_layers(cfg) -> int:
+    """The depth of ``_grad_checks``'s copies: 2 layers, or for the hybrid
+    one group and one tail layer (shared_attn_every + 1), so that the copy
+    attends and its tail is on the path."""
+    return cfg.shared_attn_every + 1 if cfg.family == "hybrid" else 2
+
+
 def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound,
                  note=None):
-    """The checks phases 14 and 15 share, on 2-layer copies at full
-    width: at fp32 the kernel path's loss and every gradient leaf against
-    the plain path's (``fp32_bound``, seq 256, B 2); at bf16 each leaf's
-    distance from the fp32 plain path's through the kernels at most
-    GRAD_FACTOR_BF16 times the bf16 plain path's (seq 1024, B 2). The
-    plain path launches no kernel; ``n_launch`` is each kernel's count on
-    one kernel-path call. ``batch_of(cfg, seq)`` gives the batch; the fp32
-    check also prints the largest error of the leaves whose path holds
-    ``note``."""
+    """The checks phases 14, 15 and 16 share, on copies at full width cut
+    to ``grad_check_layers(cfg)`` layers (a hybrid copy's weights
+    perturbed by ``perturb_hybrid``): at fp32 the kernel path's loss and
+    every gradient leaf against the plain path's (``fp32_bound``, seq 256,
+    B 2); at bf16 each leaf's distance from the fp32 plain path's through
+    the kernels at most GRAD_FACTOR_BF16 times the bf16 plain path's (seq
+    1024, B 2). The plain path launches no kernel; ``n_launch`` is each
+    kernel's count on one kernel-path call. ``batch_of(cfg, seq)`` gives
+    the batch; the fp32 check also prints the largest error of the leaves
+    whose path holds ``note``."""
     import torch
     from repro_torch.models.api import build as build_model
     from repro_torch.training.train_step import value_and_grad
     from repro_torch.tree import flatten_with_path, leaves, tree_map
 
-    cut = dict(num_layers=2)
+    n_layers = grad_check_layers(cfg)
+    cut = dict(num_layers=n_layers)
     if cfg.encoder_layers:
         cut["encoder_layers"] = 2
+
+    def init(c):
+        p = build_model(c).init_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        return perturb_hybrid(p, dev) if c.family == "hybrid" else p
+
     cfg32 = dataclasses.replace(cfg, dtype="float32", **cut)
-    p32 = build_model(cfg32).init_params(
-        torch.Generator(device=dev).manual_seed(SEED))
+    p32 = init(cfg32)
     batch = batch_of(cfg32, 256)
     reset(*kernels)
     loss, grads = value_and_grad(build_model(cfg32).loss_fn, p32, batch)
@@ -945,7 +1052,8 @@ def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound,
               f"/ max |plain| {noted[0]:.2e} at {noted[1]} (bound "
               f"{fp32_bound})")
     loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
-    print(f"[{tag}] 2-layer fp32 copy at full width, seq 256, B 2: loss "
+    print(f"[{tag}] {n_layers}-layer fp32 copy at full width, seq 256, B 2: "
+          f"loss "
           f"{loss.item():.6f} vs plain {loss_p.item():.6f} (rel "
           f"{loss_rel:.2e}); {len(rel)} gradient leaves, largest |kernel - "
           f"plain| / max |plain| {max(rel):.2e} at {worst} (bound "
@@ -957,8 +1065,7 @@ def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound,
     torch.cuda.empty_cache()
 
     cfg16 = dataclasses.replace(cfg, **cut)
-    params = build_model(cfg16).init_params(
-        torch.Generator(device=dev).manual_seed(SEED))
+    params = init(cfg16)
     batch = batch_of(cfg16, 1024)
     reset(*kernels)
     loss_k, g_k = value_and_grad(build_model(cfg16).loss_fn, params, batch)
@@ -981,7 +1088,8 @@ def _grad_checks(tag, dev, cfg, kernels, n_launch, batch_of, fp32_bound,
     kp = max(dist(a, b) for a, b in zip(leaves(g_k), leaves(g_p)))
     ratio = max(a / max(b, 1e-30) for a, b in zip(e_k, e_p))
     worst = max(range(len(e_k)), key=lambda i: e_k[i] / max(e_p[i], 1e-30))
-    print(f"[{tag}] 2-layer bf16 copy at full width, seq 1024, B 2: loss "
+    print(f"[{tag}] {n_layers}-layer bf16 copy at full width, seq 1024, B 2: "
+          f"loss "
           f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, fp32 plain "
           f"{loss_32.item():.6f}; over {len(e_k)} gradient leaves ||g - "
           f"g_fp32|| / ||g_fp32|| at most {max(e_k):.3e} through the "
@@ -1631,6 +1739,144 @@ def ssm_trainer(dev, smi, bwd_ms) -> dict:
     return {"wkv6_bwd": launched["wkv6_bwd"], "wkv6_bwd_passes": passes}
 
 
+def hybrid_trainer(dev, smi, extra_shapes) -> None:
+    """Phase 16: zamba2-7b at its published width, 13 of its 81 layers (2
+    groups of the shared attention + MLP block and 6 Mamba2 layers, then 1
+    tail layer), trains 6 steps through ``launch/train.py::train_loop``
+    (the main run); then the 7-layer copies' gradient checks (one group,
+    one tail layer). ``extra_shapes``: phase 3's rows, whose hd-112
+    training-shape entries of kernel 1 and 1-bwd take this run's
+    launches, and give kernel 1's and 1-bwd's share of the step."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import full_width_config
+    from repro_torch.launch.train import FULL_WIDTH_LR, train_loop
+    from repro_torch.models.transformer import _zamba_grouping
+
+    arch, L = "zamba2-7b", 13
+    cfg = dataclasses.replace(full_width_config(arch), num_layers=L)
+    groups, per, tail = _zamba_grouping(cfg)
+    check((groups, per, tail) == (2, 6, 1),
+          f"hybrid trainer: grouping {(groups, per, tail)}")
+    # 4 rows of 4096 tokens a step in 4 microbatches of one row, as phase
+    # 15
+    steps, B, S, nm = 6, 4, 4096, 4
+    kernels = (FA.flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[hybrid-train] device memory allocated before the run: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; opt_einsum "
+          f"available {torch.backends.opt_einsum.is_available()}")
+    calls, restore = _plain_counter(ref, ("attention_ref",
+                                          "attention_lse_ref",
+                                          "attention_bwd_ref"))
+    reset(*kernels)
+    try:
+        out = train_loop(arch=arch, steps=steps, global_batch=B, seq_len=S,
+                         num_microbatches=nm, device="cuda", seed=SEED,
+                         num_layers=L, log_every=0)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernels}
+    check(out["cfg"] == cfg, f"hybrid trainer: not {arch} at {L} layers")
+    check(out["lr"] == FULL_WIDTH_LR, f"hybrid trainer: lr {out['lr']}")
+    want = groups * nm * steps
+    check(all(v == want for v in launched.values()),
+          f"hybrid trainer: launches {launched}, want {want} each ({groups} "
+          f"groups x {nm} microbatches x {steps} steps)")
+    check(not calls, f"hybrid trainer: plain attention on the card's path: "
+          f"{sorted(set(calls))}")
+    losses = out["losses"]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"hybrid trainer: losses {losses}")
+    check(out["peak_bytes"] < 80e9,
+          f"hybrid trainer: peak {out['peak_bytes'] / 1e9:.2f} GB")
+
+    tokens = B * S
+    n_params = out["params"]
+    d, V = cfg.d_model, cfg.vocab_size
+    H, hd, F_ = cfg.num_heads, cfg.resolved_head_dim, cfg.d_ff
+    d_in, N, P = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_head_dim
+    Hs, C = d_in // P, 32
+    shared = 4 * d * H * hd + 3 * d * F_            # attention + MLP
+    n_mamba = (n_params - shared - 2 * V * d
+               - groups * cfg.shared_attn_lora_rank * 4 * d) // L
+    # model FLOPs a step: 6 N' a token for the weights' products, forward
+    # and backward, N' the parameters with the shared block counted once a
+    # group and the embedding table excluded (a lookup); the attention's
+    # QK^T and PV over the causal half, 6 S H hd a token and group; the
+    # SSD's products (the causal half of each chunk's C B^T and its
+    # scores x, each chunk's state contribution and the inter-chunk read
+    # of the state), 3 x (C N + C Hs P + 4 Hs P N) a token and layer
+    n_eff = n_params - V * d + (groups - 1) * shared
+    flop = tokens * (6 * n_eff + 6 * groups * S * H * hd
+                     + 3 * L * (C * N + C * Hs * P + 4 * Hs * P * N))
+    steady = statistics.median(out["step_seconds"][1:])
+    # activations a microbatch row, by shapes: a Mamba2 layer saves its
+    # in_proj output (bf16), ~6 conv-stream tensors (bf16) and ~12 fp32
+    # tensors of x's size in the SSD and the gated norm; the shared block
+    # ~12 d + 4 F bf16 values a token; the logits 12 bytes each
+    act_m = S * (2 * (2 * d_in + 2 * N + Hs) + 6 * 2 * (d_in + 2 * N)
+                 + 12 * 4 * d_in)
+    act_s = S * 2 * (12 * d + 4 * F_)
+    logits = S * V * 12
+    reckon = 16 * n_params + L * act_m + groups * act_s + logits
+    print(f"[hybrid-train] {arch} at full width, {L} of its 81 layers "
+          f"({groups} groups of the shared attention + MLP block with a "
+          f"rank-{cfg.shared_attn_lora_rank} LoRA a group and {per} Mamba2 "
+          f"layers, then {tail} tail layer; d {d}, {H} heads of {hd} over "
+          f"{cfg.num_kv_heads}, F {F_}, {Hs} SSM heads of {P}, state {N}, "
+          f"vocab {V}; {n_params / 1e9:.3f} B params, a Mamba2 layer "
+          f"{n_mamba / 1e6:.1f} M, the shared block {shared / 1e6:.1f} M, "
+          f"bf16), seq {S}, global batch {B} in {nm} microbatches ({tokens} "
+          f"tokens a step), AdamW lr {out['lr']} (train_loop's default at a "
+          f"published width) under default_schedule({steps}, warmup=1), "
+          f"{steps} steps")
+    print(f"[hybrid-train] memory reckoning: {n_params / 1e9:.3f} B params x "
+          f"16 bytes = {16 * n_params / 1e9:.1f} GB; activations "
+          f"{act_m / 1e9:.2f} GB a Mamba2 layer x {L} + {act_s / 1e9:.2f} GB "
+          f"a group's shared block x {groups}; the logits "
+          f"{logits / 1e9:.2f} GB: ~{reckon / 1e9:.1f} GB; measured peak "
+          f"{out['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[hybrid-train] losses {[round(x, 4) for x in losses]}")
+    print(f"[hybrid-train] step seconds "
+          f"{[round(x, 3) for x in out['step_seconds']]}; median of steps "
+          f"2-{steps} {steady:.3f} s, {tokens / steady:.0f} tokens/s; peak "
+          f"memory {out['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[hybrid-train] model FLOP share: tokens x (6 N' + 6 groups S H "
+          f"hd + 3 L (C N + C Hs P + 4 Hs P N)), N' = {n_eff / 1e9:.3f} B "
+          f"(the shared block once a group, the embedding table excluded) = "
+          f"{flop:.4g} FLOP a step / {steady:.3f} s / 989 TFLOP/s = "
+          f"{flop / steady / BF16_FLOP_PER_S:.1%}")
+    print(f"[hybrid-train] launches {launched} (= {groups} x {nm} x "
+          f"{steps}); plain attention calls 0")
+    # phase 3's times at this shape: kernel 1 with the LSE and 1-bwd
+    attn_ms = 0.0
+    for name in launched:
+        for e in extra_shapes.get(name, []):
+            if "hd=112" in e["shape"] and "Sq=Sk=4096" in e["shape"]:
+                e["launches"] = launched[name]
+                attn_ms += e["ms"] * launched[name] / steps
+    print(f"[hybrid-train] kernel 1 and 1-bwd's share of the step: "
+          f"{attn_ms:.1f} ms (phase 3's times at this shape x launches a "
+          f"step) of {steady * 1e3:.1f} ms, {attn_ms / 1e3 / steady:.1%}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def batch_of(c, seq):
+        return SyntheticLM(vocab_size=c.vocab_size, seq_len=seq,
+                           global_batch=2, seed=SEED).batch(0, dev)
+
+    _grad_checks("hybrid-train", dev, cfg, kernels, [1] * 4, batch_of,
+                 GRAD_REL_BOUND_HYBRID, note="lora_a")
+    print(f"[hybrid-train] card: {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1689,7 +1935,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | numpy {numpy.__version__} scipy "
-          f"{scipy.__version__} | allow_tf32 matmul=False cudnn=False")
+          f"{scipy.__version__} | allow_tf32 matmul=False cudnn=False | "
+          f"opt_einsum available "
+          f"{torch.backends.opt_einsum.is_available()}")
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -1753,7 +2001,7 @@ def main() -> int:
             "flash_attention_bwd": [
                 (f"{dt} hd={hd} dK/dV and dQ",
                  bwd_smem_bytes(getattr(torch, dt), hd))
-                for dt in ("bfloat16", "float32") for hd in (64, 128)],
+                for dt in ("bfloat16", "float32") for hd in (64, 112, 128)],
             # kernel 6's backward: each bf16 body's launch (fp32:
             # static). The wgmma bodies' ptxas count is their launch's
             # (384 threads); after setmaxnreg the two consumer warpgroups
@@ -3888,16 +4136,8 @@ def main() -> int:
 
     def zamba_params(cfg):
         """Weights from SEED, lora_b, A_log and dt_bias perturbed."""
-        p = build_model(cfg).init_params(
-            torch.Generator(device=dev).manual_seed(SEED))
-        gz = torch.Generator(device=dev).manual_seed(SEED + 8)
-        noise = lambda t, sd: (sd * torch.randn(
-            t.shape, generator=gz, device=dev)).to(t.dtype)
-        p["shared"]["lora_b"] += noise(p["shared"]["lora_b"], 0.02)
-        for layer in p["mamba"] + p.get("mamba_tail", []):
-            layer["A_log"] += noise(layer["A_log"], 0.5)
-            layer["dt_bias"] += noise(layer["dt_bias"], 1.0)
-        return p
+        return perturb_hybrid(build_model(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(SEED)), dev)
 
     zparams = zamba_params(zcfg)
     print(f"[hybrid] {zcfg.name} whole: {zcfg.num_layers} Mamba2 layers in "
@@ -4143,6 +4383,9 @@ def main() -> int:
 
     # ---------------------------------------------------- 15. ssm trainer
     launches.update(ssm_trainer(dev, smi, rows["wkv6_bwd"]["ms"]))
+
+    # ------------------------------------------------- 16. hybrid trainer
+    hybrid_trainer(dev, smi, extra_shapes)
 
     # ---------------------------------------------------------- report
     # the backward kernels replace no TPU kernel (the reference takes

@@ -101,12 +101,21 @@
 // as register A (dQ 64 + 32 + 32 + 16 + 16 + 8 = 168). Shared memory,
 // both: 2 outer slots of 2 x 32 KB and 4 inner slots of 2 x 8 KB (193 KB
 // with (b)'s LSE and D rows).
+// hd 112 (zamba2's shared attention) takes hd 128's layout, as kernel 1's
+// forward does: a row of 112 is not a whole number of 64-column boxes, so
+// the tensor maps are encoded at the tensor's own inner extent (112, a
+// 224-byte position stride) and the second box of each tile reads columns
+// 112 .. 127 as zeros. S and dP run 7 k-steps (the 8th would add zeros),
+// dK, dV and dQ the two 64-column accumulators, whose last 16 columns are
+// products with those zeros and are never stored. Expect about 128 / 112
+// of the tensor-core work of the width; (a) lays a row of 14 (bf16) or 28
+// (fp32) vectors over 16 or 32 lanes.
 // fp32 (the checks' path): FMAs on the CUDA cores, tiles of 32 keys and 32
 // rows in shared memory (the tensor cores' fp32 input type is TF32, too
 // coarse for the fp32 checks), as kernel 1's fp32 body.
 // Inputs and outputs are contiguous: q, o, dO, dq [B, Sq, H, hd], k, v,
-// dk, dv [B, Sk, KVH, hd]; lse and D [B, H, Sq] fp32. Head dims: HD 64
-// and 128 (BWD_WIDTHS below: one line a width).
+// dk, dv [B, Sk, KVH, hd]; lse and D [B, H, Sq] fp32. Head dims: HD 64,
+// 112 and 128 (BWD_WIDTHS below).
 
 #include <algorithm>
 #include <type_traits>
@@ -150,45 +159,55 @@ __device__ __forceinline__ float dot16(uint4 a, uint4 b, __nv_bfloat16) {
   return s;
 }
 
+// the lanes a row of `vecs` 16-byte vectors takes: the next power of two,
+// so that a row's lanes lie aligned within a warp
+__host__ __device__ constexpr int row_lanes(int vecs) {
+  return vecs <= 1 ? 1 : 2 * row_lanes((vecs + 1) / 2);
+}
+
 // D[b, h, i] for P positions of one b and all H heads: their rows
-// (position-major, head-minor) lie contiguous in o and dO. Vector v of the
-// block's run belongs to row v / kV; its kV lanes (a power of two that
-// divides 32, aligned) reduce by shuffles. Sums go to shared memory at
+// (position-major, head-minor) lie contiguous in o and dO. Lane v of the
+// block's run belongs to row v / kL and reads that row's vector v % kL;
+// the row's kL lanes (its kV vectors rounded up to a power of two, aligned
+// within a warp; hd 112 leaves the last 2 of 16 lanes idle in bf16 and 4
+// of 32 in fp32) reduce by shuffles. Sums go to shared memory at
 // [position][head] (rows padded by one float) and out transposed.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kDotThreads)
 bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
         float* __restrict__ D, int Sq, int H, int P, int tiles) {
   constexpr int kV = HD * sizeof(T) / 16;   // vectors a row
-  static_assert(kV <= 32 && 32 % kV == 0, "a row's lanes within a warp");
+  constexpr int kL = row_lanes(kV);         // lanes a row
+  static_assert(HD * sizeof(T) % 16 == 0 && kL <= 32,
+                "a row of whole vectors, its lanes within a warp");
   extern __shared__ float sums[];           // [P][H + 1]
   const int b = blockIdx.x / tiles, i0 = (blockIdx.x % tiles) * P;
   const int n_pos = min(P, Sq - i0);
-  const int nvec = n_pos * H * kV;
+  const int nlane = n_pos * H * kL;
   const long long at = ((long long)b * Sq + i0) * H * HD;
   const uint4* ov = reinterpret_cast<const uint4*>(o + at);
   const uint4* dv = reinterpret_cast<const uint4*>(dO + at);
   const int tid = threadIdx.x;
-  for (int v0 = 0; v0 < nvec; v0 += kDotThreads * kDotUnroll) {
+  for (int v0 = 0; v0 < nlane; v0 += kDotThreads * kDotUnroll) {
     uint4 x[kDotUnroll], y[kDotUnroll];
 #pragma unroll
     for (int u = 0; u < kDotUnroll; ++u) {
-      const int v = v0 + u * kDotThreads + tid;
+      const int v = v0 + u * kDotThreads + tid, c = v % kL;
       x[u] = y[u] = make_uint4(0, 0, 0, 0);
-      if (v < nvec) {
-        x[u] = ov[v];
-        y[u] = dv[v];
+      if (v < nlane && c < kV) {
+        x[u] = ov[v / kL * kV + c];
+        y[u] = dv[v / kL * kV + c];
       }
     }
 #pragma unroll
     for (int u = 0; u < kDotUnroll; ++u) {
       float s = dot16(x[u], y[u], T());
 #pragma unroll
-      for (int off = kV / 2; off > 0; off >>= 1)
+      for (int off = kL / 2; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
       const int v = v0 + u * kDotThreads + tid;
-      if (v < nvec && tid % kV == 0) {
-        const int r = v / kV;               // position r / H, head r % H
+      if (v < nlane && tid % kL == 0) {
+        const int r = v / kL;               // position r / H, head r % H
         sums[(r / H) * (H + 1) + r % H] = s;
       }
     }
@@ -214,20 +233,26 @@ bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
 // of K and V in (c)), read by wgmma through shared-memory descriptors. A
 // consumer thread releases an inner slot once its warpgroup's last wgmma
 // on it has completed, an outer slot at the end of its tile.
+// HD is the tensor's width; the layout's, kHD, is the next multiple of 64
+// (hd 112 takes hd 128's: see the header).
 template <int HD>
 struct Wg {
-  static_assert(HD == 64 || HD == 128, "a position is 1 or 2 swizzle rows");
+  static_assert(HD == 64 || HD == 112 || HD == 128,
+                "a position is 1 or 2 swizzle rows");
+  static constexpr int kHD = (HD + 63) / 64 * 64;
   static constexpr int kThreads = 3 * 128;
   static constexpr int kConsumers = 2 * 128;
   static constexpr int kStages = 4;
   static constexpr int kOuter = 128;   // keys (b) or rows (c) a block
   // queries (b) or keys (c) a streamed tile, and the N of S and dP
-  static constexpr int kInner = HD == 64 ? 64 : 32;
-  static constexpr int kBoxes = HD / 64;   // 64-column TMA boxes a tile
+  static constexpr int kInner = kHD == 64 ? 64 : 32;
+  static constexpr int kBoxes = kHD / 64;   // 64-column TMA boxes a tile
   // (b): K and V as A fragments in registers (hd 64), or read by wgmma
-  // from shared memory (hd 128)
-  static constexpr bool kKvSmem = HD > 64;
-  static constexpr int kRow = HD * 2;  // bytes
+  // from shared memory (hd 112, 128)
+  static constexpr bool kKvSmem = kHD > 64;
+  // TMA maps of a width the boxes do not tile need only 16-byte strides
+  static constexpr int kHdMultiple = kHD == HD ? 64 : 8;
+  static constexpr int kRow = kHD * 2;  // bytes
   static constexpr int kOuterTile = kOuter * kRow;   // one tensor's tile
   static constexpr int kInnerTile = kInner * kRow;
   // a tile's second box (columns 64 ..) lies one box of rows x 128 bytes on
@@ -556,6 +581,7 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           for (int x = 0; x < kB; ++x)
 #pragma unroll
             for (int d = 0; d < 8; ++d) {
+              if (64 * x + 8 * d >= HD) continue;   // layout padding
               const long long c = at + 64 * x + d * 8;
               *reinterpret_cast<uint32_t*>(dk + c) =
                   pack_bf16(dka[x][4 * d + 2 * h2] * scale,
@@ -760,9 +786,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           for (int x = 0; x < kB; ++x)
 #pragma unroll
             for (int d = 0; d < 8; ++d)
-              *reinterpret_cast<uint32_t*>(dq + at + 64 * x + d * 8) =
-                  pack_bf16(dqa[x][4 * d + 2 * h2] * scale,
-                            dqa[x][4 * d + 2 * h2 + 1] * scale);
+              if (64 * x + 8 * d < HD)   // not the layout's padding
+                *reinterpret_cast<uint32_t*>(dq + at + 64 * x + d * 8) =
+                    pack_bf16(dqa[x][4 * d + 2 * h2] * scale,
+                              dqa[x][4 * d + 2 * h2 + 1] * scale);
         }
       }
     }
@@ -976,8 +1003,8 @@ bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, int HD>
 int launch_dot(const void* o, const void* dO, void* D, int B, int Sq, int H,
                cudaStream_t stream) {
-  constexpr int kV = HD * sizeof(T) / 16;
-  const int P = std::min(16, std::max(4, kDotThreads * kDotUnroll / (H * kV)));
+  constexpr int kL = row_lanes(HD * sizeof(T) / 16);
+  const int P = std::min(16, std::max(4, kDotThreads * kDotUnroll / (H * kL)));
   const int tiles = (Sq + P - 1) / P;
   bwd_dot<T, HD><<<B * tiles, kDotThreads, P * (H + 1) * sizeof(float),
                    stream>>>(static_cast<const T*>(o),
@@ -1027,10 +1054,11 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dO,
       return e ? e : zero(dv, n, stream);
     }
     CUtensorMap tq, tdo, tk, tv;
-    if (!encode_rows(&tq, q, HD, H, Sq, B, L::kInner) ||
-        !encode_rows(&tdo, dO, HD, H, Sq, B, L::kInner) ||
-        !encode_rows(&tk, k, HD, KVH, Sk, B, L::kOuter) ||
-        !encode_rows(&tv, v, HD, KVH, Sk, B, L::kOuter))
+    constexpr int m = L::kHdMultiple;
+    if (!encode_rows(&tq, q, HD, H, Sq, B, L::kInner, m) ||
+        !encode_rows(&tdo, dO, HD, H, Sq, B, L::kInner, m) ||
+        !encode_rows(&tk, k, HD, KVH, Sk, B, L::kOuter, m) ||
+        !encode_rows(&tv, v, HD, KVH, Sk, B, L::kOuter, m))
       return (int)cudaErrorInvalidValue;
     const int n_kt = (Sk + L::kOuter - 1) / L::kOuter;
     const int items = (n_kt + 1) / 2 * B * KVH;
@@ -1063,10 +1091,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
     using L = Wg<HD>;
     if (Sk == 0) return zero(dq, (long long)B * Sq * H * HD, stream);
     CUtensorMap tq, tdo, tk, tv;
-    if (!encode_rows(&tq, q, HD, H, Sq, B, L::kOuter) ||
-        !encode_rows(&tdo, dO, HD, H, Sq, B, L::kOuter) ||
-        !encode_rows(&tk, k, HD, KVH, Sk, B, L::kInner) ||
-        !encode_rows(&tv, v, HD, KVH, Sk, B, L::kInner))
+    constexpr int m = L::kHdMultiple;
+    if (!encode_rows(&tq, q, HD, H, Sq, B, L::kOuter, m) ||
+        !encode_rows(&tdo, dO, HD, H, Sq, B, L::kOuter, m) ||
+        !encode_rows(&tk, k, HD, KVH, Sk, B, L::kInner, m) ||
+        !encode_rows(&tv, v, HD, KVH, Sk, B, L::kInner, m))
       return (int)cudaErrorInvalidValue;
     const int n_mt = (Sq + L::kOuter - 1) / L::kOuter;
     const int items = (n_mt + 1) / 2 * B * H;
@@ -1083,7 +1112,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
 }  // namespace
 
 // The head dims the backward is built for, one line a width.
-#define BWD_WIDTHS(X) X(64) X(128)
+#define BWD_WIDTHS(X) X(64) X(112) X(128)
 
 // Every entry takes contiguous tensors (see the header) and returns the
 // cudaError_t of its launch (0 on success); a width or dtype it was not

@@ -414,11 +414,15 @@ inline EncodeTiledFn encode_tiled() {
 // innermost) read in boxes of `rows` consecutive positions of one head and
 // 64 columns (one 128-byte swizzle row; hd 128 takes two boxes, at column
 // 0 and 64), 128-byte swizzled; positions past S read as zeros. hd is a
-// multiple of 64. False if the map cannot be encoded.
+// multiple of `hd_multiple`: 64 by default, so that the boxes tile a row;
+// a caller that lays a narrower row out at the next multiple of 64 (hd
+// 112 as 128) passes 8, the least that keeps a position's stride a
+// multiple of 16 bytes, and its last box reads the columns past hd as
+// zeros. False if the map cannot be encoded.
 inline bool encode_rows(CUtensorMap* map, const void* base, int hd, int heads,
-                        int S, int B, int rows) {
+                        int S, int B, int rows, int hd_multiple = 64) {
   const EncodeTiledFn fn = encode_tiled();
-  if (!fn || hd % 64) return false;
+  if (!fn || hd % hd_multiple || hd % 8) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,

@@ -9,11 +9,14 @@ the CPU and its published width on the card (``full_width_config``, as
 ``launch/serve.py`` serves it), ``--layers`` cutting the depth;
 ``--d-model`` takes the reference's reduced config at that width (four
 heads). On the card a width whose head dim the family's backward kernels
-do not take (``backward_head_dims``: 64 and 128 for attention, 16 and 64
-for WKV6; ``--d-model 768`` gives 192) is refused here, before any step.
-The dense family, the moe family with GQA attention and the ssm family
-(rwkv6) train (``models.transformer.loss_fn``); phi3.5-moe at its
-published width fits one 80 GB card at 2 of its 32 layers. The encdec
+do not take (``backward_head_dims``: kernel 1-bwd's ``BWD_HEAD_DIMS``,
+64, 112 and 128, for attention, 16 and 64 for WKV6; ``--d-model 768``
+gives 192) is refused here, before any step. The dense family, the moe
+family with GQA attention, the ssm family (rwkv6) and the hybrid
+(zamba2, its shared attention at hd 112) train
+(``models.transformer.loss_fn``); phi3.5-moe at its published width fits
+one 80 GB card at 2 of its 32 layers, zamba2-7b at 13 of its 81 (2
+groups of 6 Mamba2 layers and a tail layer). The encdec
 and vlm families' losses take ``frames`` or ``patches`` that
 ``SyntheticLM`` does not make (nor does the reference's trainer): they
 are refused here, and an encdec model trains through
@@ -29,6 +32,10 @@ reduced config, 3e-5 at a published width.
       --batch 4 --microbatches 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch rwkv6-1.6b --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch zamba2-7b --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --layers 13 --steps 6 --seq 4096 --batch 4 --microbatches 4
 """
 from __future__ import annotations
 
@@ -53,8 +60,9 @@ from repro_torch.tree import leaves
 
 def backward_head_dims(cfg: ModelConfig) -> tuple:
     """The head dims the card's backward kernels take for ``cfg``'s
-    family: kernel 7-bwd's for the ssm family, kernel 1-bwd's for the
-    attention families."""
+    family: kernel 7-bwd's for the ssm family, kernel 1-bwd's
+    (``flash_attention.BWD_HEAD_DIMS``: 64, 112 and 128) for the
+    attention families, the hybrid's shared attention included."""
     if cfg.family == "ssm":
         return wkv6.BWD_HEAD_DIMS
     return flash_attention.BWD_HEAD_DIMS

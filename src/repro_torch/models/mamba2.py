@@ -22,7 +22,14 @@ fp32's range there, and ``inf * 0`` gives NaN. The two agree to rounding
 at every chunk where the reference stays finite. The terms inside a chunk
 (scores, decays, each chunk's contribution to the state) are computed for
 all chunks at once; only the carry of the state from chunk to chunk is a
-loop.
+loop. Every product is a two-operand einsum after an explicit elementwise
+scale, so no order of contraction can form a [B, n, C, H, P, N] tensor:
+the reference's three-operand ``einsum("bth,bhpn,btn->bthp", ...)``,
+contracted left to right as torch does without ``opt_einsum``, forms that
+outer product first (7.5 GB a layer at zamba2-7b's width and 4096 tokens,
+saved for the backward). Each decay scales the N-wide side (C_t, or B_j)
+before the contraction: the order ``opt_einsum`` takes for the
+three-operand forms, so the sums round as they did where it is present.
 
 Projections use PyTorch's ``[out, in]`` layout (``w_in``, ``w_out``,
 applied with ``F.linear``); ``conv_w`` [W, conv_dim], ``conv_b``, the norm
@@ -130,8 +137,9 @@ def ssd_chunked(x, dt_v, Bm, Cm, A, state0, chunk: int = CHUNK):
     # each chunk's own contribution to the state it hands on:
     # sum_j exp(cum_last - cum_j) xd_j b_j^T
     last = cum[:, :, -1:, :]                                # [B,n,1,H]
-    contrib = torch.einsum("bcjh,bcjhp,bcjn->bchpn", (last - cum).exp(), xc,
-                           bc)
+    contrib = torch.einsum("bcjhn,bcjhp->bchpn",
+                           (last - cum).exp()[..., None] * bc[:, :, :, None],
+                           xc)
     decay = last[:, :, 0].exp()                             # [B,n,H]
     # the carry, chunk by chunk: the state entering each chunk
     state = state0.to(f32)
@@ -139,9 +147,10 @@ def ssd_chunked(x, dt_v, Bm, Cm, A, state0, chunk: int = CHUNK):
     for i in range(n):
         entering.append(state)
         state = decay[:, i, :, None, None] * state + contrib[:, i]
-    # inter-chunk: y_t += exp(cum_t) C_t . S_in
-    inter = torch.einsum("bcth,bchpn,bctn->bcthp", cum.exp(),
-                         torch.stack(entering, dim=1), cc)
+    # inter-chunk: y_t += (exp(cum_t) C_t) . S_in
+    inter = torch.einsum("bcthn,bchpn->bcthp",
+                         cum.exp()[..., None] * cc[:, :, :, None],
+                         torch.stack(entering, dim=1))
     return (intra + inter).reshape(Bsz, S, H, P), state
 
 

@@ -212,19 +212,28 @@ def _zamba_grouping(cfg) -> tuple[int, int, int]:
     return groups, per, cfg.num_layers - groups * per
 
 
-def _hybrid_forward(cfg, params, x, positions, state: dict, *,
+def _hybrid_forward(cfg, params, x, positions, state: Optional[dict], *,
                     mode="prefill", attn=None, pos=None, rows=None,
                     reference=False):
     """The hybrid's groups, then its tail. Each group: the shared
     attention over the group's ``attn`` leaves (``attn[name][g]``; in
-    prefill ``attn`` gets each group's fresh (k, v) written in), with the
-    group's LoRA delta on q/k/v, and the shared MLP; then the group's
-    Mamba2 layers. ``state`` (leaves [L, B, ...]) takes each layer's new
-    state in place (``_store_state``)."""
+    prefill ``attn`` gets each group's fresh (k, v) written in, unless it
+    is None), with the group's LoRA delta on q/k/v, and the shared MLP;
+    then the group's Mamba2 layers. ``state`` (leaves [L, B, ...]) takes
+    each layer's new state in place (``_store_state``). Training passes
+    ``state=None`` and ``attn=None``: each Mamba2 layer starts from a zero
+    state of its own and drops its new one, and no K/V is kept, so
+    nothing that autograd saves is written in place."""
     groups, per, _tail = _zamba_grouping(cfg)
     sh = params["shared"]
+    zero = None
+    if state is None:
+        zero = _layer_cache(M2.mamba2_state_init(cfg, x.shape[0], 1,
+                                                 x.device), 0)
 
     def mamba(i, p, x):
+        if zero is not None:
+            return M2.mamba2_block(cfg, p, x, zero)[0]
         x, new = M2.mamba2_block(cfg, p, x, _layer_cache(state, i))
         _store_state(state, i, new, rows)
         return x
@@ -237,7 +246,7 @@ def _hybrid_forward(cfg, params, x, positions, state: dict, *,
             cache=None if mode == "prefill" else _layer_cache(attn, g),
             pos=pos, rows=rows, reference=reference,
             qkv_delta=delta.chunk(3, dim=-1))
-        if kv is not None:
+        if kv is not None and attn is not None:
             for leaf, t in zip(attn.values(), kv):
                 leaf[g] = t
         x = x + o
@@ -352,21 +361,23 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, *,
     sum of its layers' router aux losses, as the reference. An encdec
     model encodes ``batch["frames"]`` [B,Se,d] first and its decoder
     layers attend their cross K/V of it; an ssm model runs each RWKV6
-    layer from a zero state of its own. Attention goes through
+    layer from a zero state of its own, and a hybrid model its groups
+    (the shared attention, with the group's LoRA delta, and MLP, then the
+    group's Mamba2 layers) and its tail as in prefill, each Mamba2 layer
+    from a zero state of its own. Attention goes through
     ``ops.flash_attention``, the expert GEMMs through
     ``ops.expert_matmul`` and the WKV6 scan through ``ops.wkv6``, which
     autograd differentiates on the CPU and which run kernels 1, 6 and 7
     and their backward kernels on the card. ``reference=True`` runs the
-    plain versions on any device. The hybrid and vlm families and the moe
-    family's MLA are not ported here: their attention head dims (112,
-    256, q/k 192 over v 128) are ones kernel 1's backward does not
-    take."""
-    if cfg.family in ("hybrid", "vlm") or cfg.use_mla:
+    plain versions on any device. The vlm family and the moe family's MLA
+    are not ported here: their attention head dims (256, q/k 192 over v
+    128) are ones kernel 1's backward does not take."""
+    if cfg.family == "vlm" or cfg.use_mla:
         what = "moe family's MLA" if cfg.use_mla else f"{cfg.family!r}"
         raise NotImplementedError(
-            f"{cfg.name}: {what} training is not ported yet (the hybrid "
-            "and vlm families and MLA wait for kernel 1's backward at "
-            "their head dims)")
+            f"{cfg.name}: {what} training is not ported yet (the vlm "
+            "family and MLA wait for kernel 1's backward at their head "
+            "dims)")
     dev = _device(params)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = Lyr.embed(params["embed"], tokens, cfg)
@@ -377,6 +388,9 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, *,
         for i, p in enumerate(params["layers"]):
             x, _ = RWKV.rwkv6_block(cfg, p, x, _layer_cache(state, i),
                                     reference=reference)
+    elif cfg.family == "hybrid":
+        x = _hybrid_forward(cfg, params, x, positions, None,
+                            reference=reference)
     else:
         cache = ({"enc_kv": _encode(cfg, params, batch["frames"], reference)}
                  if cfg.family == "encdec" else {})

@@ -1726,3 +1726,158 @@ def test_train_config_takes_the_new_families_on_the_card(gen):
     with pytest.raises(ValueError, match="no frames or patches"):
         train_loop(arch="seamless-m4t-medium", steps=1, global_batch=1,
                    seq_len=8, device="cuda", num_layers=1, log_every=0)
+
+
+# --------------------------------------- kernel 1's backward at hd 112
+
+# zamba2-7b's shared attention (32 heads over 32, hd 112) takes hd 128's
+# layout, its columns 112 .. 127 zero-filled by TMA and never stored: B 1
+# and 2, ragged S (31 and 129 beside the 32- and 128-position tiles, 300),
+# causal, a prefix at a tile's edge and inside one, non-causal, G 1 and 4
+BWD_CASES_112 = [
+    (B, S, S, 8, kvh, causal, prefix)
+    for B in (1, 2) for S in (31, 129, 300) for kvh in (8, 2)
+    for causal, prefix in ((True, 0), (True, 33), (False, 0))
+] + [(1, 129, 127, 8, 8, False, 0), (2, 127, 385, 8, 2, False, 0),
+     (1, 300, 300, 8, 8, True, 128), (1, 4096, 4096, 32, 32, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix", BWD_CASES_112)
+def test_flash_bwd_kernels_hd112_match_plain(gen, dtype, B, Sq, Sk, H, KVH,
+                                             causal, prefix):
+    """Kernel 1's LSE and its three backward kernels at hd 112 against
+    ``attention_lse_ref`` and ``attention_bwd_ref``, by element and by
+    relative norm; the padded columns of the layout written nowhere."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, B, Sq, Sk, H, KVH,
+                                      causal, prefix, hd=112)
+    kw = dict(causal=causal, prefix_len=prefix)
+    _, lse_want = ref.attention_lse_ref(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(lse, lse_want, atol=tol, rtol=tol)
+    D = FA.flash_attention_bwd_dot(o, do)
+    torch.testing.assert_close(
+        D, (o.float() * do.float()).sum(-1).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+        if Sq > 1:
+            assert _rel_norm(g, w) <= REL_NORM[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_hd112_repeat_and_rows_do_not_depend_on_b(
+        gen, dtype):
+    """No float atomics, and no row's work depends on the others: two
+    backward passes at B 3 are bitwise equal, and equal bit for bit to
+    each row's pass alone."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, 3, 333, 333, 8, 2, True,
+                                      0, hd=112)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for r in range(3):
+        one = FA.flash_attention_bwd(*(t[r:r + 1].contiguous()
+                                       for t in (q, k, v, o)),
+                                     lse[r:r + 1].contiguous(),
+                                     do[r:r + 1].contiguous())
+        assert all(torch.equal(x[r:r + 1], y) for x, y in zip(a, one))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,H", [(1, 1, 1), (3, 37, 5), (2, 15, 32),
+                                    (1, 4099, 8)])
+def test_flash_bwd_dot_hd112_ragged_rows(gen, dtype, B, Sq, H):
+    """(a) at hd 112, a row of 14 (bf16) or 28 (fp32) 16-byte vectors
+    over 16 or 32 lanes, at row counts that fill no block."""
+    o, do = (_rnd(gen, (B, Sq, H, 112), dtype) for _ in range(2))
+    D = FA.flash_attention_bwd_dot(o, do)
+    torch.testing.assert_close(
+        D, (o.float() * do.float()).sum(-1).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("views", ["offset", "strided"])
+def test_flash_attention_fn_hd112_grads_match_plain_path(gen, dtype, views):
+    """Autograd through ``ops.flash_attention`` at hd 112 (kernel 1 with
+    its LSE, then the three backward kernels, once each) on views the
+    backward kernels do not take as they are (a 2-byte offset into a
+    flat buffer; slices of a fused q/k/v projection), against autograd
+    through the plain version."""
+    B, S, H = 1, 150, 8
+    if views == "offset":
+        n = B * S * H * 112
+        flat = _rnd(gen, (3 * n + 1,), dtype)
+        ins = [flat[1 + i * n:1 + (i + 1) * n].view(B, S, H, 112)
+               for i in range(3)]
+        assert all(t.data_ptr() % 16 for t in ins)
+    else:
+        ins = list(_rnd(gen, (B, S, 3 * H, 112), dtype).split(H, dim=2))
+    do = _rnd(gen, (B, S, H, 112), dtype)
+    kernels = (flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    out = {}
+    for name, attend in (("kernel", ops.flash_attention),
+                         ("plain", ref.attention_ref)):
+        ts = [t.detach().requires_grad_() for t in ins]
+        o = attend(*ts)
+        out[name] = (o, *torch.autograd.grad(o, ts, do))
+    assert [fn.launches for fn in kernels] == [1, 1, 1, 1]
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+
+
+def test_hybrid_loss_grads_kernel_path_match_plain_path(gen):
+    """``loss_fn`` and its gradient at a small fp32 hybrid with head dim
+    112 (d 448, 4 heads; 1 group of 2 Mamba2 layers and a tail layer;
+    lora_b and the decay perturbed): the kernel path (kernel 1 and its
+    backward kernels, once each) against the plain path, every leaf to
+    1e-4."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves
+    cfg = reduced(get_config("zamba2-7b"), d_model=448, head_dim=None,
+                  d_ff=896, vocab_size=512, num_layers=3, dtype="float32")
+    assert (cfg.resolved_head_dim, T._zamba_grouping(cfg)) == (112, (1, 2, 1))
+    params = build(cfg).init_params(gen)
+    sh = params["shared"]
+    sh["lora_b"] += 0.02 * _rnd(gen, tuple(sh["lora_b"].shape), torch.float32)
+    for p in params["mamba"] + params["mamba_tail"]:
+        p["A_log"] += 0.5 * _rnd(gen, tuple(p["A_log"].shape), torch.float32)
+        p["dt_bias"] += _rnd(gen, tuple(p["dt_bias"].shape), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=96,
+                        global_batch=2).batch(0, "cuda")
+    kernels = (flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    got = value_and_grad(build(cfg).loss_fn, params, batch)
+    assert [fn.launches for fn in kernels] == [1, 1, 1, 1]
+    want = value_and_grad(build(cfg, reference=True).loss_fn, params, batch)
+    assert [fn.launches for fn in kernels] == [1, 1, 1, 1]
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5
+    for a, b in zip(leaves(got[1]), leaves(want[1])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_train_config_takes_the_hybrid_on_the_card(gen):
+    """zamba2-7b at its published width (hd 112) passes ``train_config``
+    at 13 layers (2 groups and a tail layer), and ``train_loop`` trains a
+    hd-112 reduced copy on the card through kernel 1 and its backward."""
+    from repro_torch.launch.train import train_config, train_loop
+    cfg = train_config("zamba2-7b", "cuda", num_layers=13)
+    assert (cfg.resolved_head_dim, cfg.d_model) == (112, 3584)
+    assert T._zamba_grouping(cfg) == (2, 6, 1)
+    FA.flash_attention_bwd_dkdv.launches = 0
+    out = train_loop(arch="zamba2-7b", d_model=448, num_layers=3, steps=2,
+                     global_batch=2, seq_len=64, device="cuda",
+                     log_every=0)
+    assert out["cfg"].resolved_head_dim == 112
+    assert FA.flash_attention_bwd_dkdv.launches == 2
+    assert all(map(lambda x: x == x and abs(x) < 1e4, out["losses"]))

@@ -470,12 +470,12 @@ def test_loss_decreases_over_steps():
     assert losses[-1] < losses[0] - 0.3, losses[::5]
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v2-236b",
-                                  "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v2-236b"])
 def test_loss_fn_refuses_other_families(arch):
-    """Families whose training is not ported raise: vlm (hd 256), the moe
-    family's MLA model (q/k 192 over v 128) and the hybrid (hd 112), head
-    dims kernel 1's backward does not take."""
+    """Families whose training is not ported raise: vlm (hd 256) and the
+    moe family's MLA model (q/k 192 over v 128), head dims kernel 1's
+    backward does not take. (The hybrid trains:
+    ``tests/test_torch_hybrid_training.py``.)"""
     cfg = reduced(get_config(arch), dtype="float32")
     model = build(cfg)
     params = model.init_params(torch.Generator().manual_seed(0))
@@ -500,18 +500,20 @@ def test_train_loop_refuses_frames_and_patches(arch):
 @pytest.mark.parametrize("arch,d_model,ok", [
     ("rwkv6-1.6b", None, True), ("rwkv6-1.6b", 64, True),
     ("rwkv6-1.6b", 512, False), ("llama3.2-1b", 64, False),
-    ("seamless-m4t-medium", None, True)])
+    ("seamless-m4t-medium", None, True), ("zamba2-7b", None, True),
+    ("zamba2-7b", 448, True), ("zamba2-7b", 768, False)])
 def test_backward_head_dims_follow_the_family(arch, d_model, ok):
     """``train_config`` on the card checks the head dims of the family's
     own backward kernels: kernel 7-bwd's (16, 64) for the ssm family,
-    kernel 1-bwd's (64, 128) for attention. The rule is checked here from
-    the configs (``train_config`` itself needs a card)."""
+    kernel 1-bwd's (64, 112, 128) for attention, the hybrid's shared
+    attention at hd 112 included. The rule is checked here from the
+    configs (``train_config`` itself needs a card)."""
     from repro_torch.launch.serve import full_width_config
     from repro_torch.launch.train import backward_head_dims
     cfg = (full_width_config(arch) if d_model is None else
            reduced(get_config(arch), d_model=d_model, head_dim=None))
     dims = backward_head_dims(cfg)
-    assert dims == ((16, 64) if cfg.family == "ssm" else (64, 128))
+    assert dims == ((16, 64) if cfg.family == "ssm" else (64, 112, 128))
     assert (cfg.resolved_head_dim in dims) is ok
 
 
