@@ -11,7 +11,7 @@ Phases (any failure exits non-zero before the result line):
      one nvcc per source, started together; the registers, shared memory
      and spills of the flash attention, expert GEMM, paged extend, WKV6
      and decode (kernels 2, 3, 4, 4-int8: one body) kernels, and of the
-     backward kernels of kernels 1 (hd 64, 112 and 128), 6 and 7;
+     backward kernels of kernels 1 (hd 64, 112, 128 and 256), 6 and 7;
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes (the paged ones with all-sentinel rows and lengths past
      the table), with its time, the plain version's, one library call's
@@ -158,6 +158,18 @@ Phases (any failure exits non-zero before the result line):
      dt_bias perturbed as phase 11's) through ``_grad_checks``: fp32 loss
      and every leaf within GRAD_REL_BOUND_HYBRID of the plain path's,
      bf16 leaves within GRAD_FACTOR_BF16.
+  17. vlm trainer: paligemma-3b whole (18 layers, 8 heads of 256 over
+     one KV head, vocab 257,216, tied embeddings) trains 6 steps through
+     ``training.make_train_step`` (``train_loop`` makes no patches), a
+     global batch of 16 rows of 256 patches (normal x 0.02 from the seed,
+     a bidirectional prefix) + 512 text tokens in 4 microbatches: every
+     loss finite and the last below the first, kernel 1 (hd 256, with its
+     LSE) and its three backward kernels launched 18 x 4 x 6 = 432 times,
+     no plain attention call; the memory reckoning beside the measured
+     peak, step seconds, tokens/s, the model-FLOP share with its basis,
+     kernel 1 and 1-bwd's share of the step; the 2-layer copies'
+     ``_grad_checks`` (fp32 within GRAD_REL_BOUND, ``frontend_proj``'s
+     leaf printed; bf16 within GRAD_FACTOR_BF16).
 Phase 3 also holds kernels 1, 2, 4 and 5 at those families' shapes
 (G = 5 at hd 128, G = 1 at hd 64 and 128, kernel 1 without the causal
 mask), kernels 1-5 at paligemma-3b's (hd 256, G = 8 over one KV head,
@@ -175,7 +187,11 @@ SDPA's backward (D beside ``torch.linalg.vecdot``); the same at hd 128
 hd-128 bodies' 32-position tiles' edges) and at hd 112 (zamba2-7b's B 1
 x 4096 over 32 KV heads, the edges of hd 128's layout, which hd 112
 takes, G = 4 and 8, ``FlashAttentionFn``'s gradients on unaligned and
-strided views, bounds counted at 112); and kernel 6's backward (dX,
+strided views, bounds counted at 112) and at hd 256 (phase 17's B 4 x
+768 with its 256-position prefix, the hd-256 layouts' tile edges, a
+prefix longer than Sq, non-causal, G = 1 over 8, bitwise repeats at bf16
+and fp32, bounds over the visible pairs, SDPA under the boolean mask of
+the same pairs); and kernel 6's backward (dX,
 dW) against its plain version at its fill and tile edges, 160 experts
 top-6 and phi3.5-moe's training microbatch, each case naming the body it
 took (wgmma, mma.sync or the fp32 FMA body), timed at the microbatch
@@ -399,9 +415,21 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
                 (1, 300, 300, True, 31, H, H), (1, 300, 300, True, 129, H, H),
                 (1, 257, 257, True, 0, H, KVH), (2, 257, 257, True, 0, 8, 1),
                 (1, 129, 127, False, 0, H, H), (1, 127, 385, False, 0, H, H)]
+    # hd 256 (paligemma-3b, 8 heads over 1): phase 17's microbatch (B 4 x
+    # 256 patches + 512 text tokens, the patches a bidirectional prefix),
+    # prefix 0, the hd-256 layouts' tile edges (64 keys a (b) block, 128
+    # rows a (c) block, 32-position streamed tiles), a prefix longer than
+    # Sq, ragged Sq != Sk without the mask, the microbatch without it, and
+    # G = 1 over 8
+    cases256 = [(4, 768, 768, True, 256, 8, 1), (1, 300, 300, True, 0, 8, 1),
+                (1, 65, 65, True, 0, 8, 1), (2, 129, 129, True, 64, 8, 1),
+                (1, 200, 200, True, 300, 8, 1),
+                (1, 129, 127, False, 0, 8, 1), (2, 127, 385, False, 0, 8, 1),
+                (4, 768, 768, False, 0, 8, 1), (1, 257, 257, True, 33, 8, 8)]
     for dtype, (hd_, case_list) in ((d, c) for c in ((hd, cases),
                                                      (128, cases128),
-                                                     (112, cases112))
+                                                     (112, cases112),
+                                                     (256, cases256))
                                     for d in ("bfloat16", "float32")):
         dt = getattr(torch, dtype)
         for B, Sq, Sk, causal, prefix, h, kvh in case_list:
@@ -453,6 +481,16 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         print(f"  flash_attention_bwd bf16 B={Bd} S=4096 KVH={kvh_} "
               f"hd={hd_}: two runs bitwise equal (dq, dk, dv)")
         del runs, q, k, v, o, lse, do
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, o, lse, do = inputs(4, 768, 768, getattr(torch, dtype), True,
+                                     256, 8, 1, 256)
+        runs = [FA.flash_attention_bwd(q, k, v, o, lse, do, prefix_len=256)
+                for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"flash_attention_bwd {dtype} hd=256: two runs differ")
+        print(f"  flash_attention_bwd {dtype} B=4 S=768 H=8 KVH=1 hd=256 "
+              f"prefix=256: two runs bitwise equal (dq, dk, dv)")
+        del runs, q, k, v, o, lse, do
 
     # FlashAttentionFn at hd 112 on views the backward kernels do not take
     # as they are (a 2-byte offset; a strided slice of a fused projection):
@@ -490,54 +528,87 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
 
     print("[kernels] times at the training shape (bf16, CUDA events, "
           "median of 30, L2 flushed; plain median of 5)")
+
+    def visible(Sq, pre):
+        """(query, key) pairs a causal mask with a prefix shows, Sq = Sk"""
+        return sum(min(Sq, max(i + 1, pre)) for i in range(Sq))
+
+    def sdpa(qt, kt, vt, Sq, pre):
+        """SDPA over [B, heads, S, hd] views: causal with GQA, or with a
+        prefix under the boolean mask of the same pairs (True: attend),
+        K and V repeated to the query heads"""
+        if not pre:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        i = torch.arange(Sq, device=dev)
+        mask = (i[None, :] <= i[:, None]) | (i[None, :] < pre)
+        G_ = qt.shape[1] // kt.shape[1]
+        return F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(G_, dim=1),
+            vt.repeat_interleave(G_, dim=1), attn_mask=mask)
+
     # llama3.2-1b's shapes, then zamba2-7b's training shape (hd 112, 32
-    # heads over 32)
-    for Bf, Sf, hdf, kvf in ((4, 512, hd, KVH), (B, S, hd, KVH),
-                             (1, 4096, 112, H)):
+    # heads over 32), then phase 17's microbatch (hd 256, 8 heads over 1,
+    # a 256-position prefix)
+    for Bf, Sf, Hf, hdf, kvf, pre in ((4, 512, H, hd, KVH, 0),
+                                      (B, S, H, hd, KVH, 0),
+                                      (1, 4096, H, 112, H, 0),
+                                      (4, 768, 8, 256, 1, 256)):
         qf, kf, vf = (q, k, v) if (Bf, Sf, hdf) == (B, S, hd) else (
             torch.randn((Bf, Sf, n, hdf), generator=g, device=dev).to(bf)
-            for n in (H, kvf, kvf))
-        buf = torch.empty((Bf, H, Sf), device=dev)
-        off = time_ms(lambda: FA.flash_attention(qf, kf, vf), flush)
-        on = time_ms(lambda: FA.flash_attention(qf, kf, vf, lse=buf), flush)
-        plain = time_ms(lambda: ref.attention_lse_ref(qf, kf, vf), flush,
-                        reps=5)
-        # SDPA's forward (its LSE stays inside the library): a yardstick
+            for n in (Hf, kvf, kvf))
+        buf = torch.empty((Bf, Hf, Sf), device=dev)
+        kw = dict(prefix_len=pre)
+        off = time_ms(lambda: FA.flash_attention(qf, kf, vf, **kw), flush)
+        on = time_ms(lambda: FA.flash_attention(qf, kf, vf, lse=buf, **kw),
+                     flush)
+        plain = time_ms(lambda: ref.attention_lse_ref(qf, kf, vf, **kw),
+                        flush, reps=5)
+        # SDPA's forward (its LSE stays inside the library): a yardstick;
+        # with a prefix, under the boolean mask of the same pairs, K and V
+        # repeated to the query heads (as phase 3's paligemma-3b row)
         qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        lib = time_ms(lambda: sdpa(qt, kt, vt, Sf, pre), flush)
         # q, k, v read and the output written (bf16), the LSE written
-        # (fp32); QK^T and PV over the causal half
+        # (fp32); QK^T and PV over the visible pairs
         b_ms, b_by = bound(2 * (2 * qf.numel() + kf.numel() + vf.numel())
                            + 4 * buf.numel(),
-                           4.0 * Bf * H * hdf * Sf * (Sf + 1) / 2,
+                           4.0 * Bf * Hf * hdf * visible(Sf, pre),
                            BF16_FLOP_PER_S)
-        print(f"  flash_attention B={Bf} S={Sf} KVH={kvf} hd={hdf} causal: "
-              f"LSE off "
+        what = f"causal prefix={pre}" if pre else "causal"
+        print(f"  flash_attention B={Bf} S={Sf} H={Hf} KVH={kvf} hd={hdf} "
+              f"{what}: LSE off "
               f"{off:.4f} ms, on {on:.4f} ms, plain (with its LSE) "
-              f"{plain:.4f}, library (SDPA forward, enable_gqa=True) "
+              f"{plain:.4f}, library (SDPA forward, "
+              f"{'K, V repeated, boolean mask' if pre else 'enable_gqa=True'}"
+              f") "
               f"{lib:.4f}, bound {b_ms:.5f} ({b_by}) -> {b_ms / on:.1%} of "
               f"bound, kernel / library {on / lib:.2f}")
         extra_shapes.setdefault("flash_attention", []).append(dict(
             ms=on, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by, lse_off_ms=off,
-            shape=f"bf16 B={Bf} Sq=Sk={Sf} H={H} KVH={kvf} hd={hdf} causal, "
-                  f"with the LSE output"))
+            shape=f"bf16 B={Bf} Sq=Sk={Sf} H={Hf} KVH={kvf} hd={hdf} "
+                  f"{what}, with the LSE output"))
         del qt, kt, vt, qf, kf, vf
     # each backward kernel at llama3.2-1b's training shape (the table's
     # row), then at hd 128: phi3.5-moe's (B 1 x 4096, 32 heads over 8) and
     # qwen3-14b's G = 5 (B 1 x 2048, 40 heads over 8); then zamba2-7b's at
-    # hd 112 (B 1 x 4096, 32 heads over 32), its bound counted at 112
-    for Bt, St, Ht, KVHt, hdt in ((B, S, H, KVH, hd), (1, 4096, H, KVH, 128),
-                                  (1, 2048, 40, 8, 128),
-                                  (1, 4096, H, H, 112)):
+    # hd 112 (B 1 x 4096, 32 heads over 32), its bound counted at 112; then
+    # paligemma-3b's at hd 256 (phase 17's microbatch: B 4 x 768, 8 heads
+    # over 1, a 256-position prefix), its bound over the visible pairs
+    for Bt, St, Ht, KVHt, hdt, pre in ((B, S, H, KVH, hd, 0),
+                                       (1, 4096, H, KVH, 128, 0),
+                                       (1, 2048, 40, 8, 128, 0),
+                                       (1, 4096, H, H, 112, 0),
+                                       (4, 768, 8, 1, 256, 256)):
         if hdt != hd:
-            q, k, v, o, lse, do = inputs(Bt, St, St, bf, True, 0, Ht, KVHt,
+            q, k, v, o, lse, do = inputs(Bt, St, St, bf, True, pre, Ht, KVHt,
                                          hdt)
         shape = (f"bf16 B={Bt} Sq=Sk={St} H={Ht} KVH={KVHt} hd={hdt} "
-                 f"causal")
+                 f"causal" + (f" prefix={pre}" if pre else ""))
+        kw = dict(prefix_len=pre)
         n = q.numel()
-        half = Bt * Ht * hdt * St * (St + 1) / 2     # the causal half's MACs
+        half = Bt * Ht * hdt * visible(St, pre)      # the visible pairs' MACs
         stats = 2 * 4 * Bt * Ht * St                 # lse and D, fp32
         D = FA.flash_attention_bwd_dot(o, do)
         # SDPA's whole backward (dQ, dK and dV) at the same shape: the
@@ -546,8 +617,7 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
         # port never calls
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+        out = sdpa(qt, kt, vt, St, pre)
         dot = do.transpose(1, 2)
         lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                   retain_graph=True), flush)
@@ -558,12 +628,12 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
                 lambda: torch.linalg.vecdot(o, do, dim=-1),
                 2 * 2 * n + 4 * Bt * Ht * St, 2.0 * n),
             "flash_attention_bwd_dkdv": (
-                lambda: FA.flash_attention_bwd_dkdv(q, k, v, do, lse, D),
-                lambda: ref.attention_bwd_ref(q, k, v, o, lse, do), None,
+                lambda: FA.flash_attention_bwd_dkdv(q, k, v, do, lse, D, **kw),
+                lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, **kw), None,
                 2 * (2 * n + 4 * k.numel()) + stats, 4 * 2 * half),
             "flash_attention_bwd_dq": (
-                lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, D),
-                lambda: ref.attention_bwd_ref(q, k, v, o, lse, do), None,
+                lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, D, **kw),
+                lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, **kw), None,
                 2 * (3 * n + 2 * k.numel()) + stats, 3 * 2 * half)}
         total = 0.0
         for name, (fn, plain_fn, lib_fn, nbytes, flops) in timed.items():
@@ -575,7 +645,9 @@ def backward_kernels(dev, flush, compare, rows, extra_shapes) -> None:
                        else lib if name == "flash_attention_bwd_dkdv"
                        else None)
             what = ("torch.linalg.vecdot(o, do, dim=-1)" if lib_fn
-                    else "SDPA's whole backward, enable_gqa=True")
+                    else "SDPA's whole backward, " + (
+                        "K, V repeated, boolean mask" if pre
+                        else "enable_gqa=True"))
             print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain:.4f}"
                   f", bound {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound"
                   + (f", library ({what}) {library:.4f}" if library else ""))
@@ -1877,6 +1949,144 @@ def hybrid_trainer(dev, smi, extra_shapes) -> None:
     print(f"[hybrid-train] card: {smi}")
 
 
+def vlm_trainer(dev, smi, extra_shapes) -> None:
+    """Phase 17: paligemma-3b whole (18 layers, 8 heads of 256 over one KV
+    head) trains 6 steps through ``training.make_train_step`` (the main
+    run: ``train_loop`` takes no patches), each row 256 patches (normal x
+    0.02 from the seed) ahead of 512 text tokens, a bidirectional prefix;
+    then the 2-layer copies' gradient checks. ``extra_shapes``: phase 3's
+    rows, whose hd-256 sub-rows at this microbatch take this run's
+    launches."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import full_width_config
+    from repro_torch.launch.train import FULL_WIDTH_LR
+    from repro_torch.models.api import build as build_model
+    from repro_torch.training import AdamW, default_schedule, make_train_step
+    from repro_torch.tree import leaves
+
+    arch = "paligemma-3b"
+    cfg = full_width_config(arch)
+    # 16 rows of 256 patches + 512 text tokens a step, in 4 microbatches of
+    # 4 rows: the bf16 logits over the text at vocab 257,216, their fp32
+    # copy and both gradients take 6.3 GB a microbatch
+    steps, B, S, nm = 6, 16, 512, 4
+    P, L, H = cfg.num_prefix_embeddings, cfg.num_layers, cfg.num_heads
+    hd = cfg.resolved_head_dim
+    kernels = (FA.flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+
+    def batch_of(c, seq, rows=2, step=0):
+        b = SyntheticLM(vocab_size=c.vocab_size, seq_len=seq,
+                        global_batch=rows, seed=SEED).batch(step, dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 170 + step)
+        b["patches"] = 0.02 * torch.randn((rows, P, c.d_model), generator=g,
+                                          device=dev)
+        return b
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[vlm-train] device memory allocated before the run: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    model = build_model(cfg)
+    opt = AdamW(lr=FULL_WIDTH_LR)
+    step = make_train_step(model.loss_fn, opt, num_microbatches=nm,
+                           schedule=default_schedule(steps, warmup=1))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    state = opt.init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    # parameters by the positions whose products they take: the patch
+    # projection the patches, the tied embedding table (its product the
+    # head; its lookup not counted) the text, the rest every position
+    n_proj = params["frontend_proj"].numel()
+    n_embed = params["embed"]["embed"].numel()
+    n_body = n_params - n_proj - n_embed
+    mb_logits = 12 * (B // nm) * S * cfg.vocab_size
+    acts = 9e9
+    print(f"[vlm-train] memory reckoning: {n_params / 1e9:.3f} B params x 16 "
+          f"bytes (bf16 weights and gradients, fp32 AdamW moments and "
+          f"update) = {16 * n_params / 1e9:.1f} GB; a microbatch's logits "
+          f"(12 bytes a logit x {(B // nm) * S} text tokens x "
+          f"{cfg.vocab_size}) {mb_logits / 1e9:.1f} GB; activations ~"
+          f"{acts / 1e9:.0f} GB: ~{(16 * n_params + mb_logits + acts) / 1e9:.0f}"
+          f" GB")
+    calls, restore = _plain_counter(ref, ("attention_ref",
+                                          "attention_lse_ref",
+                                          "attention_bwd_ref"))
+    reset(*kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    try:
+        for i in range(steps):
+            batch = batch_of(cfg, S, B, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"].item())          # synchronises
+            secs.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k.__name__: k.launches for k in kernels}
+    want = L * nm * steps
+    check(all(v == want for v in launched.values()),
+          f"vlm trainer: launches {launched}, want {want} each ({L} layers "
+          f"x {nm} microbatches x {steps} steps)")
+    check(not calls, f"vlm trainer: plain attention on the card's path: "
+          f"{sorted(set(calls))}")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"vlm trainer: losses {losses}")
+    # model FLOPs a step: 6 N a position for the weights' products, forward
+    # and backward (the body over patches and text, the patch projection
+    # over the patches, the tied head over the text); attention's QK^T and
+    # PV, forward and backward: 12 L H hd a visible (query, key) pair, the
+    # 256-position prefix seen whole by every query
+    T = P + S
+    visible = sum(min(T, max(i + 1, P)) for i in range(T))
+    flop = B * (6 * (n_body * T + n_proj * P + n_embed * S)
+                + 12 * L * H * hd * visible)
+    steady = statistics.median(secs[1:])
+    print(f"[vlm-train] {arch} whole ({L} layers, d {cfg.d_model}, {H} heads "
+          f"of {hd} over {cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, tied embeddings, {n_params / 1e9:.3f} B params,"
+          f" bf16), {P} patches (normal x 0.02) + {S} text tokens a row, "
+          f"global batch {B} in {nm} microbatches ({B * T} positions, "
+          f"{B * S} text tokens a step), AdamW lr {FULL_WIDTH_LR} under "
+          f"default_schedule({steps}, warmup=1), {steps} steps of "
+          f"make_train_step")
+    print(f"[vlm-train] measured peak {peak / 1e9:.2f} GB")
+    print(f"[vlm-train] losses {[round(x, 4) for x in losses]}")
+    print(f"[vlm-train] step seconds {[round(x, 3) for x in secs]}; median "
+          f"of steps 2-{steps} {steady:.3f} s, {B * T / steady:.0f} "
+          f"positions/s ({B * S / steady:.0f} text tokens/s); peak memory "
+          f"{peak / 1e9:.2f} GB")
+    print(f"[vlm-train] model FLOP share: B x (6 (N_body T + N_proj P + "
+          f"N_embed S) + 12 L H hd x {visible} visible pairs) = {flop:.4g} "
+          f"FLOP a step / {steady:.3f} s / 989 TFLOP/s = "
+          f"{flop / steady / BF16_FLOP_PER_S:.1%}")
+    print(f"[vlm-train] launches {launched} (= {L} x {nm} x {steps}); plain "
+          f"attention calls 0")
+    # phase 3's times at this microbatch: kernel 1 with the LSE and 1-bwd
+    attn_ms = 0.0
+    for name in launched:
+        for e in extra_shapes.get(name, []):
+            if "hd=256" in e["shape"] and f"Sq=Sk={T}" in e["shape"]:
+                e["launches"] = launched[name]
+                attn_ms += e["ms"] * launched[name] / steps
+    print(f"[vlm-train] kernel 1 and 1-bwd's share of the step: "
+          f"{attn_ms:.1f} ms (phase 3's times at this microbatch x launches "
+          f"a step) of {steady * 1e3:.1f} ms, {attn_ms / 1e3 / steady:.1%}")
+    del params, state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _grad_checks("vlm-train", dev, cfg, kernels, [2] * 4,
+                 lambda c, seq: batch_of(c, seq), GRAD_REL_BOUND,
+                 note="frontend_proj")
+    print(f"[vlm-train] card: {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1994,14 +2204,16 @@ def main() -> int:
                     getattr(torch, dt), hd, 32, 8, 64, 16))
                 for dt in ("bfloat16", "float32", "int8")
                 for hd in (64, 128, 256)],
-            # dK/dV and dQ share a layout size; D needs none. The bf16
+            # dK/dV and dQ share a layout size (at hd 256 the larger of
+            # their two layouts); D needs none. The bf16
             # bodies' ptxas count is their launch's (384 threads); after
             # setmaxnreg the two consumer warpgroups hold 232 and the
             # producer's 40
             "flash_attention_bwd": [
                 (f"{dt} hd={hd} dK/dV and dQ",
                  bwd_smem_bytes(getattr(torch, dt), hd))
-                for dt in ("bfloat16", "float32") for hd in (64, 112, 128)],
+                for dt in ("bfloat16", "float32")
+                for hd in (64, 112, 128, 256)],
             # kernel 6's backward: each bf16 body's launch (fp32:
             # static). The wgmma bodies' ptxas count is their launch's
             # (384 threads); after setmaxnreg the two consumer warpgroups
@@ -2046,6 +2258,7 @@ def main() -> int:
                               r"paged_extend_fwd|wkv6_chunked|"
                               r"wkv6_bwd_local|wkv6_bwd_scan|wkv6_bwd_chunk|"
                               r"decode_split_fwd|bwd_dkdv_wgmma|bwd_dq_wgmma|"
+                              r"bwd_dkdv_split|"
                               r"bwd_dkdv_fma|bwd_dq_fma|bwd_dot|"
                               r"expert_bwd_wgmma|expert_bwd_mma|"
                               r"expert_bwd_fma)I(.*?)EEv", line)
@@ -4386,6 +4599,9 @@ def main() -> int:
 
     # ------------------------------------------------- 16. hybrid trainer
     hybrid_trainer(dev, smi, extra_shapes)
+
+    # ---------------------------------------------------- 17. vlm trainer
+    vlm_trainer(dev, smi, extra_shapes)
 
     # ---------------------------------------------------------- report
     # the backward kernels replace no TPU kernel (the reference takes

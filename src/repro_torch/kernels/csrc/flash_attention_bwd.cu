@@ -110,12 +110,35 @@
 // products with those zeros and are never stored. Expect about 128 / 112
 // of the tensor-core work of the width; (a) lays a row of 14 (bf16) or 28
 // (fp32) vectors over 16 or 32 lanes.
+// hd 256 (paligemma-3b: 8 query heads over one KV head) passes both budgets of
+// hd 128's layout: a consumer thread of (b) would hold dK and dV for its 64
+// keys in 2 x 64 x 256 / 128 = 256 fp32 registers (232 after setmaxnreg), and
+// 2 outer slots of K and V at 128 keys take 256 KB (227 KB a block). So (b)
+// gives the two warpgroups one 64-key tile and a half of the work each
+// (kSplit, a kernel of its own, bwd_dkdv_split): warpgroup 0 computes S^T = K
+// Q^T, P^T, and dV += P^T dO; warpgroup 1 computes dP^T = V dO^T and, with P^T
+// read from a 64 x 32 fp32 exchange buffer in shared memory (two of them, one
+// named barrier a step), dS^T and dK += dS^T Q. Each keeps 128 accumulators,
+// 16 of S^T or dP^T, 8 of bf16 A fragments. K and V stay in shared memory as A
+// descriptors (one outer slot of 2 x 32 KB), Q and dO stream as 32-query tiles
+// (a ring of 4 slots of 32 KB), four 64-column TMA boxes a position: 215,120 B
+// in all. (c) keeps 128 rows a block but reads Q and dO through shared-memory
+// A descriptors (kQoSmem: as fragments they would add 64 + 64 registers to
+// dQ's 128), in one outer slot of 128 KB, beside a ring of 3 slots of K and V
+// at 32 keys: 231,232 B (its 128 accumulators of dQ, 16 + 16 of S and dP and
+// the descriptors pass 232 registers by a few: ptxas spills some 128 bytes,
+// which phase 2 of chip_smoke.py prints). Each warpgroup of (b) does half the
+// products of a step, so one (b, KV head) gives a block only ceil(Sk / 64)
+// items (48 at B 4 x 768); they are not paired (a 256-position prefix makes
+// the pairs unequal: 256 steps the longest pair against 192 the longest tile
+// at Sq 768).
 // fp32 (the checks' path): FMAs on the CUDA cores, tiles of 32 keys and 32
 // rows in shared memory (the tensor cores' fp32 input type is TF32, too
-// coarse for the fp32 checks), as kernel 1's fp32 body.
+// coarse for the fp32 checks), as kernel 1's fp32 body. At hd 256 (a)
+// lays an fp32 row of 64 vectors over 32 lanes, two a lane (DotCfg).
 // Inputs and outputs are contiguous: q, o, dO, dq [B, Sq, H, hd], k, v,
 // dk, dv [B, Sk, KVH, hd]; lse and D [B, H, Sq] fp32. Head dims: HD 64,
-// 112 and 128 (BWD_WIDTHS below).
+// 112, 128 and 256 (BWD_WIDTHS below).
 
 #include <algorithm>
 #include <type_traits>
@@ -165,21 +188,35 @@ __host__ __device__ constexpr int row_lanes(int vecs) {
   return vecs <= 1 ? 1 : 2 * row_lanes((vecs + 1) / 2);
 }
 
+// How (a) lays a row of HD elements of T over lanes: kV 16-byte vectors,
+// kPer consecutive ones a lane (2 for an fp32 row of 256, 64 vectors, so
+// that a row stays within a warp; else 1), over kL lanes (kC of them
+// read), kU rounds of loads in flight a thread
+template <typename T, int HD>
+struct DotCfg {
+  static constexpr int kV = HD * sizeof(T) / 16;
+  static constexpr int kPer = (kV + 31) / 32;
+  static constexpr int kC = kV / kPer;
+  static constexpr int kL = row_lanes(kC);
+  static constexpr int kU = kDotUnroll / kPer;
+  static_assert(HD * sizeof(T) % 16 == 0 && kV % kPer == 0 && kL <= 32 &&
+                    kU >= 1,
+                "a row of whole vectors, its lanes within a warp");
+};
+
 // D[b, h, i] for P positions of one b and all H heads: their rows
 // (position-major, head-minor) lie contiguous in o and dO. Lane v of the
-// block's run belongs to row v / kL and reads that row's vector v % kL;
-// the row's kL lanes (its kV vectors rounded up to a power of two, aligned
-// within a warp; hd 112 leaves the last 2 of 16 lanes idle in bf16 and 4
-// of 32 in fp32) reduce by shuffles. Sums go to shared memory at
-// [position][head] (rows padded by one float) and out transposed.
+// block's run belongs to row v / kL and reads that row's vectors kPer (v %
+// kL) ..; the row's kL lanes (aligned within a warp; hd 112 leaves the
+// last 2 of 16 lanes idle in bf16 and 4 of 32 in fp32) reduce by
+// shuffles. Sums go to shared memory at [position][head] (rows padded by
+// one float) and out transposed.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kDotThreads)
 bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
         float* __restrict__ D, int Sq, int H, int P, int tiles) {
-  constexpr int kV = HD * sizeof(T) / 16;   // vectors a row
-  constexpr int kL = row_lanes(kV);         // lanes a row
-  static_assert(HD * sizeof(T) % 16 == 0 && kL <= 32,
-                "a row of whole vectors, its lanes within a warp");
+  using C = DotCfg<T, HD>;
+  constexpr int kV = C::kV, kPer = C::kPer, kL = C::kL, kU = C::kU;
   extern __shared__ float sums[];           // [P][H + 1]
   const int b = blockIdx.x / tiles, i0 = (blockIdx.x % tiles) * P;
   const int n_pos = min(P, Sq - i0);
@@ -188,20 +225,25 @@ bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
   const uint4* ov = reinterpret_cast<const uint4*>(o + at);
   const uint4* dv = reinterpret_cast<const uint4*>(dO + at);
   const int tid = threadIdx.x;
-  for (int v0 = 0; v0 < nlane; v0 += kDotThreads * kDotUnroll) {
-    uint4 x[kDotUnroll], y[kDotUnroll];
+  for (int v0 = 0; v0 < nlane; v0 += kDotThreads * kU) {
+    uint4 x[kU][kPer], y[kU][kPer];
 #pragma unroll
-    for (int u = 0; u < kDotUnroll; ++u) {
+    for (int u = 0; u < kU; ++u) {
       const int v = v0 + u * kDotThreads + tid, c = v % kL;
-      x[u] = y[u] = make_uint4(0, 0, 0, 0);
-      if (v < nlane && c < kV) {
-        x[u] = ov[v / kL * kV + c];
-        y[u] = dv[v / kL * kV + c];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        x[u][e] = y[u][e] = make_uint4(0, 0, 0, 0);
+        if (v < nlane && c < C::kC) {
+          x[u][e] = ov[v / kL * kV + c * kPer + e];
+          y[u][e] = dv[v / kL * kV + c * kPer + e];
+        }
       }
     }
 #pragma unroll
-    for (int u = 0; u < kDotUnroll; ++u) {
-      float s = dot16(x[u], y[u], T());
+    for (int u = 0; u < kU; ++u) {
+      float s = dot16(x[u][0], y[u][0], T());
+#pragma unroll
+      for (int e = 1; e < kPer; ++e) s += dot16(x[u][e], y[u][e], T());
 #pragma unroll
       for (int off = kL / 2; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -225,46 +267,63 @@ bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
 // on wgmma, 64 keys (b) or 64 rows (c) each; warpgroup 2 gives up its
 // registers (setmaxnreg) and its first warp produces. Two rings of tiles
 // under mbarriers, filled by TMA (128-byte swizzled rows of 64 bf16): an
-// outer ring of 2 slots for the tiles a block keeps while it works on one
-// output tile (K and V of 128 keys in (b), Q and dO of 128 rows in (c),
-// read once into A fragments), loaded by one lane, and an inner ring of
-// kStages slots for the tiles it streams (64 queries of Q and dO in (b),
-// with their LSE and D copied by the warp's 32 lanes by cp.async; 64 keys
-// of K and V in (c)), read by wgmma through shared-memory descriptors. A
-// consumer thread releases an inner slot once its warpgroup's last wgmma
-// on it has completed, an outer slot at the end of its tile.
+// outer ring of kOuterSlots slots for the tiles a block keeps while it
+// works on one output tile (K and V of kOuter keys in (b), Q and dO of 128
+// rows in (c)), loaded by one lane, and an inner ring of kStages slots for
+// the tiles it streams (kInner queries of Q and dO in (b), with their LSE
+// and D copied by the warp's 32 lanes by cp.async; kInner keys of K and V
+// in (c)), read by wgmma through shared-memory descriptors. A consumer
+// thread releases an inner slot once its warpgroup's last wgmma on it has
+// completed, an outer slot at the end of its tile.
 // HD is the tensor's width; the layout's, kHD, is the next multiple of 64
-// (hd 112 takes hd 128's: see the header).
-template <int HD>
+// (hd 112 takes hd 128's: see the header). kDq: the layout of (c), else
+// (b)'s; they differ only at hd 256.
+template <int HD, bool kDq>
 struct Wg {
-  static_assert(HD == 64 || HD == 112 || HD == 128,
-                "a position is 1 or 2 swizzle rows");
+  static_assert(HD == 64 || HD == 112 || HD == 128 || HD == 256,
+                "a position is 1, 2 or 4 swizzle rows");
   static constexpr int kHD = (HD + 63) / 64 * 64;
+  static constexpr bool kWide = kHD == 256;
   static constexpr int kThreads = 3 * 128;
   static constexpr int kConsumers = 2 * 128;
-  static constexpr int kStages = 4;
-  static constexpr int kOuter = 128;   // keys (b) or rows (c) a block
+  // hd 256: one outer slot ((c)'s Q and dO of 128 rows take 128 KB); the
+  // inner ring 4 deep in (b), 3 in (c)
+  static constexpr int kOuterSlots = kWide ? 1 : 2;
+  static constexpr int kStages = kWide && kDq ? 3 : 4;
+  // keys (b) or rows (c) a block: (b) at hd 256 takes 64, which both
+  // warpgroups share (kSplit)
+  static constexpr int kOuter = kWide && !kDq ? 64 : 128;
   // queries (b) or keys (c) a streamed tile, and the N of S and dP
   static constexpr int kInner = kHD == 64 ? 64 : 32;
   static constexpr int kBoxes = kHD / 64;   // 64-column TMA boxes a tile
   // (b): K and V as A fragments in registers (hd 64), or read by wgmma
-  // from shared memory (hd 112, 128)
+  // from shared memory (hd 112, 128, 256)
   static constexpr bool kKvSmem = kHD > 64;
+  // (b) at hd 256: warpgroup 0 forms P^T and accumulates dV, warpgroup 1
+  // dP^T and dK, over the same 64 keys, P^T passed through shared memory;
+  // each key tile an item of its own (no pairing: see the header)
+  static constexpr bool kSplit = kWide && !kDq;
+  // (c) at hd 256: Q and dO read by wgmma from shared memory, not held as
+  // A fragments
+  static constexpr bool kQoSmem = kWide && kDq;
   // TMA maps of a width the boxes do not tile need only 16-byte strides
   static constexpr int kHdMultiple = kHD == HD ? 64 : 8;
   static constexpr int kRow = kHD * 2;  // bytes
   static constexpr int kOuterTile = kOuter * kRow;   // one tensor's tile
   static constexpr int kInnerTile = kInner * kRow;
-  // a tile's second box (columns 64 ..) lies one box of rows x 128 bytes on
+  // a tile's box x (columns 64 x ..) lies x boxes of rows x 128 bytes on
   static constexpr int kOuterBox = kOuter * 128, kInnerBox = kInner * 128;
-  // byte offsets from the 1024-byte aligned base: 2 outer slots of two
-  // tiles, kStages inner slots of two tiles, kStages (LSE, D) rows of
-  // kInner floats ((b) only), the barriers
-  static constexpr int kInnerAt = 2 * 2 * kOuterTile;
+  // byte offsets from the 1024-byte aligned base: kOuterSlots outer slots
+  // of two tiles, kStages inner slots of two tiles, kStages (LSE, D) rows
+  // of kInner floats ((b) only), kSplit's two P^T buffers of 64 x kInner
+  // floats, the barriers
+  static constexpr int kInnerAt = kOuterSlots * 2 * kOuterTile;
   static constexpr int kStatsAt = kInnerAt + kStages * 2 * kInnerTile;
-  static constexpr int kBarsAt = kStatsAt + kStages * 2 * kInner * 4;
-  static constexpr int kBars = 2 * kStages + 4;
+  static constexpr int kXchAt = kStatsAt + kStages * 2 * kInner * 4;
+  static constexpr int kBarsAt = kXchAt + (kSplit ? 2 * 64 * kInner * 4 : 0);
+  static constexpr int kBars = 2 * kStages + 2 * kOuterSlots;
   static constexpr size_t bytes = 1024 + kBarsAt + kBars * 8;
+  static_assert(bytes <= 232448, "227 KB of shared memory a block");
 
   __device__ static uint8_t* outer(uint8_t* sm, int slot) {
     return sm + slot * 2 * kOuterTile;
@@ -274,6 +333,9 @@ struct Wg {
   }
   __device__ static float* stats(uint8_t* sm, int st) {
     return reinterpret_cast<float*>(sm + kStatsAt) + st * 2 * kInner;
+  }
+  __device__ static float* xch(uint8_t* sm, int buf) {
+    return reinterpret_cast<float*>(sm + kXchAt) + buf * 64 * kInner;
   }
 };
 
@@ -289,23 +351,22 @@ struct Ring {
   }
 };
 
-// full[kStages], empty[kStages], outer full[2], outer empty[2]: an inner
-// slot is full after `full_count` arrivals and its bytes, empty after
-// every consumer thread's arrival; an outer slot likewise with one
-// arrival
-template <int HD>
+// full[kStages], empty[kStages], outer full[kOuterSlots], outer
+// empty[kOuterSlots]: an inner slot is full after `full_count` arrivals
+// and its bytes, empty after every consumer thread's arrival; an outer
+// slot likewise with one arrival
+template <class L>
 __device__ __forceinline__ uint64_t* init_bars(uint8_t* sm,
                                                uint32_t full_count) {
-  using L = Wg<HD>;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBarsAt);
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::kStages; ++s) {
       mbar_init(bars + s, full_count);
       mbar_init(bars + L::kStages + s, L::kConsumers);
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < L::kOuterSlots; ++s) {
       mbar_init(bars + 2 * L::kStages + s, 1);
-      mbar_init(bars + 2 * L::kStages + 2 + s, L::kConsumers);
+      mbar_init(bars + 2 * L::kStages + L::kOuterSlots + s, L::kConsumers);
     }
     mbar_fence_init();
   }
@@ -318,7 +379,8 @@ __device__ __forceinline__ uint64_t* init_bars(uint8_t* sm,
 // the causal mask every item holds the same work (the long tile of one
 // end with the short of the other); block x takes items x, x + gridDim.x,
 // ... The two tiles of item p: tile_of(p, n, 0) and tile_of(p, n, 1), < 0
-// where there is no second one.
+// where there is no second one. (hd 256's dK/dV, bwd_dkdv_split, takes
+// one tile an item.)
 __device__ __forceinline__ int tile_of(int p, int n, int half) {
   const int t = half ? n - 1 - p : p;
   return half && t == p ? -1 : t;
@@ -326,23 +388,23 @@ __device__ __forceinline__ int tile_of(int p, int n, int half) {
 
 // the kBoxes TMA loads of one tile of `rows` positions from position `at`
 // of head `head`, all counted on `bar`
-template <int HD>
+template <class L>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int head,
                                          int at, int b) {
 #pragma unroll
-  for (int x = 0; x < Wg<HD>::kBoxes; ++x)
+  for (int x = 0; x < L::kBoxes; ++x)
     tma_load_4d(dst + x * rows * 128, map, bar, 64 * x, head, at, b);
 }
 
 // (b): S^T = K Q^T and dP^T = V dO^T with the warp's K and V rows as A
 // fragments in registers (hd 64) or the warpgroup's K and V as K-major A
-// in shared memory (hd 128), and the Q and dO tiles as K-major B; P^T and
+// in shared memory (hd 112, 128), and the Q and dO tiles as K-major B; P^T and
 // dS^T from those accumulators, rounded to bf16 in registers, as A of
 // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (the transpose
 // bit), one 64-column box of dK and dV at a time.
 template <int HD>
-__global__ void __launch_bounds__(Wg<HD>::kThreads, 1)
+__global__ void __launch_bounds__(Wg<HD, false>::kThreads, 1)
 bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tk,
@@ -351,15 +413,15 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                int B, int Sq, int Sk, int H, int KVH, int causal,
                int prefix_len, float scale_log2, float scale) {
-  using L = Wg<HD>;
-  constexpr int kN = L::kOuter, kM = L::kInner;
+  using L = Wg<HD, false>;
+  constexpr int kN = L::kOuter, kM = L::kInner, kSlots = L::kOuterSlots;
   extern __shared__ float4 smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   // the TMA lane's arrival with its bytes, and the 32 lanes' cp.async
-  uint64_t* full = init_bars<HD>(sm, 1 + 32);
+  uint64_t* full = init_bars<L>(sm, 1 + 32);
   uint64_t* empty = full + L::kStages;
   uint64_t* ofull = empty + L::kStages;
-  uint64_t* oempty = ofull + 2;
+  uint64_t* oempty = ofull + kSlots;
   const int G = H / KVH;
   const int n_kt = (Sk + kN - 1) / kN, n_pair = (n_kt + 1) / 2;
   const int n_qt = (Sq + kM - 1) / kM;
@@ -387,11 +449,11 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           if (lane == 0) {
             uint8_t* kv = L::outer(sm, out.st);
             mbar_expect_tx(&ofull[out.st], 2 * L::kOuterTile);
-            tma_tile<HD>(kv, &tk, &ofull[out.st], kN, kvh, j0, b);
-            tma_tile<HD>(kv + L::kOuterTile, &tv, &ofull[out.st], kN, kvh,
+            tma_tile<L>(kv, &tk, &ofull[out.st], kN, kvh, j0, b);
+            tma_tile<L>(kv + L::kOuterTile, &tv, &ofull[out.st], kN, kvh,
                          j0, b);
           }
-          out.next(2);
+          out.next(kSlots);
           for (int g = 0; g < G; ++g) {
             const int h = kvh * G + g;
             const long long row = ((long long)b * H + h) * Sq;
@@ -401,8 +463,8 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
               if (lane == 0) {
                 uint8_t* qo = L::inner(sm, in.st);
                 mbar_expect_tx(&full[in.st], 2 * L::kInnerTile);
-                tma_tile<HD>(qo, &tq, &full[in.st], kM, h, i0, b);
-                tma_tile<HD>(qo + L::kInnerTile, &tdo, &full[in.st], kM, h,
+                tma_tile<L>(qo, &tq, &full[in.st], kM, h, i0, b);
+                tma_tile<L>(qo + L::kInnerTile, &tdo, &full[in.st], kM, h,
                              i0, b);
               }
               float* ls = L::stats(sm, in.st);
@@ -570,7 +632,7 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           }
         }
         mbar_arrive(&oempty[out.st]);
-        out.next(2);
+        out.next(kSlots);
 
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
@@ -597,13 +659,232 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 // (c): S = Q K^T and dP = dO V^T with the warp's Q and dO rows as A
-// fragments in registers and the K and V tiles as K-major B; dS from
-// those accumulators, rounded to bf16 in registers, as A of dQ += dS K,
-// K read MN-major, one 64-column box of dQ at a time. Rows are 128
-// queries of one head (64 a warpgroup); the key loop stops at the causal
-// diagonal of the block's last query, or at the prefix.
+// (b) at hd 256 (Wg::kSplit): the two warpgroups share one tile of 64
+// keys. Warpgroup 0 computes S^T = K Q^T and P^T, writes P^T (fp32) to
+// shared memory and accumulates dV += P^T dO; warpgroup 1 computes dP^T
+// = V dO^T, reads P^T beside it to form dS^T = P^T o (dP^T - D), and
+// accumulates dK += dS^T Q. K and V are K-major A descriptors, Q and dO
+// K-major B (S^T, dP^T) and MN-major B (dV, dK). One named barrier over
+// the 256 consumer threads a step; two P^T buffers, so warpgroup 0
+// writes one while warpgroup 1 may still read the other, and a buffer is
+// written again only after the next step's barrier, which warpgroup 1
+// reaches once it has read it.
 template <int HD>
-__global__ void __launch_bounds__(Wg<HD>::kThreads, 1)
+__global__ void __launch_bounds__(Wg<HD, false>::kThreads, 1)
+bwd_dkdv_split(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const float* __restrict__ lse, const float* __restrict__ D,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int B, int Sq, int Sk, int H, int KVH, int causal,
+               int prefix_len, float scale_log2, float scale) {
+  using L = Wg<HD, false>;
+  static_assert(L::kSplit, "hd 256's layout");
+  constexpr int kN = L::kOuter, kM = L::kInner, kB = L::kBoxes;
+  extern __shared__ float4 smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  // the TMA lane's arrival with its bytes, and the 32 lanes' cp.async
+  uint64_t* full = init_bars<L>(sm, 1 + 32);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* ofull = empty + L::kStages;
+  uint64_t* oempty = ofull + L::kOuterSlots;
+  const int G = H / KVH;
+  const int n_kt = (Sk + kN - 1) / kN, n_qt = (Sq + kM - 1) / kM;
+  const int items = n_kt * B * KVH;
+  const int tid = threadIdx.x;
+  // query tiles of key tile j0: from its causal start (0 inside the
+  // prefix, or without the mask) to Sq, for each of the G heads
+  auto first_qt = [&](int j0) {
+    return causal && j0 >= prefix_len ? j0 / kM : 0;
+  };
+
+  if (tid >= L::kConsumers) {   // ---------------------------- producer
+    setmaxnreg_dec<40>();
+    if (tid < L::kConsumers + 32) {
+      const int lane = tid & 31;
+      Ring in, out;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int j0 = it % n_kt * kN, bh = it / n_kt;
+        const int b = bh / KVH, kvh = bh % KVH;
+        mbar_wait(&oempty[out.st], out.ph ^ 1);
+        if (lane == 0) {
+          uint8_t* kv = L::outer(sm, out.st);
+          mbar_expect_tx(&ofull[out.st], 2 * L::kOuterTile);
+          tma_tile<L>(kv, &tk, &ofull[out.st], kN, kvh, j0, b);
+          tma_tile<L>(kv + L::kOuterTile, &tv, &ofull[out.st], kN, kvh, j0,
+                      b);
+        }
+        out.next(L::kOuterSlots);
+        for (int g = 0; g < G; ++g) {
+          const int h = kvh * G + g;
+          const long long row = ((long long)b * H + h) * Sq;
+          for (int qt = first_qt(j0); qt < n_qt; ++qt) {
+            const int i0 = qt * kM;
+            mbar_wait(&empty[in.st], in.ph ^ 1);
+            if (lane == 0) {
+              uint8_t* qo = L::inner(sm, in.st);
+              mbar_expect_tx(&full[in.st], 2 * L::kInnerTile);
+              tma_tile<L>(qo, &tq, &full[in.st], kM, h, i0, b);
+              tma_tile<L>(qo + L::kInnerTile, &tdo, &full[in.st], kM, h, i0,
+                          b);
+            }
+            float* ls = L::stats(sm, in.st);
+            const bool ok = i0 + lane < Sq;           // zeros past Sq
+            cp_async4(ls + lane, ok ? lse + row + i0 + lane : lse, ok);
+            cp_async4(ls + kM + lane, ok ? D + row + i0 + lane : D, ok);
+            mbar_arrive_cp_async(&full[in.st]);
+            in.next(L::kStages);
+          }
+        }
+      }
+      cp_async_wait<0>();
+    }
+  } else {                      // ---------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int r0 = warp * 16 + (lane >> 2);   // accumulator rows r0, r0 + 8
+    const int c0 = (lane & 3) * 2;            // columns 8 j + c0 (+ 1)
+    const bool has_dv = wg == 0;              // else dK
+    int xs = 0;                               // the P^T buffer
+    Ring in, out;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int j0 = it % n_kt * kN, bh = it / n_kt;
+      const int b = bh / KVH, kvh = bh % KVH;
+      mbar_wait(&ofull[out.st], out.ph);
+      // K (S^T) or V (dP^T) as A
+      const uint64_t ad = desc_k_major(L::outer(sm, out.st) +
+                                       (has_dv ? 0 : L::kOuterTile));
+      float acc[kB][32];
+#pragma unroll
+      for (int x = 0; x < kB; ++x)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
+
+      auto step = [&](const uint8_t* qo, const float* ls, int i0,
+                      auto kMask) {
+        float s[kM / 2];
+        // Q (S^T) or dO (dP^T) as K-major B; k-step kk: box kk / 4, 32
+        // bytes a step
+        const uint64_t bd = desc_k_major(has_dv ? qo : qo + L::kInnerTile);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(s, ad + (kk / 4) * (L::kOuterBox >> 4) + 2 * (kk % 4),
+                   bd + (kk / 4) * (L::kInnerBox >> 4) + 2 * (kk % 4), kk);
+        wgmma_commit();
+        // this thread's queries' LSE (times log2 e; warpgroup 0) or D
+        // (warpgroup 1), read while the product runs
+        float st[kM / 4];
+#pragma unroll
+        for (int j = 0; j < kM / 4; ++j) {
+          const int c = 8 * (j / 2) + c0 + (j & 1);
+          st[j] = has_dv ? ls[c] * kLog2e : ls[kM + c];
+        }
+        wgmma_wait<0>();
+        fence_regs(s);
+        float* px = L::xch(sm, xs) + (tid & 127);
+        uint32_t af[kM / 16][4];
+        if (has_dv) {
+#pragma unroll
+          for (int i = 0; i < kM / 2; ++i) {
+            const int c = 8 * (i / 4) + c0 + (i & 1);         // query i0 + c
+            bool ok = true;
+            if constexpr (decltype(kMask)::value) {
+              const int j = j0 + r0 + 8 * ((i >> 1) & 1), q = i0 + c;
+              ok = j < Sk && q < Sq && (!causal || j <= q || j < prefix_len);
+            }
+            s[i] = ok ? ex2(fmaf(s[i], scale_log2, -st[2 * (i / 4) + (i & 1)]))
+                      : 0.f;
+            px[i * 128] = s[i];
+          }
+#pragma unroll
+          for (int kk = 0; kk < kM / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              af[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        }
+        bar_sync(1, L::kConsumers);
+        if (!has_dv) {
+#pragma unroll
+          for (int kk = 0; kk < kM / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int i = 8 * kk + 2 * r, j = 2 * (i / 4);
+              af[kk][r] = pack_bf16(px[i * 128] * (s[i] - st[j]),
+                                    px[(i + 1) * 128] * (s[i + 1] - st[j + 1]));
+            }
+        }
+        xs ^= 1;
+        // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1), dO or Q MN-major
+        const uint64_t bt = desc_mn_major(has_dv ? qo + L::kInnerTile : qo);
+        wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < kB; ++x) fence_regs(acc[x]);
+#pragma unroll
+        for (int x = 0; x < kB; ++x)
+#pragma unroll
+          for (int kk = 0; kk < kM / 16; ++kk)
+            wgmma_rs<1>(acc[x], af[kk], bt + x * (L::kInnerBox >> 4) + 128 * kk,
+                        1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int x = 0; x < kB; ++x) fence_regs(acc[x]);
+        fence_regs(af);
+      };
+
+      for (int g = 0; g < G; ++g) {
+        for (int qt = first_qt(j0); qt < n_qt; ++qt) {
+          const int i0 = qt * kM;
+          mbar_wait(&full[in.st], in.ph);
+          // some key of the tile sees some query of this one
+          const bool seen = j0 < Sk && (!causal || j0 < prefix_len ||
+                                        i0 + kM - 1 >= j0);
+          if (seen) {
+            const uint8_t* qo = L::inner(sm, in.st);
+            const float* ls = L::stats(sm, in.st);
+            const bool whole = j0 + kN <= Sk && i0 + kM <= Sq &&
+                               (!causal || j0 + kN - 1 <= i0 ||
+                                j0 + kN <= prefix_len);
+            if (whole) step(qo, ls, i0, std::false_type{});
+            else step(qo, ls, i0, std::true_type{});
+          }
+          mbar_arrive(&empty[in.st]);
+          in.next(L::kStages);
+        }
+      }
+      mbar_arrive(&oempty[out.st]);
+      out.next(L::kOuterSlots);
+
+      __nv_bfloat16* dst = has_dv ? dv : dk;
+      const float f = has_dv ? 1.f : scale;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int j = j0 + r0 + 8 * h2;
+        if (j >= Sk) continue;
+        const long long at = row_off(b, Sk, j, KVH, kvh, HD) + c0;
+#pragma unroll
+        for (int x = 0; x < kB; ++x)
+#pragma unroll
+          for (int d = 0; d < 8; ++d)
+            *reinterpret_cast<uint32_t*>(dst + at + 64 * x + d * 8) =
+                pack_bf16(acc[x][4 * d + 2 * h2] * f,
+                          acc[x][4 * d + 2 * h2 + 1] * f);
+      }
+    }
+  }
+}
+
+// (c): S = Q K^T and dP = dO V^T with the warp's Q and dO rows as A
+// fragments in registers (hd 64 .. 128) or the warpgroup's Q and dO as
+// K-major A in shared memory (hd 256, kQoSmem) and the K and V tiles as
+// K-major B; dS from those accumulators, rounded to bf16 in registers, as
+// A of dQ += dS K, K read MN-major, one 64-column box of dQ at a time.
+// Rows are 128 queries of one head (64 a warpgroup); the key loop stops
+// at the causal diagonal of the block's last query, or at the prefix.
+template <int HD>
+__global__ void __launch_bounds__(Wg<HD, true>::kThreads, 1)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tdo,
              const __grid_constant__ CUtensorMap tk,
@@ -612,14 +893,14 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
              __nv_bfloat16* __restrict__ dq, int B, int Sq, int Sk, int H,
              int KVH, int causal, int prefix_len, float scale_log2,
              float scale) {
-  using L = Wg<HD>;
-  constexpr int kM = L::kOuter, kN = L::kInner;
+  using L = Wg<HD, true>;
+  constexpr int kM = L::kOuter, kN = L::kInner, kSlots = L::kOuterSlots;
   extern __shared__ float4 smem_raw[];
   uint8_t* sm = align1024(smem_raw);
-  uint64_t* full = init_bars<HD>(sm, 1);
+  uint64_t* full = init_bars<L>(sm, 1);
   uint64_t* empty = full + L::kStages;
   uint64_t* ofull = empty + L::kStages;
-  uint64_t* oempty = ofull + 2;
+  uint64_t* oempty = ofull + kSlots;
   const int G = H / KVH;
   const int n_mt = (Sq + kM - 1) / kM, n_pair = (n_mt + 1) / 2;
   const int items = n_pair * B * H;
@@ -643,18 +924,18 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           mbar_wait(&oempty[out.st], out.ph ^ 1);
           uint8_t* qo = L::outer(sm, out.st);
           mbar_expect_tx(&ofull[out.st], 2 * L::kOuterTile);
-          tma_tile<HD>(qo, &tq, &ofull[out.st], kM, h, i0, b);
-          tma_tile<HD>(qo + L::kOuterTile, &tdo, &ofull[out.st], kM, h, i0,
-                       b);
-          out.next(2);
+          tma_tile<L>(qo, &tq, &ofull[out.st], kM, h, i0, b);
+          tma_tile<L>(qo + L::kOuterTile, &tdo, &ofull[out.st], kM, h, i0,
+                      b);
+          out.next(kSlots);
           const int n_t = (keys_below(i0 + kM) + kN - 1) / kN;
           for (int t = 0; t < n_t; ++t) {
             mbar_wait(&empty[in.st], in.ph ^ 1);
             uint8_t* kv = L::inner(sm, in.st);
             mbar_expect_tx(&full[in.st], 2 * L::kInnerTile);
-            tma_tile<HD>(kv, &tk, &full[in.st], kN, kvh, t * kN, b);
-            tma_tile<HD>(kv + L::kInnerTile, &tv, &full[in.st], kN, kvh,
-                         t * kN, b);
+            tma_tile<L>(kv, &tk, &full[in.st], kN, kvh, t * kN, b);
+            tma_tile<L>(kv + L::kInnerTile, &tv, &full[in.st], kN, kvh,
+                        t * kN, b);
             in.next(L::kStages);
           }
         }
@@ -695,10 +976,16 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         const int n_t = (keys_below(i0 + kM) + kN - 1) / kN;
         mbar_wait(&ofull[out.st], out.ph);
         const uint8_t* Qs = L::outer(sm, out.st) + wg * 64 * 128;
-        // this warp's 16 rows of Q and dO as A fragments, for the whole tile
-        uint32_t qf[HD / 16][4], of[HD / 16][4];
-        load_a_sw128(qf, Qs, warp, lane, L::kOuterBox);
-        load_a_sw128(of, Qs + L::kOuterTile, warp, lane, L::kOuterBox);
+        // this warp's 16 rows of Q and dO as A fragments, for the whole
+        // tile; hd 256: the warpgroup's 64 rows as A descriptors
+        constexpr int kQf = L::kQoSmem ? 1 : HD / 16;
+        uint32_t qf[kQf][4], of[kQf][4];
+        if constexpr (!L::kQoSmem) {
+          load_a_sw128(qf, Qs, warp, lane, L::kOuterBox);
+          load_a_sw128(of, Qs + L::kOuterTile, warp, lane, L::kOuterBox);
+        }
+        const uint64_t qad = desc_k_major(Qs);
+        const uint64_t oad = desc_k_major(Qs + L::kOuterTile);
         constexpr int kB = L::kBoxes;
         float dqa[kB][32];
 #pragma unroll
@@ -711,17 +998,27 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           const uint64_t kd = desc_k_major(kv);
           const uint64_t vd = desc_k_major(kv + L::kInnerTile);
           // k-step kk of a K-major tile: box kk / 4, 32 bytes a step
-          auto ks = [](uint64_t d, int kk) {
-            return d + (kk / 4) * (L::kInnerBox >> 4) + 2 * (kk % 4);
+          auto ks = [](uint64_t d, int kk, int box) {
+            return d + (kk / 4) * (box >> 4) + 2 * (kk % 4);
           };
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            wgmma_rs<0>(s, qf[kk], ks(kd, kk), kk);             // S
+          for (int kk = 0; kk < HD / 16; ++kk) {               // S
+            if constexpr (L::kQoSmem)
+              wgmma_ss(s, ks(qad, kk, L::kOuterBox), ks(kd, kk, L::kInnerBox),
+                       kk);
+            else
+              wgmma_rs<0>(s, qf[kk], ks(kd, kk, L::kInnerBox), kk);
+          }
           wgmma_commit();
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            wgmma_rs<0>(dp, of[kk], ks(vd, kk), kk);            // dP
+          for (int kk = 0; kk < HD / 16; ++kk) {               // dP
+            if constexpr (L::kQoSmem)
+              wgmma_ss(dp, ks(oad, kk, L::kOuterBox), ks(vd, kk, L::kInnerBox),
+                       kk);
+            else
+              wgmma_rs<0>(dp, of[kk], ks(vd, kk, L::kInnerBox), kk);
+          }
           wgmma_commit();
           wgmma_wait<1>();
           fence_regs(s);
@@ -759,8 +1056,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int x = 0; x < kB; ++x) fence_regs(dqa[x]);
           fence_regs(da);
-          fence_regs(qf);   // see load_a_sw128
-          fence_regs(of);
+          if constexpr (!L::kQoSmem) {
+            fence_regs(qf);   // see load_a_sw128
+            fence_regs(of);
+          }
         };
 
         for (int t = 0; t < n_t; ++t) {
@@ -775,7 +1074,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           in.next(L::kStages);
         }
         mbar_arrive(&oempty[out.st]);
-        out.next(2);
+        out.next(kSlots);
 
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
@@ -1003,8 +1302,8 @@ bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, int HD>
 int launch_dot(const void* o, const void* dO, void* D, int B, int Sq, int H,
                cudaStream_t stream) {
-  constexpr int kL = row_lanes(HD * sizeof(T) / 16);
-  const int P = std::min(16, std::max(4, kDotThreads * kDotUnroll / (H * kL)));
+  using C = DotCfg<T, HD>;
+  const int P = std::min(16, std::max(4, kDotThreads * C::kU / (H * C::kL)));
   const int tiles = (Sq + P - 1) / P;
   bwd_dot<T, HD><<<B * tiles, kDotThreads, P * (H + 1) * sizeof(float),
                    stream>>>(static_cast<const T*>(o),
@@ -1019,10 +1318,15 @@ int set_smem(Kern kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// (b)'s and (c)'s dynamic shared memory (the larger of the two at hd 256,
+// where their layouts differ)
 template <typename T, int HD>
-size_t smem_bytes() {
+size_t smem_bytes(int part = 2) {
   if constexpr (std::is_same<T, float>::value) return FmaBwd<HD>::bytes;
-  else return Wg<HD>::bytes;
+  else
+    return part == 0 ? Wg<HD, false>::bytes
+           : part == 1 ? Wg<HD, true>::bytes
+           : std::max(Wg<HD, false>::bytes, Wg<HD, true>::bytes);
 }
 
 // bf16 [B, S, heads, hd] outputs of zeros: the gradient where the other
@@ -1036,7 +1340,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dO,
                 const float* lse, const float* D, void* dk, void* dv, int B,
                 int Sq, int Sk, int H, int KVH, int causal, int prefix_len,
                 float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD>();
+  const size_t smem = smem_bytes<T, HD>(0);
   if constexpr (std::is_same<T, float>::value) {
     const dim3 grid((Sk + FmaBwd<HD>::kN - 1) / FmaBwd<HD>::kN, B * KVH);
     int e = set_smem(bwd_dkdv_fma<HD>, smem);
@@ -1047,7 +1351,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dO,
         static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, KVH,
         causal, prefix_len, scale);
   } else {
-    using L = Wg<HD>;
+    using L = Wg<HD, false>;
     if (Sq == 0) {
       const long long n = (long long)B * Sk * KVH * HD;
       const int e = zero(dk, n, stream);
@@ -1061,13 +1365,21 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dO,
         !encode_rows(&tv, v, HD, KVH, Sk, B, L::kOuter, m))
       return (int)cudaErrorInvalidValue;
     const int n_kt = (Sk + L::kOuter - 1) / L::kOuter;
-    const int items = (n_kt + 1) / 2 * B * KVH;
-    int e = set_smem(bwd_dkdv_wgmma<HD>, smem);
-    if (e) return e;
-    bwd_dkdv_wgmma<HD><<<std::min(items, sm_count()), L::kThreads, smem,
-                         stream>>>(
-        tq, tdo, tk, tv, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), B,
-        Sq, Sk, H, KVH, causal, prefix_len, scale * kLog2e, scale);
+    const int items = (L::kSplit ? n_kt : (n_kt + 1) / 2) * B * KVH;
+    const int grid = std::min(items, sm_count());
+    if constexpr (L::kSplit) {
+      int e = set_smem(bwd_dkdv_split<HD>, smem);
+      if (e) return e;
+      bwd_dkdv_split<HD><<<grid, L::kThreads, smem, stream>>>(
+          tq, tdo, tk, tv, lse, D, static_cast<T*>(dk), static_cast<T*>(dv),
+          B, Sq, Sk, H, KVH, causal, prefix_len, scale * kLog2e, scale);
+    } else {
+      int e = set_smem(bwd_dkdv_wgmma<HD>, smem);
+      if (e) return e;
+      bwd_dkdv_wgmma<HD><<<grid, L::kThreads, smem, stream>>>(
+          tq, tdo, tk, tv, lse, D, static_cast<T*>(dk), static_cast<T*>(dv),
+          B, Sq, Sk, H, KVH, causal, prefix_len, scale * kLog2e, scale);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1077,7 +1389,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
               const float* lse, const float* D, void* dq, int B, int Sq,
               int Sk, int H, int KVH, int causal, int prefix_len, float scale,
               cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD>();
+  const size_t smem = smem_bytes<T, HD>(1);
   if constexpr (std::is_same<T, float>::value) {
     const int rows = Sq * (H / KVH);
     const dim3 grid((rows + FmaBwd<HD>::kN - 1) / FmaBwd<HD>::kN, B * KVH);
@@ -1088,7 +1400,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
         static_cast<const float*>(v), static_cast<const float*>(dO), lse, D,
         static_cast<float*>(dq), Sq, Sk, H, KVH, causal, prefix_len, scale);
   } else {
-    using L = Wg<HD>;
+    using L = Wg<HD, true>;
     if (Sk == 0) return zero(dq, (long long)B * Sq * H * HD, stream);
     CUtensorMap tq, tdo, tk, tv;
     constexpr int m = L::kHdMultiple;
@@ -1112,7 +1424,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
 }  // namespace
 
 // The head dims the backward is built for, one line a width.
-#define BWD_WIDTHS(X) X(64) X(112) X(128)
+#define BWD_WIDTHS(X) X(64) X(112) X(128) X(256)
 
 // Every entry takes contiguous tensors (see the header) and returns the
 // cudaError_t of its launch (0 on success); a width or dtype it was not
@@ -1187,7 +1499,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
 }
 
 // Dynamic shared memory of the dK/dV and dQ launches at (dtype, hd), in
-// bytes (the two share a layout size); 0 for one not built.
+// bytes (the larger of the two where their layouts differ); 0 for one not
+// built.
 extern "C" int flash_attention_bwd_smem_bytes(int dtype, int hd) {
 #define BWD_SMEM(HD)                                                         \
   if (hd == HD) {                                                           \

@@ -36,7 +36,7 @@ HEAD_DIMS = (64, 112, 128, 256)
 # q/k width -> the v width it takes where the two differ
 VALUE_DIMS = {192: 128}
 # the head dims the backward kernels are built for (q/k and v alike)
-BWD_HEAD_DIMS = (64, 112, 128)
+BWD_HEAD_DIMS = (64, 112, 128, 256)
 
 
 @functools.cache

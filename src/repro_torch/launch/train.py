@@ -10,17 +10,18 @@ the CPU and its published width on the card (``full_width_config``, as
 ``--d-model`` takes the reference's reduced config at that width (four
 heads). On the card a width whose head dim the family's backward kernels
 do not take (``backward_head_dims``: kernel 1-bwd's ``BWD_HEAD_DIMS``,
-64, 112 and 128, for attention, 16 and 64 for WKV6; ``--d-model 768``
-gives 192) is refused here, before any step. The dense family, the moe
-family with GQA attention, the ssm family (rwkv6) and the hybrid
+64, 112, 128 and 256, for attention, 16 and 64 for WKV6; ``--d-model
+768`` gives 192) is refused here, before any step. The dense family, the
+moe family with GQA attention, the ssm family (rwkv6) and the hybrid
 (zamba2, its shared attention at hd 112) train
 (``models.transformer.loss_fn``); phi3.5-moe at its published width fits
 one 80 GB card at 2 of its 32 layers, zamba2-7b at 13 of its 81 (2
-groups of 6 Mamba2 layers and a tail layer). The encdec
-and vlm families' losses take ``frames`` or ``patches`` that
-``SyntheticLM`` does not make (nor does the reference's trainer): they
-are refused here, and an encdec model trains through
-``training.make_train_step`` on batches that carry frames. AdamW's
+groups of 6 Mamba2 layers and a tail layer). The encdec and vlm
+families' losses take ``frames`` or ``patches`` that ``SyntheticLM``
+does not make (nor does the reference's trainer): they are refused
+here, and an encdec or vlm model (paligemma-3b whole, hd 256, its
+patches a bidirectional prefix) trains through
+``training.make_train_step`` on batches that carry them. AdamW's
 learning rate defaults to ``default_lr(cfg)``: the reference's 3e-3 for a
 reduced config, 3e-5 at a published width.
 
@@ -61,8 +62,9 @@ from repro_torch.tree import leaves
 def backward_head_dims(cfg: ModelConfig) -> tuple:
     """The head dims the card's backward kernels take for ``cfg``'s
     family: kernel 7-bwd's for the ssm family, kernel 1-bwd's
-    (``flash_attention.BWD_HEAD_DIMS``: 64, 112 and 128) for the
-    attention families, the hybrid's shared attention included."""
+    (``flash_attention.BWD_HEAD_DIMS``: 64, 112, 128 and 256) for the
+    attention families, the hybrid's shared attention and the vlm
+    family's hd 256 included."""
     if cfg.family == "ssm":
         return wkv6.BWD_HEAD_DIMS
     return flash_attention.BWD_HEAD_DIMS

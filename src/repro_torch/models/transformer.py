@@ -298,6 +298,16 @@ def _head(cfg, params, x):
     return Lyr.logits(params["embed"], x, cfg)[:, 0]
 
 
+def _patch_prefix(params, patches, x):
+    """A vlm model's ``patches`` [B,P,d] projected by ``frontend_proj``,
+    in ``x``'s dtype, ahead of the embedded tokens ``x`` [B,S,d]: returns
+    ([B,P+S,d], P)."""
+    proj = params["frontend_proj"]
+    patches = F.linear(torch.as_tensor(patches, device=proj.device)
+                       .to(proj.dtype), proj)
+    return torch.cat([patches.to(x.dtype), x], dim=1), patches.shape[1]
+
+
 def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
                reference: bool = False, wkv_chunk: int = WKV6_CHUNK):
     """Run the whole prompt [B, S]; return (last-token logits, a cache of
@@ -330,11 +340,7 @@ def prefill_fn(cfg: ModelConfig, params, inputs: dict, *,
                                        "pos": pos}
     prefix_len = 0
     if cfg.family == "vlm":
-        proj = params["frontend_proj"]
-        patches = F.linear(torch.as_tensor(inputs["patches"], device=dev)
-                           .to(proj.dtype), proj)
-        x = torch.cat([patches.to(x.dtype), x], dim=1)
-        prefix_len = patches.shape[1]
+        x, prefix_len = _patch_prefix(params, inputs["patches"], x)
         S = x.shape[1]
     pos = torch.full((B,), S, dtype=torch.int32, device=dev)
     positions = torch.arange(S, device=dev)
@@ -368,20 +374,25 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, *,
     ``ops.flash_attention``, the expert GEMMs through
     ``ops.expert_matmul`` and the WKV6 scan through ``ops.wkv6``, which
     autograd differentiates on the CPU and which run kernels 1, 6 and 7
-    and their backward kernels on the card. ``reference=True`` runs the
-    plain versions on any device. The vlm family and the moe family's MLA
-    are not ported here: their attention head dims (256, q/k 192 over v
-    128) are ones kernel 1's backward does not take."""
-    if cfg.family == "vlm" or cfg.use_mla:
-        what = "moe family's MLA" if cfg.use_mla else f"{cfg.family!r}"
+    and their backward kernels on the card. A vlm model projects
+    ``batch["patches"]`` [B,P,d] by ``frontend_proj`` ahead of the
+    embedded tokens, runs every layer with them as a bidirectional prefix
+    (``prefix_len=P``: kernel 1 at hd 256 and its backward on the card),
+    and drops them again after the final norm, before the logits.
+    ``reference=True`` runs the plain versions on any device. The moe
+    family's MLA is not ported here: its attention (q/k 192 over v 128)
+    is one kernel 1's backward does not take."""
+    if cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name}: {what} training is not ported yet (the vlm "
-            "family and MLA wait for kernel 1's backward at their head "
-            "dims)")
+            f"{cfg.name}: the moe family's MLA training is not ported yet "
+            "(it waits for kernel 1's backward at q/k 192 over v 128)")
     dev = _device(params)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = Lyr.embed(params["embed"], tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=dev)
+    prefix_len = 0
+    if cfg.family == "vlm":
+        x, prefix_len = _patch_prefix(params, batch["patches"], x)
+    positions = torch.arange(x.shape[1], device=dev)
     auxes = []
     if cfg.family == "ssm":
         state = RWKV.rwkv6_state_init(cfg, tokens.shape[0], dev)
@@ -395,11 +406,11 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, *,
         cache = ({"enc_kv": _encode(cfg, params, batch["frames"], reference)}
                  if cfg.family == "encdec" else {})
         for i, p in enumerate(params["layers"]):
-            x, _, aux = _layer(cfg, p, x, positions,
+            x, _, aux = _layer(cfg, p, x, positions, prefix_len=prefix_len,
                                enc=_enc_layer(cache, i), reference=reference)
             if aux is not None:
                 auxes.append(aux)
-    x = Lyr.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = Lyr.rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, prefix_len:]
     mask = batch.get("loss_mask")
     loss = Lyr.cross_entropy(
         Lyr.logits(params["embed"], x, cfg),

@@ -1132,10 +1132,14 @@ def test_ops_flash_attention_builds_no_graph_without_grad(gen):
 
 
 def test_flash_attention_fn_refuses_widths_without_a_backward(gen):
-    q = _rnd(gen, (1, 8, 4, 256), torch.bfloat16).requires_grad_()
-    k = _rnd(gen, (1, 8, 4, 256), torch.bfloat16)
+    """MLA's q/k 192 over v 128 runs forward on the card but has no
+    backward kernels: the Function refuses it before any graph is built,
+    and (a) refuses a row of 192."""
+    q = _rnd(gen, (1, 8, 4, 192), torch.bfloat16).requires_grad_()
+    k = _rnd(gen, (1, 8, 4, 192), torch.bfloat16)
+    v = _rnd(gen, (1, 8, 4, 128), torch.bfloat16)
     with pytest.raises(ValueError, match="backward kernels are built for"):
-        ops.flash_attention(q, k, k)
+        ops.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="built for"):
         FA.flash_attention_bwd_dot(q.detach(), q.detach())
 
@@ -1881,3 +1885,170 @@ def test_train_config_takes_the_hybrid_on_the_card(gen):
     assert out["cfg"].resolved_head_dim == 112
     assert FA.flash_attention_bwd_dkdv.launches == 2
     assert all(map(lambda x: x == x and abs(x) < 1e4, out["losses"]))
+
+
+# --------------------------------------- kernel 1's backward at hd 256
+
+# paligemma-3b (8 heads over 1 KV head, hd 256, its 256 patches a
+# bidirectional prefix): (b) splits a 64-key tile's work between its two
+# warpgroups and streams 32-query tiles; (c) takes 128 rows a block and
+# 32-key tiles. Its training microbatch (B 4 x 768, prefix 256), lengths at
+# those tiles' edges (31/33, 63/65, 127/129), prefixes 0, inside a tile, at
+# an edge and longer than Sq, non-causal with Sq != Sk, G = 8 over 1 and
+# G = 1 over 8
+BWD_CASES_256 = [
+    (4, 768, 768, 8, 1, True, 256),
+    (1, 31, 31, 8, 1, True, 0), (1, 33, 33, 8, 1, True, 0),
+    (1, 63, 63, 8, 1, True, 0), (1, 65, 65, 8, 1, True, 0),
+    (1, 127, 127, 8, 1, True, 0), (2, 129, 129, 8, 1, True, 0),
+    (1, 300, 300, 8, 1, True, 0), (1, 300, 300, 8, 1, True, 33),
+    (1, 300, 300, 8, 1, True, 64), (1, 300, 300, 8, 1, True, 129),
+    (1, 200, 200, 8, 1, True, 300),
+    (1, 129, 127, 8, 1, False, 0), (2, 127, 385, 8, 1, False, 0),
+    (1, 257, 257, 8, 8, True, 0), (2, 300, 300, 8, 8, True, 100),
+    (1, 1, 1, 8, 1, True, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,causal,prefix", BWD_CASES_256)
+def test_flash_bwd_kernels_hd256_match_plain(gen, dtype, B, Sq, Sk, H, KVH,
+                                             causal, prefix):
+    """Kernel 1's LSE and its three backward kernels at hd 256 against
+    ``attention_lse_ref`` and ``attention_bwd_ref``, by element and by
+    relative norm."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, B, Sq, Sk, H, KVH,
+                                      causal, prefix, hd=256)
+    kw = dict(causal=causal, prefix_len=prefix)
+    _, lse_want = ref.attention_lse_ref(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(lse, lse_want, atol=tol, rtol=tol)
+    D = FA.flash_attention_bwd_dot(o, do)
+    torch.testing.assert_close(
+        D, (o.float() * do.float()).sum(-1).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+        if Sq > 1:
+            assert _rel_norm(g, w) <= REL_NORM[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_hd256_repeat_and_rows_do_not_depend_on_b(
+        gen, dtype):
+    """No float atomics, and no row's work depends on the others: two
+    backward passes at B 3 (G = 8, a prefix) are bitwise equal, and equal
+    bit for bit to each row's pass alone."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, dtype, 3, 333, 333, 8, 1, True,
+                                      100, hd=256)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do, prefix_len=100)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do, prefix_len=100)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for r in range(3):
+        one = FA.flash_attention_bwd(*(t[r:r + 1].contiguous()
+                                       for t in (q, k, v, o)),
+                                     lse[r:r + 1].contiguous(),
+                                     do[r:r + 1].contiguous(), prefix_len=100)
+        assert all(torch.equal(x[r:r + 1], y) for x, y in zip(a, one))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,H", [(1, 1, 1), (3, 37, 5), (2, 15, 32),
+                                    (1, 4099, 8)])
+def test_flash_bwd_dot_hd256_ragged_rows(gen, dtype, B, Sq, H):
+    """(a) at hd 256, a row of 32 (bf16) or 64 (fp32, two a lane) 16-byte
+    vectors over 32 lanes, at row counts that fill no block."""
+    o, do = (_rnd(gen, (B, Sq, H, 256), dtype) for _ in range(2))
+    D = FA.flash_attention_bwd_dot(o, do)
+    torch.testing.assert_close(
+        D, (o.float() * do.float()).sum(-1).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("views", ["offset", "strided"])
+def test_flash_attention_fn_hd256_grads_match_plain_path(gen, dtype, views):
+    """Autograd through ``ops.flash_attention`` at hd 256, 8 heads over 1
+    and a 40-position prefix (kernel 1 with its LSE, then the three
+    backward kernels, once each) on views the backward kernels do not take
+    as they are (a 2-byte offset into a flat buffer; slices of a fused
+    q/k/v projection), against autograd through the plain version."""
+    B, S, H, hd, prefix = 1, 150, 8, 256, 40
+    if views == "offset":
+        sizes = (B * S * H * hd, B * S * hd, B * S * hd)
+        flat = _rnd(gen, (sum(sizes) + 1,), dtype)
+        ins, at = [], 1
+        for n, h in zip(sizes, (H, 1, 1)):
+            ins.append(flat[at:at + n].view(B, S, h, hd))
+            at += n
+        assert all(t.data_ptr() % 16 for t in ins)
+    else:
+        ins = list(_rnd(gen, (B, S, H + 2, hd), dtype).split([H, 1, 1],
+                                                              dim=2))
+    do = _rnd(gen, (B, S, H, hd), dtype)
+    kernels = (flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    out = {}
+    for name, attend in (("kernel", ops.flash_attention),
+                         ("plain", ref.attention_ref)):
+        ts = [t.detach().requires_grad_() for t in ins]
+        o = attend(*ts, prefix_len=prefix)
+        out[name] = (o, *torch.autograd.grad(o, ts, do))
+    assert [fn.launches for fn in kernels] == [1, 1, 1, 1]
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+
+
+def test_flash_bwd_hd256_fits_shared_memory(gen):
+    """The bf16 dK/dV and dQ layouts at hd 256 fit the 227 KB a block may
+    take (232,448 bytes), and the fp32 bodies' tiles too."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert 0 < FA.bwd_smem_bytes(dtype, 256) <= 232448
+
+
+def test_vlm_loss_grads_kernel_path_match_plain_path(gen):
+    """``loss_fn`` and its gradient at a small fp32 vlm with head dim 256
+    (d 512 over 2 heads and 1 KV head, 2 layers, 8 patches): the kernel
+    path (kernel 1 and its backward kernels, once a layer) against the
+    plain path, every leaf to 1e-4, ``frontend_proj`` among them."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves
+    cfg = reduced(get_config("paligemma-3b"), d_model=512, num_heads=2,
+                  head_dim=256, d_ff=1024, vocab_size=512, dtype="float32")
+    assert (cfg.resolved_head_dim, cfg.num_kv_heads) == (256, 1)
+    params = build(cfg).init_params(gen)
+    assert "frontend_proj" in params
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=96,
+                        global_batch=2).batch(0, "cuda")
+    batch["patches"] = 0.02 * _rnd(gen, (2, cfg.num_prefix_embeddings,
+                                         cfg.d_model), torch.float32)
+    kernels = (flash_attention, FA.flash_attention_bwd_dot,
+               FA.flash_attention_bwd_dkdv, FA.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    got = value_and_grad(build(cfg).loss_fn, params, batch)
+    assert [fn.launches for fn in kernels] == [2, 2, 2, 2]
+    want = value_and_grad(build(cfg, reference=True).loss_fn, params, batch)
+    assert [fn.launches for fn in kernels] == [2, 2, 2, 2]
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5
+    for a, b in zip(leaves(got[1]), leaves(want[1])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_train_config_takes_the_vlm_on_the_card(gen):
+    """paligemma-3b at its published width (hd 256, 8 heads over 1)
+    passes ``train_config``; ``train_loop`` still refuses it, as its
+    batches need patches."""
+    from repro_torch.launch.train import train_config, train_loop
+    cfg = train_config("paligemma-3b", "cuda")
+    assert (cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads,
+            cfg.num_layers) == (256, 8, 1, 18)
+    with pytest.raises(ValueError, match="no frames or patches"):
+        train_loop(arch="paligemma-3b", steps=1, global_batch=1, seq_len=8,
+                   device="cuda", num_layers=1, log_every=0)

@@ -10,7 +10,9 @@ every gradient leaf (two layers of fp32 products, then the backward's
 sums over the batch), for phi3.5-moe too, whose loss adds 0.01 times its
 layers' router aux losses and whose leaves include the router, for
 seamless-m4t-medium, whose batch carries frames (normal x 0.02, as the
-reference's smoke test builds them), and for rwkv6-1.6b; the optimizer 1e-6 (the same fp32 elementwise ops);
+reference's smoke test builds them), for paligemma-3b, whose batch carries
+patches (the same), a bidirectional prefix that the logits drop, and for
+rwkv6-1.6b; the optimizer 1e-6 (the same fp32 elementwise ops);
 three train steps 1e-4 (the gradients' 1e-4 through AdamW, whose update
 is bounded by the learning rate); int8 codes bitwise (the same fp32
 scale, round half to even).
@@ -45,7 +47,8 @@ ARCHS = ("llama3.2-1b", "qwen3-14b")      # dense, and dense with qk-norm
 MOE = "phi3.5-moe-42b-a6.6b"               # moe (GQA): loss + 0.01 * aux
 ENCDEC = "seamless-m4t-medium"             # encdec: the batch has frames
 SSM = "rwkv6-1.6b"                         # ssm: the WKV6 scan
-NEW_FAMILIES = (ENCDEC, SSM)
+VLM = "paligemma-3b"                       # vlm: the batch has patches
+NEW_FAMILIES = (ENCDEC, SSM, VLM)
 LOSS_ARCHS = ARCHS + (MOE,) + NEW_FAMILIES
 
 
@@ -59,6 +62,7 @@ ATTN_CASES = {                  # B, Sq, Sk, H, KVH, hd, causal, prefix
     "causal_g4": (2, 9, 9, 8, 2, 16, True, 0),
     "prefix": (1, 11, 11, 4, 1, 8, True, 4),
     "non_causal": (2, 5, 7, 4, 2, 8, False, 0),
+    "g8_prefix": (2, 13, 13, 8, 1, 16, True, 5),    # paligemma's G = 8
 }
 
 
@@ -264,12 +268,14 @@ def pairs():
 
 def _batch(cfg, B=4, S=16, seed=0):
     """``SyntheticLM`` tokens and labels; an encdec model's batch also
-    carries frames [B, Se, d], normal x 0.02 from ``seed``."""
+    carries frames [B, Se, d], a vlm model's patches [B, P, d], normal x
+    0.02 from ``seed``."""
     batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
                         global_batch=B, seed=seed).batch(0)
-    if cfg.family == "encdec":
+    if cfg.family in ("encdec", "vlm"):
         rng = np.random.default_rng(seed)
-        batch["frames"] = torch.tensor(rng.standard_normal(
+        key = "frames" if cfg.family == "encdec" else "patches"
+        batch[key] = torch.tensor(rng.standard_normal(
             (B, cfg.num_prefix_embeddings, cfg.d_model), np.float32) * 0.02)
     return batch
 
@@ -287,6 +293,8 @@ def test_loss_and_grads_match_reference(pairs, arch):
     jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss_fn))(
         jax.tree.map(jnp.asarray, jparams), _jbatch(batch))
     params = params_from_numpy(jparams, cfg, "cpu")
+    # a vlm model's patch projection is among the leaves held
+    assert cfg.family != "vlm" or "frontend_proj" in params
     flat = [p.requires_grad_() for p in leaves(params)]
     loss = model.loss_fn(params, batch)
     assert abs(float(loss.detach()) - float(jloss)) <= 1e-5
@@ -328,9 +336,9 @@ def test_moe_masked_loss_grads_match_reference(pairs):
 
 @pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_masked_loss_grads_match_reference(pairs, arch):
-    """seamless-m4t-medium's and rwkv6-1.6b's gradients under a
-    ``loss_mask``: every leaf against ``jax.value_and_grad`` of the
-    reference's masked loss."""
+    """seamless-m4t-medium's, rwkv6-1.6b's and paligemma-3b's gradients
+    under a ``loss_mask``: every leaf against ``jax.value_and_grad`` of
+    the reference's masked loss."""
     cfg, model, jm, jparams = pairs[arch]
     batch = _batch(cfg, seed=1)
     mask = (batch["labels"] % 3 > 0).float()
@@ -410,9 +418,10 @@ def test_moe_train_step_matches_reference(pairs):
 
 @pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_new_family_train_step_matches_reference(pairs, arch):
-    """One train step of seamless-m4t-medium (frames in the batch, split
-    with the tokens over 2 microbatches) and of rwkv6-1.6b against the
-    reference's ``make_train_step``: metrics and every parameter."""
+    """One train step of seamless-m4t-medium and paligemma-3b (frames or
+    patches in the batch, split with the tokens over 2 microbatches) and
+    of rwkv6-1.6b against the reference's ``make_train_step``: metrics and
+    every parameter."""
     cfg, model, jm, jparams = pairs[arch]
     jopt, opt = jax_training.AdamW(lr=1e-3), AdamW(lr=1e-3)
     jstep = jax.jit(jax_training.make_train_step(jm.loss_fn, jopt,
@@ -470,12 +479,12 @@ def test_loss_decreases_over_steps():
     assert losses[-1] < losses[0] - 0.3, losses[::5]
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b"])
 def test_loss_fn_refuses_other_families(arch):
-    """Families whose training is not ported raise: vlm (hd 256) and the
-    moe family's MLA model (q/k 192 over v 128), head dims kernel 1's
-    backward does not take. (The hybrid trains:
-    ``tests/test_torch_hybrid_training.py``.)"""
+    """Training that is not ported raises: the moe family's MLA model
+    (q/k 192 over v 128, widths kernel 1's backward does not take). (The
+    hybrid trains: ``tests/test_torch_hybrid_training.py``; the vlm
+    family here.)"""
     cfg = reduced(get_config(arch), dtype="float32")
     model = build(cfg)
     params = model.init_params(torch.Generator().manual_seed(0))
@@ -501,19 +510,23 @@ def test_train_loop_refuses_frames_and_patches(arch):
     ("rwkv6-1.6b", None, True), ("rwkv6-1.6b", 64, True),
     ("rwkv6-1.6b", 512, False), ("llama3.2-1b", 64, False),
     ("seamless-m4t-medium", None, True), ("zamba2-7b", None, True),
-    ("zamba2-7b", 448, True), ("zamba2-7b", 768, False)])
+    ("zamba2-7b", 448, True), ("zamba2-7b", 768, False),
+    ("paligemma-3b", None, True), ("llama3.2-1b", 1024, True),
+    ("llama3.2-1b", 768, False)])
 def test_backward_head_dims_follow_the_family(arch, d_model, ok):
     """``train_config`` on the card checks the head dims of the family's
     own backward kernels: kernel 7-bwd's (16, 64) for the ssm family,
-    kernel 1-bwd's (64, 112, 128) for attention, the hybrid's shared
-    attention at hd 112 included. The rule is checked here from the
-    configs (``train_config`` itself needs a card)."""
+    kernel 1-bwd's (64, 112, 128, 256) for attention, the hybrid's shared
+    attention at hd 112 and paligemma-3b's hd 256 included (``--d-model
+    768`` gives 192, refused). The rule is checked here from the configs
+    (``train_config`` itself needs a card)."""
     from repro_torch.launch.serve import full_width_config
     from repro_torch.launch.train import backward_head_dims
     cfg = (full_width_config(arch) if d_model is None else
            reduced(get_config(arch), d_model=d_model, head_dim=None))
     dims = backward_head_dims(cfg)
-    assert dims == ((16, 64) if cfg.family == "ssm" else (64, 112, 128))
+    assert dims == ((16, 64) if cfg.family == "ssm" else
+                    (64, 112, 128, 256))
     assert (cfg.resolved_head_dim in dims) is ok
 
 
